@@ -1,0 +1,103 @@
+"""Bucketed batch loader with background decode (JAX ``data/loader.py``).
+
+The same batching as the JAX package: ``BucketBatchSampler`` from the reused
+``data/bucketing.py`` forms batches of same-bucket clips, each padded to its
+bucket's length. Decode runs in a thread pool ahead of the device. The JAX
+loader's multi-host row split (and its default read from the JAX runtime) is
+left out; multi-GPU loading is ROADMAP slice 5.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional
+
+import numpy as np
+
+from freesound_classification_tpu.data.bucketing import (
+    BucketBatchSampler,
+    bucket_of,
+    pad_to_length,
+)
+from freesound_classification_tpu_torch.data.dataset import ClipDataset
+
+_PREFETCH = 2  # decoded batches waiting ahead of the device
+
+
+class DataLoader:
+    """Iterable of batch dicts with bucket-static shapes:
+    {"signal": (B, L_bucket) f32, "lengths": (B,) i32, "index": (B,) i64}.
+    """
+
+    def __init__(self, dataset: ClipDataset, sampler: BucketBatchSampler,
+                 num_workers: int = 0):
+        self.dataset = dataset
+        self.sampler = sampler
+        self.num_workers = num_workers
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def _make_batch(self, indices: List[int]) -> dict:
+        b = bucket_of(self.sampler.lengths[indices], self.sampler.ladder)
+        length = int(self.sampler.ladder[int(b.max())])
+        signal = np.zeros((len(indices), length), dtype=np.float32)
+        lengths = np.zeros(len(indices), dtype=np.int32)
+        for row, idx in enumerate(indices):
+            audio = self.dataset.decode(idx)
+            signal[row] = pad_to_length(audio, length)
+            lengths[row] = min(audio.size, length)
+        return {"signal": signal, "lengths": lengths,
+                "index": np.asarray(indices, dtype=np.int64)}
+
+    def __iter__(self) -> Iterator[dict]:
+        batches = list(self.sampler)
+        if self.num_workers <= 0:
+            for indices in batches:
+                yield self._make_batch(indices)
+            return
+
+        out_q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
+        stop = threading.Event()
+
+        def producer():
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                futures = [pool.submit(self._make_batch, idxs)
+                           for idxs in batches]
+                for fut in futures:
+                    if stop.is_set():
+                        fut.cancel()
+                        continue
+                    try:
+                        out_q.put(fut.result())
+                    except Exception as e:  # surfaced to the consumer
+                        out_q.put(e)
+                        return
+            out_q.put(None)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+
+def make_loader(dataset: ClipDataset, ladder,
+                batch_size: Optional[int] = None,
+                max_batch_elems: Optional[int] = None,
+                num_workers: int = 0) -> DataLoader:
+    """An inference loader: every clip once, in bucket order, no shuffle.
+    Give exactly one of ``batch_size`` and ``max_batch_elems``."""
+    sampler = BucketBatchSampler(
+        dataset.lengths, ladder, batch_size=batch_size,
+        max_batch_elems=max_batch_elems, shuffle=False, drop_last=False)
+    return DataLoader(dataset, sampler, num_workers=num_workers)

@@ -1,0 +1,179 @@
+"""Weight bridge from the JAX package's variables to the port's state_dict.
+
+The JAX package keeps a model as two nested dicts of arrays, ``params`` and
+``batch_stats``, keyed as flax names them (``block0/conv/kernel``,
+``block0/resnet/bn1/scale``, ``head/fc1/kernel``, ...). ``from_jax_variables``
+turns them into the port's ``TwoDimensionalCNN`` state_dict: conv kernels go
+HWIO -> OIHW, dense kernels are transposed, BatchNorm scale/bias/mean/var
+become weight/bias/running_mean/running_var.
+
+A fold crosses from a JAX checkpoint to the port as a flat ``.npz`` of those
+arrays keyed by ``/``-joined paths (``params/block0/conv/kernel``, ...):
+``scripts/export_fold_weights.py`` writes it with ``save_fold_npz`` where
+JAX runs, and the port reads it with ``load_fold_npz``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Mapping, Tuple
+
+import numpy as np
+import torch
+
+from freesound_classification_tpu_torch.models.blocks import block_depths
+
+_COLLECTIONS = ("params", "batch_stats")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _map_bn(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+    sd[f"{key}.running_mean"] = _t(s["mean"])
+    sd[f"{key}.running_var"] = _t(s["var"])
+
+
+def _map_conv(sd: dict, key: str, p: Mapping) -> None:
+    # flax (kh, kw, in, out) -> torch (out, in, kh, kw)
+    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]),
+                                          (3, 2, 0, 1)))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _map_linear(sd: dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _map_prelu(sd: dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(p["alpha"])
+
+
+def from_jax_variables(params: Mapping,
+                       batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``TwoDimensionalCNN`` variables -> the port's state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    k = 0
+    while f"block{k}" in params:
+        p, s = params[f"block{k}"], batch_stats[f"block{k}"]
+        pre = f"blocks.{k}"
+        _map_bn(sd, f"{pre}.bn_in", p["bn_in"], s["bn_in"])
+        _map_conv(sd, f"{pre}.conv", p["conv"])
+        _map_bn(sd, f"{pre}.bn_out", p["bn_out"], s["bn_out"])
+        _map_prelu(sd, f"{pre}.prelu", p["prelu"])
+        r, rs = p["resnet"], s["resnet"]
+        for i in (1, 2, 3):
+            _map_conv(sd, f"{pre}.resnet.conv{i}", r[f"conv{i}"])
+            _map_bn(sd, f"{pre}.resnet.bn{i}", r[f"bn{i}"], rs[f"bn{i}"])
+            _map_prelu(sd, f"{pre}.resnet.prelu{i}", r[f"prelu{i}"])
+        k += 1
+    h, hs = params["head"], batch_stats["head"]
+    _map_bn(sd, "head.bn1", h["bn1"], hs["bn1"])
+    _map_linear(sd, "head.fc1", h["fc1"])
+    _map_bn(sd, "head.bn2", h["bn2"], hs["bn2"])
+    _map_prelu(sd, "head.prelu", h["prelu"])
+    _map_linear(sd, "head.fc2", h["fc2"])
+    return sd
+
+
+def _flatten(tree: Mapping, prefix: str, out: dict) -> None:
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            _flatten(value, f"{prefix}{name}/", out)
+        else:
+            out[f"{prefix}{name}"] = np.asarray(value)
+
+
+def save_fold_npz(path: str, params: Mapping, batch_stats: Mapping) -> None:
+    """Write one fold's variables as a flat ``.npz`` at exactly ``path``
+    (through a temporary file, so a reader never sees half a file)."""
+    flat: dict = {}
+    _flatten({"params": params, "batch_stats": batch_stats}, "", flat)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)
+
+
+def load_fold_npz(path: str) -> Tuple[dict, dict]:
+    """Read a ``save_fold_npz`` file back into (params, batch_stats)."""
+    trees: dict = {c: {} for c in _COLLECTIONS}
+    with np.load(path) as data:
+        for key in data.files:
+            collection, *names = key.split("/")
+            if collection not in trees or not names:
+                raise ValueError(f"{path}: unexpected array {key!r}")
+            node = trees[collection]
+            for name in names[:-1]:
+                node = node.setdefault(name, {})
+            node[names[-1]] = data[key]
+    return trees["params"], trees["batch_stats"]
+
+
+def random_jax_variables(
+    num_conv_blocks: int,
+    start_deep_supervision_on: int,
+    conv_base_depth: int,
+    growth_rate: float,
+    n_classes: int,
+    seed: int,
+) -> Tuple[dict, dict]:
+    """Random ``TwoDimensionalCNN`` variables in the JAX package's layout,
+    from a numpy seed: (params, batch_stats) as nested dicts of float32
+    arrays.
+
+    Kernels are LeCun-normal like flax's default init. Biases, BatchNorm
+    statistics and PReLU slopes get small random offsets from flax's
+    constants, so every tensor the bridge maps carries information.
+    """
+    rng = np.random.RandomState(seed)
+
+    def normal(shape, std):
+        return (std * rng.randn(*shape)).astype(np.float32)
+
+    def conv(k, c_in, c_out):
+        return {"kernel": normal((k, k, c_in, c_out),
+                                 (k * k * c_in) ** -0.5),
+                "bias": normal((c_out,), 0.1)}
+
+    def dense(c_in, c_out):
+        return {"kernel": normal((c_in, c_out), c_in ** -0.5),
+                "bias": normal((c_out,), 0.1)}
+
+    def bn(c):
+        p = {"scale": 1.0 + normal((c,), 0.1), "bias": normal((c,), 0.1)}
+        s = {"mean": normal((c,), 0.1),
+             "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+        return p, s
+
+    def prelu(c):
+        return {"alpha": 0.25 + normal((c,), 0.05)}
+
+    params: dict = {}
+    stats: dict = {}
+    depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
+    for k, (c_in, d) in enumerate(zip([2, *depths], depths)):
+        p: dict = {"conv": conv(3, c_in, d), "prelu": prelu(d)}
+        s: dict = {}
+        p["bn_in"], s["bn_in"] = bn(c_in)
+        p["bn_out"], s["bn_out"] = bn(d)
+        r: dict = {}
+        rs: dict = {}
+        for i, size in ((1, 1), (2, 3), (3, 1)):
+            r[f"conv{i}"] = conv(size, d, d)
+            r[f"bn{i}"], rs[f"bn{i}"] = bn(d)
+            r[f"prelu{i}"] = prelu(d)
+        p["resnet"], s["resnet"] = r, rs
+        params[f"block{k}"], stats[f"block{k}"] = p, s
+    width = sum(depths[start_deep_supervision_on:])
+    head: dict = {"fc1": dense(width, width), "prelu": prelu(width),
+                  "fc2": dense(width, n_classes)}
+    head_stats: dict = {}
+    head["bn1"], head_stats["bn1"] = bn(width)
+    head["bn2"], head_stats["bn2"] = bn(width)
+    params["head"], stats["head"] = head, head_stats
+    return params, stats

@@ -1,0 +1,92 @@
+"""The 2d mel-spectrogram CNN (JAX ``models/classifiers.py:TwoDimensionalCNN``).
+
+Public layouts are the JAX package's: the spectrogram arrives as
+(B, H=n_features, W=n_frames, 1) with per-clip valid frame counts, and the
+model returns (B, n_classes) float32 logits. Inside, tensors are NCHW.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from freesound_classification_tpu_torch.models.blocks import (
+    ConvBlock2d,
+    MLPHead,
+    block_depths,
+    mask_time_2d,
+    masked_max_pool_2d,
+)
+
+
+def add_frequency_encoding(x: torch.Tensor) -> torch.Tensor:
+    """Append a linspace(-1, 1, H) channel broadcast over time.
+    x: (B, H, W, C) -> (B, H, W, C + 1)."""
+    b, h, w, _ = x.shape
+    vertical = torch.linspace(-1.0, 1.0, h, device=x.device).to(x.dtype)
+    return torch.cat(
+        [x, vertical[None, :, None, None].expand(b, h, w, 1)], dim=-1)
+
+
+class TwoDimensionalCNN(nn.Module):
+    """2d CNN over log-mel images with max aggregation and deep supervision.
+
+    ``dtype`` is the compute dtype (float32, or bfloat16 for ``--bf16``);
+    parameters stay float32 and logits come out float32.
+    """
+
+    def __init__(
+        self,
+        num_conv_blocks: int = 5,
+        start_deep_supervision_on: int = 2,
+        conv_base_depth: int = 64,
+        growth_rate: float = 2.0,
+        aggregation_type: str = "max",
+        n_classes: int = 80,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if aggregation_type == "rnn":
+            raise NotImplementedError(
+                "aggregation_type='rnn' needs MaskedBiGRU, which the port "
+                "does not have yet (ROADMAP M1.5)")
+        if aggregation_type != "max":
+            raise ValueError(
+                f"unknown aggregation_type {aggregation_type!r}")
+        self.start_deep_supervision_on = start_deep_supervision_on
+        self.dtype = dtype
+        depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
+        # the input carries the spectrogram plus the frequency encoding
+        self.blocks = nn.ModuleList(
+            ConvBlock2d(c_in, d) for c_in, d in zip([2, *depths], depths))
+        self.head = MLPHead(sum(depths[start_deep_supervision_on:]),
+                            n_classes)
+
+    def forward(self, spec: torch.Tensor,
+                frame_lengths: torch.Tensor) -> torch.Tensor:
+        x = add_frequency_encoding(spec.to(self.dtype))
+        h = x.permute(0, 3, 1, 2)  # NHWC -> NCHW (channels_last in memory)
+        lengths = frame_lengths
+        features = []
+        for k, block in enumerate(self.blocks):
+            h = block(h)
+            lengths = torch.clamp(lengths // 2, min=1)
+            h = mask_time_2d(h, lengths)
+            if k >= self.start_deep_supervision_on:
+                features.append(masked_max_pool_2d(h, lengths))
+        return self.head(torch.cat(features, dim=-1)).float()
+
+
+def build_classifier(network, n_classes: int,
+                     dtype: torch.dtype = torch.float32) -> TwoDimensionalCNN:
+    """The 2d CNN from an experiment's ``config.network``
+    (``utils.config.Config`` or any object with those attributes)."""
+    return TwoDimensionalCNN(
+        num_conv_blocks=int(network.num_conv_blocks),
+        start_deep_supervision_on=int(network.start_deep_supervision_on),
+        conv_base_depth=int(network.conv_base_depth),
+        growth_rate=float(network.growth_rate),
+        aggregation_type=network.aggregation_type,
+        n_classes=n_classes,
+        dtype=dtype,
+    )
