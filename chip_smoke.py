@@ -1,29 +1,50 @@
-"""Run the PyTorch port's main path once on one CUDA card, and check it.
+"""Run the PyTorch port's main paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
-The main path is 5-fold inference of the reference-scale 2d mel CNN (6 blocks,
-base depth 64, growth 1.5, max aggregation, deep supervision from block 2, 80
-classes) through the port's predict CLI, in bf16, on ~200 synthetic clips
-with the bench's length distribution (1-15 s at 44.1 kHz). The fold weights
-are random, made from a seed in the JAX package's layout, and reach the port
-through ``interop`` as a JAX-trained fold would.
+Two paths, each driven through the CLI a user would call:
+
+- predict: 5-fold inference of the reference-scale 2d mel CNN (6 blocks,
+  base depth 64, growth 1.5, max aggregation, deep supervision from block 2,
+  80 classes) through the port's predict CLI, in bf16, on ~200 synthetic
+  clips with the bench's length distribution (1-15 s at 44.1 kHz). The fold
+  weights are random, made from a seed in the JAX package's layout, and
+  reach the port through ``interop`` as a JAX-trained fold would.
+- train: the published recipe (scripts/reproduce_reference.sh: 5 blocks,
+  base depth 100, growth 1.5, deep supervision from block 1, dropout 0.5,
+  mel_2048_1024_128, 15 s crops, Adam 1cycle, MixUp 0.5, effects chain
+  0.75, batch 20, bf16) through the port's train CLI, one fold, two short
+  epochs on synthetic labelled clips; its best_model.npz then predicts
+  through the predict CLI.
 
 Phases, each of which raises on failure (none catches its own):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
   2. build: compiles the port's CUDA sources, prints the seconds
   3. K1: the mel kernel against its plain twin at B=128 x 10 s,
-     mel_2048_1024_128, float32: max abs error and CUDA-event times
-  4. main path: the predict CLI with launch counts reset just before it; the
-     CSV's schema and values; K1 launched; the predictions vary across clips
-     by more than the bf16 tolerance, and the same ensemble through K1's
-     plain twin agrees with them; on every batch of the run, K1's log-mel and
-     the float32 ensemble's probabilities agree with the twin's; clips/s
-Then one JSON line of the kernels, and last the device line. Exits non-zero
+     mel_2048_1024_128, float32
+  4. K2: the resample kernel against its plain twin at the effects chain's
+     shape for the bench's train batch (48 of 64 rows x 10 s), and a wrong
+     factor and a shifted wave failing by far
+  5. K3: the phase-vocoder resynthesis against its plain twin at the same
+     shape (n_fft 1024, hop 256), on a real analysis; shifted frames fail
+  6. predict path: the predict CLI with launch counts reset just before
+     it; the CSV's schema and values; K1 launched; the predictions vary
+     across clips by more than the bf16 tolerance, and the same ensemble
+     through K1's plain twin agrees with them; on every batch of the run,
+     K1's log-mel and the float32 ensemble's probabilities agree with the
+     twin's; clips/s
+  7. train path: the train CLI with the counts reset just before it; K1, K2
+     and K3 launched; losses finite; parameters moved; best_model.npz
+     predicts finite probabilities through the predict CLI; steps/s
+  8. float32 step: one train step (no augmentation, TF32 off) on the card
+     against the same step on the CPU: loss 1e-4, gradients over the
+     model's largest gradient 1e-2
+Then one JSON line of the kernels, and last the device line. Kernel times
+are CUDA-event means in turns (kernel, plain, plain, kernel). Exits non-zero
 with no result when CUDA is not available.
 
-Precision: the plain twin's float32 matmul and convolutions run in full
-float32 (TF32 is switched off below), so the comparisons measure the kernel.
+Precision: the plain twins' float32 matmuls and convolutions run in full
+float32 (TF32 is switched off below), so the comparisons measure the kernels.
 """
 
 from __future__ import annotations
@@ -50,9 +71,35 @@ NETWORK = {"num_conv_blocks": 6, "start_deep_supervision_on": 2,
            "aggregation_type": "max"}
 MAX_BATCH_ELEMS = 128 * SR * 10  # the bench's similar-length batch budget
 K1_TOL = 1e-4  # log-mel: float32 sums of 1025 non-negative terms, any order
+# K2: the kernel and its twin do the same float32 operations, each rounded on
+# its own; 1e-6 leaves room for a last-bit difference on samples of ~1
+K2_TOL = 1e-6
+# K3: one bf16 step of the largest output (2^-7 of it): a bf16 re/im or
+# synthesis value flips its rounding where the kernel's sincosf or its
+# tensor-core sums differ in the last float32 bit from the twin's
+K3_REL_TOL = 2.0 ** -7
+CHAIN_ROWS = 48  # round(0.75 * 64): the chain's rows of the bench batch
+CHAIN_LEN = 10 * SR
+PEAK_HBM = 3.35e12  # bytes/s, H100 SXM HBM3
+PEAK_F32 = 67e12  # float32 FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
 ENSEMBLE_BF16_TOL = 2e-2  # probabilities, bf16 model: inputs round to bf16
 ENSEMBLE_F32_TOL = 1e-4  # probabilities, f32 model, every batch
 DEVICE = "cuda"  # one card: the first
+# the published recipe (scripts/reproduce_reference.sh:54-85), one fold
+RECIPE = ["--num_conv_blocks", "5", "--conv_base_depth", "100",
+          "--growth_rate", "1.5", "--start_deep_supervision_on", "1",
+          "--aggregation_type", "max", "--output_dropout", "0.5",
+          "--features", "mel_2048_1024_128", "--max_audio_length", "15",
+          "--optimizer", "adam", "--lr", "0.003",
+          "--scheduler", "1cycle_0.0001_0.005", "--weight_decay", "0.0",
+          "--p_mixup", "0.5", "--p_aug", "0.75", "--batch_size", "20",
+          "--bf16"]
+N_TRAIN_CLIPS = 150  # 5 folds: 120 train clips, 6 steps of 20 per epoch
+TRAIN_EPOCHS = 2
+TRAIN_CLASSES = 8
+STEP_TOL_LOSS = 1e-4
+STEP_TOL_GRAD = 1e-2  # each gradient over the model's largest
 
 
 def log(msg: str) -> None:
@@ -72,6 +119,24 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_in_turns(kernel, plain) -> tuple:
+    """Mean ms of ``kernel`` and ``plain`` over runs in turns (kernel,
+    plain, plain, kernel)."""
+    times = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        times[name].append(cuda_ms(kernel if name == "kernel" else plain))
+    return (float(np.mean(times["kernel"])), float(np.mean(times["plain"])),
+            times)
+
+
+def bound_ms(n_bytes: float, flops: float, peak: float) -> tuple:
+    """The least time for the work: bytes over the HBM rate or operations
+    over their peak rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_HBM * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def phase_device() -> str:
@@ -119,18 +184,145 @@ def phase_k1() -> dict:
         f" (tolerance {K1_TOL:g})")
     if not err <= K1_TOL:
         raise RuntimeError(f"K1 disagrees with its plain twin: {err}")
-    times = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        fn = (kernels.mel_project_log if name == "kernel"
-              else kernels.mel_project_log_reference)
-        times[name].append(cuda_ms(lambda: fn(spec, fb)))
-    ms, plain_ms = (float(np.mean(times[k])) for k in ("kernel", "plain"))
+    ms, plain_ms, times = timed_in_turns(
+        lambda: kernels.mel_project_log(spec, fb),
+        lambda: kernels.mel_project_log_reference(spec, fb))
+    b, f, t = spec.shape
+    m = fb.shape[0]
+    # the work these inputs need: |S| once per bin (3 flops), one FMA per
+    # non-zero filterbank entry per frame, a log per output
+    nnz = int((fb != 0).sum())
+    flops = b * t * (3 * f + 2 * nnz + m)
+    n_bytes = spec.numel() * 8 + fb.numel() * 4 + got.numel() * 4
+    bound, bound_by = bound_ms(n_bytes, flops, PEAK_F32)
     log(f"K1 time: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
-        f"(runs {times})")
+        f"(runs {times}); bound {bound:.4f} ms by {bound_by} "
+        f"({nnz} of {fb.numel()} filterbank entries non-zero)")
     return {"name": "mel_log_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/mel_log.cu",
             "replaces": "freesound_classification_tpu/ops/pallas_kernels.py:40",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def chain_wave(rows: int, length: int, seed: int) -> torch.Tensor:
+    """Tones plus noise at clip-like levels, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.arange(length, device="cuda") / SR
+    freq = 100.0 + 4000.0 * torch.rand(rows, 1, device="cuda", generator=gen)
+    return (0.3 * torch.sin(2 * np.pi * freq * t)
+            + 0.05 * torch.randn(rows, length, device="cuda", generator=gen))
+
+
+def phase_k2() -> dict:
+    from freesound_classification_tpu_torch.ops import kernels
+
+    wave = chain_wave(CHAIN_ROWS, CHAIN_LEN, 1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    # the chain's factors: speed U(0.9, 1.1) x 2^(cents/1200), |cents| < 300
+    factor = (0.9 + 0.2 * torch.rand(CHAIN_ROWS, device="cuda",
+                                     generator=gen)) * torch.exp2(
+        (600 * torch.rand(CHAIN_ROWS, device="cuda", generator=gen) - 300)
+        / 1200)
+    got = kernels.resample_linear(wave, factor)
+    want = kernels.resample_linear_reference(wave, factor)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    wrong_factor = (kernels.resample_linear(wave, factor * 1.001)
+                    - want).abs().max().item()
+    shifted = (kernels.resample_linear(torch.roll(wave, 1, dims=1), factor)
+               - want).abs().max().item()
+    log(f"K2 {tuple(wave.shape)}, factors [{factor.min().item():.3f}, "
+        f"{factor.max().item():.3f}]: max_abs_err {err:.3e} (tolerance "
+        f"{K2_TOL:g}); factor x 1.001 gives {wrong_factor:.3e}, the wave "
+        f"shifted by one sample {shifted:.3e}")
+    if not err <= K2_TOL:
+        raise RuntimeError(f"K2 disagrees with its plain twin: {err}")
+    if not min(wrong_factor, shifted) > 100 * K2_TOL:
+        raise RuntimeError("K2's comparison cannot tell a wrong input")
+    ms, plain_ms, times = timed_in_turns(
+        lambda: kernels.resample_linear(wave, factor),
+        lambda: kernels.resample_linear_reference(wave, factor))
+    # library yardstick: grid_sample computes the same two-tap lerp with
+    # zeros outside, from positions normalized to [-1, 1]
+    pos = (torch.arange(CHAIN_LEN, device="cuda", dtype=torch.float32)[None]
+           * factor[:, None])
+    grid = torch.stack([2 * pos / (CHAIN_LEN - 1) - 1,
+                        torch.zeros_like(pos)], dim=-1)[:, None]
+    image = wave[:, None, None, :]
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            image, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+
+    lib_err = (library()[:, 0, 0] - want).abs().max().item()
+    library_ms = cuda_ms(library)
+    n_bytes = wave.numel() * 4 * 2 + factor.numel() * 4
+    bound, bound_by = bound_ms(n_bytes, 6 * wave.numel(), PEAK_F32)
+    log(f"K2 time: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
+        f"(runs {times}), grid_sample {library_ms:.4f} ms (its max |diff| "
+        f"{lib_err:.2e}); bound {bound:.4f} ms by {bound_by}")
+    return {"name": "resample_kernel", "route": "cuda",
+            "source": "freesound_classification_tpu_torch/csrc/resample.cu",
+            "replaces":
+                "freesound_classification_tpu/ops/pallas_kernels.py:137",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_k3() -> dict:
+    from freesound_classification_tpu_torch.ops import kernels, pv
+
+    n_fft, hop = 1024, 256
+    t_out = (CHAIN_LEN + n_fft // 2) // hop + 2
+    mag, dphi, phase0 = pv.analysis(chain_wave(CHAIN_ROWS, CHAIN_LEN, 3),
+                                    n_fft, hop)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # the chain's stretch rates 1 / 2^(cents/1200), |cents| < 300
+    rate = torch.exp2(-(600 * torch.rand(CHAIN_ROWS, device="cuda",
+                                         generator=gen) - 300) / 1200)
+    icos, isin = (torch.from_numpy(x).cuda().bfloat16()
+                  for x in kernels.synthesis_basis(n_fft))
+    args = (mag, dphi, phase0, rate, icos, isin, hop, t_out)
+    got = kernels.pv_resynth(*args)
+    want = kernels.pv_resynth_reference(*args)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"K3: bad output {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    tol = K3_REL_TOL * want.abs().max().item()
+    frac_diff = (got != want).float().mean().item()
+    shifted = (kernels.pv_resynth(torch.roll(mag, 1, dims=1),
+                                  torch.roll(dphi, 1, dims=1), *args[2:])
+               - want).abs().max().item()
+    log(f"K3 mag {tuple(mag.shape)} -> {tuple(got.shape)}, rates "
+        f"[{rate.min().item():.3f}, {rate.max().item():.3f}]: max_abs_err "
+        f"{err:.3e} (tolerance {tol:.3e}), {100 * frac_diff:.4f}% of samples "
+        f"differ; frames shifted by one give {shifted:.3e}")
+    if not err <= tol:
+        raise RuntimeError(f"K3 disagrees with its plain twin: {err}")
+    if not shifted > 10 * tol:
+        raise RuntimeError("K3's comparison cannot tell shifted frames")
+    ms, plain_ms, times = timed_in_turns(
+        lambda: kernels.pv_resynth(*args),
+        lambda: kernels.pv_resynth_reference(*args))
+    b, t_in, f = mag.shape
+    rows = got.shape[1]  # frames synthesized: t_out + r - 1
+    n_bytes = ((mag.numel() + dphi.numel() + phase0.numel() + b) * 4
+               + 2 * icos.numel() * 2 + got.numel() * 4)
+    bound, bound_by = bound_ms(n_bytes, 2.0 * b * rows * 2 * f * n_fft,
+                               PEAK_BF16)
+    log(f"K3 time: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
+        f"(runs {times}); bound {bound:.4f} ms by {bound_by}")
+    return {"name": "pv_resynth_kernels", "route": "cuda",
+            "source":
+                "freesound_classification_tpu_torch/csrc/pv_resynth.cu",
+            "replaces":
+                "freesound_classification_tpu/ops/pallas_kernels.py:297",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
 def synthetic_clip_lengths(n: int, seed: int = 0) -> np.ndarray:
@@ -339,13 +531,225 @@ def phase_main_path(root: str, smi: str) -> int:
     return launches
 
 
+def write_train_inputs(root: str) -> dict:
+    """Labelled WAVs of 8.5-15 s (all in the 15 s crop's bucket, so every
+    train batch is full), each class marked by its own tone, plus the train
+    CSV and class map."""
+    rng = np.random.RandomState(5)
+    train_dir = os.path.join(root, "train")
+    os.makedirs(train_dir)
+    classes = [f"class_{c}" for c in range(TRAIN_CLASSES)]
+    rows = []
+    for i in range(N_TRAIN_CLIPS):
+        n = int(rng.uniform(8.5, 15.0) * SR)
+        label = [i % TRAIN_CLASSES] + ([(i * 3 + 1) % TRAIN_CLASSES]
+                                       if i % 4 == 0 else [])
+        t = np.arange(n) / SR
+        audio = synthetic_clip(n, rng)
+        for c in label:
+            audio = audio + 0.2 * np.sin(2 * np.pi * 300.0 * (c + 1) * t)
+        fname = f"train{i:03d}.wav"
+        write_wav(os.path.join(train_dir, fname), 0.5 * audio)
+        rows.append((fname, ",".join(classes[c] for c in sorted(set(label)))))
+    train_csv = os.path.join(root, "train.csv")
+    with open(train_csv, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["fname", "labels"])
+        writer.writerows(rows)
+    classmap = os.path.join(root, "train_classmap.json")
+    with open(classmap, "w") as f:
+        json.dump({c: i for i, c in enumerate(classes)}, f)
+    return {"train_dir": train_dir, "train_csv": train_csv,
+            "classmap": classmap, "fnames": [r[0] for r in rows],
+            "classes": classes}
+
+
+def phase_train(root: str, smi: str) -> dict:
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.cli import (
+        predict_2d_cnn,
+        train_2d_cnn,
+    )
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.training.state import (
+        create_model,
+    )
+
+    t0 = time.time()
+    inputs = write_train_inputs(root)
+    log(f"train inputs: {N_TRAIN_CLIPS} labelled clips of 8.5-15 s "
+        f"({time.time() - t0:.1f} s to write)")
+    argv = ["--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE, *RECIPE,
+            "--folds", "0", "--n_folds", "5", "--epochs", str(TRAIN_EPOCHS),
+            "--num_workers", "4", "--log_interval", "1",
+            "--experiments_dir", os.path.join(root, "experiments")]
+    counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
+               "K3": kernels.pv_resynth}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.time()
+    experiment = train_2d_cnn.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log(f"train CLI: {wall:.2f} s for {TRAIN_EPOCHS} epochs of fold 0 "
+        f"(validation and checkpoints included); launches {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"the train path missed a kernel: {launches}")
+
+    with open(os.path.join(experiment.experiment_dir, "results.json")) as f:
+        fold = json.load(f)["fold0"]
+    losses = fold["train_loss"]
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"train losses not finite: {losses}")
+    steps, seconds = fold["train_steps"][-1], fold["train_seconds"][-1]
+    log(f"train epochs: mean loss {losses}, validation lwlrap "
+        f"{fold['metric']:.4f}; last epoch {steps:g} steps in {seconds:.3f} "
+        f"s = {steps / seconds:.3f} steps/s, "
+        f"{fold['train_clips_per_sec'][-1]:.2f} clips/s (batch 20, 15 s "
+        f"bucket, bf16, decode and augmentation included) on {smi}")
+
+    fold_dir = os.path.join(experiment.experiment_dir, "checkpoints",
+                            "fold_0")
+    final, _ = interop.load_fold_npz(os.path.join(fold_dir,
+                                                  "final_model.npz"))
+    fresh, _ = interop.to_jax_variables(create_model(
+        experiment.config.network, TRAIN_CLASSES, torch.bfloat16, 42,
+        torch.device("cpu")).state_dict())
+    blocks = sorted(k for k in final if k.startswith("block"))
+    moved = {k: float(np.abs(final[k]["conv"]["kernel"]
+                             - fresh[k]["conv"]["kernel"]).max())
+             for k in (blocks[0], blocks[-1])}
+    moved["head.fc2"] = float(np.abs(final["head"]["fc2"]["kernel"]
+                                     - fresh["head"]["fc2"]["kernel"]).max())
+    log(f"parameters moved from their init by (max |dw|): {moved}")
+    if not min(moved.values()) > 0:
+        raise RuntimeError("the train path did not move the parameters")
+
+    test_csv = os.path.join(root, "train_test.csv")
+    with open(test_csv, "w") as f:
+        f.write("fname\n" + "".join(n + "\n" for n in inputs["fnames"][:8]))
+    out_csv = os.path.join(root, "train_preds.csv")
+    predict_2d_cnn.main([
+        "--experiment", experiment.experiment_dir, "--test_df", test_csv,
+        "--test_data_dir", inputs["train_dir"],
+        "--classmap", inputs["classmap"], "--output_df", out_csv,
+        "--device", DEVICE, "--bf16", "--folds", "0"])
+    header, fnames, probs = read_predictions(out_csv)
+    if (header != ["fname", *inputs["classes"]]
+            or probs.shape != (8, TRAIN_CLASSES)
+            or not np.isfinite(probs).all()
+            or probs.min() < 0 or probs.max() > 1):
+        raise RuntimeError(f"bad predictions from the trained fold: "
+                           f"{header[:3]} {probs.shape}")
+    log(f"best_model.npz through the predict CLI: {probs.shape} finite "
+        f"probabilities in [{probs.min():.4g}, {probs.max():.4g}]")
+    return launches
+
+
+def phase_f32_step() -> None:
+    """One float32 train step at the recipe's width (dropout 0, no
+    augmentation, TF32 off) on the card and on the CPU from the same
+    weights and batch: K1 on the card, its twin on the CPU.
+
+    Each gradient is divided by the largest gradient of the whole model,
+    not by its own tensor's: the max-pools and PReLUs select among near
+    ties, so a float32 difference in the features flips some selections,
+    and a tensor whose gradient is a small, cancelling sum (a bias ahead of
+    a train-mode BatchNorm) then moves by percents of its own size. The
+    phase prints that effect on the CPU alone: its step fed the card's
+    features against its step fed its own.
+    """
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.models.classifiers import (
+        TwoDimensionalCNN,
+    )
+    from freesound_classification_tpu_torch.models.frontend import Frontend
+    from freesound_classification_tpu_torch.ops import losses
+
+    net = dict(num_conv_blocks=5, start_deep_supervision_on=1,
+               conv_base_depth=100, growth_rate=1.5)
+    params, stats = interop.random_jax_variables(
+        **net, n_classes=TRAIN_CLASSES, seed=11)
+    rng = np.random.RandomState(12)
+    b, length = 6, 5 * SR
+    wave = np.stack([synthetic_clip(length, rng)
+                     for _ in range(b)]).astype(np.float32)
+    lengths = np.full(b, length, np.int32)
+    lengths[1::2] = length * 3 // 4
+    wave[np.arange(length)[None] >= lengths[:, None]] = 0.0
+    labels = (rng.rand(b, TRAIN_CLASSES) < 0.3).astype(np.float32)
+    labels[:, 0] = 1.0
+
+    def features(device):
+        frontend = Frontend(FEATURES, "2d", sr=SR, device=device)
+        return frontend(torch.from_numpy(wave).to(device),
+                        torch.from_numpy(lengths).to(device))
+
+    def step(device, x, fl):
+        model = TwoDimensionalCNN(**net, aggregation_type="max",
+                                  n_classes=TRAIN_CLASSES)
+        model.load_state_dict(interop.from_jax_variables(params, stats))
+        model = model.to(device).train()
+        loss = losses.lsep_loss(model(x.to(device), fl.to(device)),
+                                torch.from_numpy(labels).to(device))
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().cpu().numpy()
+                             for k, p in model.named_parameters()}
+
+    def worst(got, want, per_tensor):
+        """(largest |d|, its tensor): each tensor's difference over the
+        model's largest gradient, or over its own (skipping tensors below
+        1e-4 of the model's largest: zero up to rounding)."""
+        top = max(np.abs(g).max() for g in want.values())
+        diffs = {}
+        for name, g in want.items():
+            scale = np.abs(g).max() if per_tensor else top
+            if scale >= 1e-4 * top:
+                diffs[name] = float(np.abs(got[name] - g).max() / scale)
+        name = max(diffs, key=diffs.get)
+        return diffs[name], name
+
+    x_gpu, fl_gpu = features(DEVICE)
+    x_cpu, fl_cpu = features("cpu")
+    loss_gpu, g_gpu = step(DEVICE, x_gpu, fl_gpu)
+    loss_cpu, g_cpu = step("cpu", x_cpu, fl_cpu)
+    if not (np.isfinite(loss_gpu) and all(np.isfinite(g).all()
+                                          for g in g_gpu.values())):
+        raise RuntimeError("float32 step: card loss or gradients not finite")
+    err, err_name = worst(g_gpu, g_cpu, per_tensor=False)
+    own, own_name = worst(g_gpu, g_cpu, per_tensor=True)
+    _, g_flip = step("cpu", x_gpu.cpu(), fl_gpu.cpu())
+    flip, flip_name = worst(g_flip, g_cpu, per_tensor=True)
+    log(f"float32 step, card against CPU (B={b} x 5 s, recipe width): "
+        f"loss {loss_gpu:.6f} vs {loss_cpu:.6f} (|d| "
+        f"{abs(loss_gpu - loss_cpu):.2e}, tolerance {STEP_TOL_LOSS:g}); "
+        f"gradients over the model's largest: max |d| {err:.2e} at "
+        f"{err_name} (tolerance {STEP_TOL_GRAD:g}); over each tensor's own "
+        f"largest: {own:.2e} at {own_name}, where the CPU's step fed the "
+        f"card's features (max |d| "
+        f"{(x_gpu.cpu() - x_cpu).abs().max().item():.2e}) moves by "
+        f"{flip:.2e} at {flip_name}")
+    if not abs(loss_gpu - loss_cpu) <= STEP_TOL_LOSS:
+        raise RuntimeError("float32 step: the losses disagree")
+    if not err <= STEP_TOL_GRAD:
+        raise RuntimeError("float32 step: the gradients disagree")
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     k1 = phase_k1()
+    k2 = phase_k2()
+    k3 = phase_k3()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         k1["launches"] = phase_main_path(root, smi)
-    log(json.dumps({"kernels": [k1]}))
+        train = phase_train(root, smi)
+    k2["launches"], k3["launches"] = train["K2"], train["K3"]
+    phase_f32_step()
+    log(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

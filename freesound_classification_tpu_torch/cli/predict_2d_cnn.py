@@ -6,21 +6,19 @@
         --test_data_dir test --classmap classmap.json --output_df preds.csv
 
 Reads the experiment's ``config.json`` and each fold's
-``checkpoints/fold_k/best_model.npz`` (written from a JAX checkpoint by
-``scripts/export_fold_weights.py``), runs the fold ensemble over the test
-CSV, and writes ``fname`` plus the sorted class columns. On CUDA the log-mel
+``checkpoints/fold_k/best_model.npz`` (written by the port's train CLI, or
+from a JAX checkpoint by ``scripts/export_fold_weights.py``), runs the fold
+ensemble over the test CSV, and writes ``fname`` plus the sorted class columns. On CUDA the log-mel
 frontend always runs the hand-written kernel K1.
 """
 
 from __future__ import annotations
 
 import argparse
-import csv
 import os
 
 import torch
 
-from freesound_classification_tpu.utils.experiment import Experiment
 from freesound_classification_tpu_torch import interop
 from freesound_classification_tpu_torch.cli import common
 from freesound_classification_tpu_torch.data.dataset import (
@@ -38,6 +36,7 @@ from freesound_classification_tpu_torch.ops import dsp, kernels
 from freesound_classification_tpu_torch.training.ensemble import (
     EnsemblePredictor,
 )
+from freesound_classification_tpu_torch.utils.experiment import Experiment
 
 
 def add_predict_arguments(parser: argparse.ArgumentParser) -> None:
@@ -58,13 +57,15 @@ def add_predict_arguments(parser: argparse.ArgumentParser) -> None:
                         choices=("2d_cnn", "hierarchical_cnn", "backbone_cnn"))
     parser.add_argument("--bf16", action="store_true", default=False,
                         help="bfloat16 model compute (params stay float32)")
+    parser.add_argument("--folds", type=int, nargs="+", default=None,
+                        help="folds to ensemble (default: all n_folds)")
 
 
-def fold_weight_paths(experiment: Experiment) -> list:
-    n_folds = int(experiment.config.data._n_folds)
+def fold_weight_paths(experiment: Experiment, folds=None) -> list:
+    if folds is None:
+        folds = range(int(experiment.config.data._n_folds))
     return [os.path.join(experiment.experiment_dir, "checkpoints",
-                         f"fold_{k}", "best_model.npz")
-            for k in range(n_folds)]
+                         f"fold_{k}", "best_model.npz") for k in folds]
 
 
 def build_predictor(
@@ -72,6 +73,7 @@ def build_predictor(
     device: torch.device,
     dtype: torch.dtype = torch.float32,
     mel_project: dsp.MelProject = kernels.mel_project_log,
+    folds=None,
 ) -> EnsemblePredictor:
     """The fold ensemble of the experiment at ``experiment_dir`` on
     ``device``.
@@ -84,7 +86,7 @@ def build_predictor(
     cfg = experiment.config
     n_classes = int(cfg.data._n_classes)
     models = []
-    for path in fold_weight_paths(experiment):
+    for path in fold_weight_paths(experiment, folds):
         with torch.device("meta"):
             model = build_classifier(cfg.network, n_classes, dtype=dtype)
         model.load_state_dict(
@@ -94,15 +96,6 @@ def build_predictor(
     frontend = Frontend(cfg.data.features, "2d", sr=common.SR, device=device,
                         mel_project=mel_project)
     return EnsemblePredictor(models, frontend, device)
-
-
-def write_predictions(path: str, fnames, class_names, probs) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(["fname", *class_names])
-        for name, row in zip(fnames, probs):
-            writer.writerow([name, *(f"{v:.9g}" for v in row)])
 
 
 def main(argv=None) -> None:
@@ -126,9 +119,10 @@ def main(argv=None) -> None:
     )
     predictor = build_predictor(
         args.experiment, device,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32)
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        folds=args.folds)
     probs = predictor.predict_loader(loader)
-    write_predictions(args.output_df, fnames, class_names, probs)
+    common.write_predictions(args.output_df, fnames, class_names, probs)
     print(f"wrote {args.output_df}")
 
 

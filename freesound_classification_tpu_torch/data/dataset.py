@@ -1,10 +1,9 @@
-"""Clip dataset and CSV manifests (JAX ``data/dataset.py``, inference part).
+"""Clip dataset and CSV manifests (JAX ``data/dataset.py``).
 
-The JAX module binarizes labels through ``data/folds.py``, which imports
-sklearn, so the port keeps its own copy of what prediction needs: the class
-map, the test manifest read with the ``csv`` module, and decode through the
-reused numpy-only ``data/audio_io.py``. Labels and the train-time random crop
-arrive with the train path (ROADMAP slice 2).
+The host keeps what decides shapes: decode, labels binarized through the
+class map, and the train-time random crop of clips longer than
+``max_audio_length``. Everything that changes values but not shapes runs on
+the device (``ops/augment.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +15,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from freesound_classification_tpu.data import audio_io
+from freesound_classification_tpu_torch.data import audio_io
+from freesound_classification_tpu_torch.data.folds import (
+    binarize_label_strings,
+)
 
 
 def load_classmap(path: str) -> dict:
@@ -30,24 +32,51 @@ def class_names_from_classmap(classmap: dict) -> list:
     return [rev[i] for i in sorted(classmap.values())]
 
 
+def read_csv_columns(csv_path: str, columns: Sequence[str]) -> List[list]:
+    """The named columns of a CSV file, each as a list of strings."""
+    with open(csv_path, newline="") as f:
+        reader = csv.DictReader(f)
+        missing = [c for c in columns if c not in (reader.fieldnames or [])]
+        if missing:
+            raise ValueError(f"{csv_path}: no column(s) {missing}")
+        rows = list(reader)
+    return [[row[c] for row in rows] for c in columns]
+
+
 def read_manifest(csv_path: str,
                   data_dir: str) -> Tuple[List[str], List[str]]:
     """(fnames, paths) from a FSDKaggle2019-style CSV with a ``fname``
     column."""
-    with open(csv_path, newline="") as f:
-        reader = csv.DictReader(f)
-        if reader.fieldnames is None or "fname" not in reader.fieldnames:
-            raise ValueError(f"{csv_path}: no 'fname' column")
-        fnames = [row["fname"] for row in reader]
+    (fnames,) = read_csv_columns(csv_path, ["fname"])
     return fnames, [os.path.join(data_dir, name) for name in fnames]
 
 
 class ClipDataset:
-    """Map-style dataset over audio files, decoded at ``sr``."""
+    """Map-style dataset over audio files, decoded at ``sr``, with optional
+    comma-separated label strings binarized through ``classmap`` and an
+    optional train-time random crop to ``max_audio_length`` seconds."""
 
-    def __init__(self, audio_files: Sequence[str], sr: int = 44100):
+    def __init__(
+        self,
+        audio_files: Sequence[str],
+        raw_labels: Optional[Sequence[str]] = None,
+        classmap: Optional[dict] = None,
+        max_audio_length: Optional[float] = None,
+        sr: int = 44100,
+        seed: int = 42,
+    ):
         self.audio_files = list(audio_files)
         self.sr = sr
+        self.max_audio_length = max_audio_length
+        self.seed = seed
+        if raw_labels is not None:
+            if classmap is None:
+                raise ValueError("labels need a classmap")
+            self.labels = binarize_label_strings(
+                [str(v) for v in raw_labels], classmap)
+        else:
+            self.labels = None
+        self.n_classes = len(classmap) if classmap else 0
         self._lengths: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
@@ -55,7 +84,8 @@ class ClipDataset:
 
     @property
     def lengths(self) -> np.ndarray:
-        """Per-clip sample counts at ``sr``, from the WAV headers only."""
+        """Per-clip sample counts at ``sr`` (capped by the crop), from the
+        WAV headers only."""
         if self._lengths is None:
             lens = np.empty(len(self), dtype=np.int64)
             for i, path in enumerate(self.audio_files):
@@ -63,14 +93,35 @@ class ClipDataset:
                 if file_sr != self.sr:
                     n = int(round(n * self.sr / file_sr))
                 lens[i] = n
+            if self.max_audio_length is not None:
+                lens = np.minimum(lens, int(self.max_audio_length * self.sr))
             self._lengths = np.maximum(lens, 1)
         return self._lengths
 
-    def decode(self, index: int) -> np.ndarray:
-        """Clip ``index`` as float32 mono at ``sr`` (at least one sample)."""
+    def decode(self, index: int, train: bool = False,
+               epoch: int = 0) -> np.ndarray:
+        """Clip ``index`` as float32 mono at ``sr`` (at least one sample).
+        Long clips are cropped: at a random offset when training, drawn from
+        a RandomState keyed on (seed, epoch, index) so the loader's threads
+        share no generator, else from the start."""
         audio, file_sr = audio_io.read_wav(self.audio_files[index])
         if file_sr != self.sr:
             audio = audio_io.resample(audio, file_sr, self.sr)
+        if self.max_audio_length is not None:
+            max_len = int(self.max_audio_length * self.sr)
+            if audio.size > max_len:
+                start = 0
+                if train:
+                    rng = np.random.RandomState(
+                        (self.seed * 1_000_003 + epoch * 9_973 + index)
+                        % (2**32))
+                    start = rng.randint(0, audio.size - max_len)
+                audio = audio[start: start + max_len]
         if audio.size == 0:
             audio = np.zeros(1, dtype=np.float32)
         return audio
+
+    def label(self, index: int) -> np.ndarray:
+        if self.labels is None:
+            return np.zeros(self.n_classes, dtype=np.float32)
+        return self.labels[index]

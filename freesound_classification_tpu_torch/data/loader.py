@@ -1,10 +1,11 @@
 """Bucketed batch loader with background decode (JAX ``data/loader.py``).
 
-The same batching as the JAX package: ``BucketBatchSampler`` from the reused
-``data/bucketing.py`` forms batches of same-bucket clips, each padded to its
-bucket's length. Decode runs in a thread pool ahead of the device. The JAX
-loader's multi-host row split (and its default read from the JAX runtime) is
-left out; multi-GPU loading is ROADMAP slice 5.
+``BucketBatchSampler`` forms batches of same-bucket clips, each padded to its
+bucket's length. Decode runs in a thread pool ahead of the device. In train
+mode the batch plan is reshuffled every epoch from epoch-keyed seeds, short
+batches are dropped, and long clips take a random crop keyed on
+(seed, epoch, index). The JAX loader's multi-host row split is left out;
+multi-GPU loading is ROADMAP slice 5.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
-from freesound_classification_tpu.data.bucketing import (
+from freesound_classification_tpu_torch.data.bucketing import (
     BucketBatchSampler,
     bucket_of,
     pad_to_length,
@@ -28,35 +29,48 @@ _PREFETCH = 2  # decoded batches waiting ahead of the device
 
 class DataLoader:
     """Iterable of batch dicts with bucket-static shapes:
-    {"signal": (B, L_bucket) f32, "lengths": (B,) i32, "index": (B,) i64}.
+    {"signal": (B, L_bucket) f32, "lengths": (B,) i32,
+     "labels": (B, C) f32, "index": (B,) i64}.
     """
 
     def __init__(self, dataset: ClipDataset, sampler: BucketBatchSampler,
-                 num_workers: int = 0):
+                 train: bool = False, num_workers: int = 0):
         self.dataset = dataset
         self.sampler = sampler
+        self.train = train
         self.num_workers = num_workers
+        self._epoch = 0
 
     def __len__(self) -> int:
         return len(self.sampler)
 
-    def _make_batch(self, indices: List[int]) -> dict:
+    def _make_batch(self, indices: List[int], epoch: int) -> dict:
         b = bucket_of(self.sampler.lengths[indices], self.sampler.ladder)
         length = int(self.sampler.ladder[int(b.max())])
         signal = np.zeros((len(indices), length), dtype=np.float32)
         lengths = np.zeros(len(indices), dtype=np.int32)
+        labels = np.zeros((len(indices), self.dataset.n_classes),
+                          dtype=np.float32)
         for row, idx in enumerate(indices):
-            audio = self.dataset.decode(idx)
+            audio = self.dataset.decode(idx, train=self.train, epoch=epoch)
             signal[row] = pad_to_length(audio, length)
             lengths[row] = min(audio.size, length)
-        return {"signal": signal, "lengths": lengths,
+            labels[row] = self.dataset.label(idx)
+        return {"signal": signal, "lengths": lengths, "labels": labels,
                 "index": np.asarray(indices, dtype=np.int64)}
 
     def __iter__(self) -> Iterator[dict]:
+        if self.train:
+            # a fresh plan every epoch; the advanced counter keys the crops,
+            # as in the JAX loader
+            if self.sampler.shuffle:
+                self.sampler.set_epoch(self._epoch)
+            self._epoch += 1
+        epoch = self._epoch
         batches = list(self.sampler)
         if self.num_workers <= 0:
             for indices in batches:
-                yield self._make_batch(indices)
+                yield self._make_batch(indices, epoch)
             return
 
         out_q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
@@ -64,7 +78,7 @@ class DataLoader:
 
         def producer():
             with ThreadPoolExecutor(self.num_workers) as pool:
-                futures = [pool.submit(self._make_batch, idxs)
+                futures = [pool.submit(self._make_batch, idxs, epoch)
                            for idxs in batches]
                 for fut in futures:
                     if stop.is_set():
@@ -94,10 +108,14 @@ class DataLoader:
 def make_loader(dataset: ClipDataset, ladder,
                 batch_size: Optional[int] = None,
                 max_batch_elems: Optional[int] = None,
+                train: bool = False, seed: int = 42,
+                size_multiple: int = 1,
                 num_workers: int = 0) -> DataLoader:
-    """An inference loader: every clip once, in bucket order, no shuffle.
-    Give exactly one of ``batch_size`` and ``max_batch_elems``."""
+    """Give exactly one of ``batch_size`` and ``max_batch_elems``. A train
+    loader shuffles per epoch and drops short batches; an inference loader
+    yields every clip once, in bucket order."""
     sampler = BucketBatchSampler(
         dataset.lengths, ladder, batch_size=batch_size,
-        max_batch_elems=max_batch_elems, shuffle=False, drop_last=False)
-    return DataLoader(dataset, sampler, num_workers=num_workers)
+        max_batch_elems=max_batch_elems, shuffle=train, seed=seed,
+        drop_last=train, size_multiple=size_multiple)
+    return DataLoader(dataset, sampler, train=train, num_workers=num_workers)

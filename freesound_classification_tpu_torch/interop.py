@@ -1,4 +1,5 @@
-"""Weight bridge from the JAX package's variables to the port's state_dict.
+"""Weight bridge between the JAX package's variables and the port's
+state_dict, both ways.
 
 The JAX package keeps a model as two nested dicts of arrays, ``params`` and
 ``batch_stats``, keyed as flax names them (``block0/conv/kernel``,
@@ -7,10 +8,13 @@ turns them into the port's ``TwoDimensionalCNN`` state_dict: conv kernels go
 HWIO -> OIHW, dense kernels are transposed, BatchNorm scale/bias/mean/var
 become weight/bias/running_mean/running_var.
 
-A fold crosses from a JAX checkpoint to the port as a flat ``.npz`` of those
-arrays keyed by ``/``-joined paths (``params/block0/conv/kernel``, ...):
-``scripts/export_fold_weights.py`` writes it with ``save_fold_npz`` where
-JAX runs, and the port reads it with ``load_fold_npz``.
+``to_jax_variables`` is the reverse map.
+
+A fold is stored as a flat ``.npz`` of those arrays keyed by ``/``-joined
+paths (``params/block0/conv/kernel``, ...): ``scripts/export_fold_weights.py``
+writes it from a JAX checkpoint, the port's train CLI from a trained model
+(``to_jax_variables`` then ``save_fold_npz``), and the predict CLI reads it
+with ``load_fold_npz``.
 """
 
 from __future__ import annotations
@@ -78,6 +82,58 @@ def from_jax_variables(params: Mapping,
     _map_prelu(sd, "head.prelu", h["prelu"])
     _map_linear(sd, "head.fc2", h["fc2"])
     return sd
+
+
+def to_jax_variables(
+        state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """The port's ``TwoDimensionalCNN`` state_dict -> JAX (params,
+    batch_stats) as nested dicts of float32 numpy arrays: the inverse of
+    ``from_jax_variables``."""
+    def a(key: str) -> np.ndarray:
+        return state_dict[key].detach().to("cpu", torch.float32).numpy()
+
+    def bn(key: str):
+        return ({"scale": a(f"{key}.weight"), "bias": a(f"{key}.bias")},
+                {"mean": a(f"{key}.running_mean"),
+                 "var": a(f"{key}.running_var")})
+
+    def conv(key: str) -> dict:
+        return {"kernel": np.ascontiguousarray(
+                    np.transpose(a(f"{key}.weight"), (2, 3, 1, 0))),
+                "bias": a(f"{key}.bias")}
+
+    def linear(key: str) -> dict:
+        return {"kernel": np.ascontiguousarray(a(f"{key}.weight").T),
+                "bias": a(f"{key}.bias")}
+
+    def prelu(key: str) -> dict:
+        return {"alpha": a(f"{key}.weight")}
+
+    params: dict = {}
+    stats: dict = {}
+    k = 0
+    while f"blocks.{k}.conv.weight" in state_dict:
+        pre = f"blocks.{k}"
+        p: dict = {"conv": conv(f"{pre}.conv"), "prelu": prelu(f"{pre}.prelu")}
+        s: dict = {}
+        p["bn_in"], s["bn_in"] = bn(f"{pre}.bn_in")
+        p["bn_out"], s["bn_out"] = bn(f"{pre}.bn_out")
+        r: dict = {}
+        rs: dict = {}
+        for i in (1, 2, 3):
+            r[f"conv{i}"] = conv(f"{pre}.resnet.conv{i}")
+            r[f"bn{i}"], rs[f"bn{i}"] = bn(f"{pre}.resnet.bn{i}")
+            r[f"prelu{i}"] = prelu(f"{pre}.resnet.prelu{i}")
+        p["resnet"], s["resnet"] = r, rs
+        params[f"block{k}"], stats[f"block{k}"] = p, s
+        k += 1
+    head: dict = {"fc1": linear("head.fc1"), "prelu": prelu("head.prelu"),
+                  "fc2": linear("head.fc2")}
+    head_stats: dict = {}
+    head["bn1"], head_stats["bn1"] = bn("head.bn1")
+    head["bn2"], head_stats["bn2"] = bn("head.bn2")
+    params["head"], stats["head"] = head, head_stats
+    return params, stats
 
 
 def _flatten(tree: Mapping, prefix: str, out: dict) -> None:

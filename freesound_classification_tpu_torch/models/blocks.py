@@ -1,12 +1,12 @@
-"""Building blocks of the 2d CNN, eval mode, NCHW.
+"""Building blocks of the 2d CNN, NCHW, in eval and train mode.
 
 Counterparts of ``freesound_classification_tpu/models/blocks.py``. The JAX
 package is channels-last; inside the port's model tensors are NCHW (an NHWC
 input permuted to NCHW is already in PyTorch's channels_last memory format,
 which cuDNN keeps through the convolutions). Parameters stay float32 and are
 cast to the activations' dtype at use, as flax does for a ``dtype=bfloat16``
-module. BatchNorm is the eval-mode affine with running statistics; training
-arrives with ROADMAP slice 2.
+module. BatchNorm follows flax's: batch statistics in float32 when training,
+and running statistics updated with the biased batch variance.
 
 ``phase_conv_pool_2d`` of the JAX package is an XLA rewrite of conv3x3 +
 max-pool that gives the same result, so the port runs ``conv2d`` +
@@ -23,6 +23,7 @@ from torch import nn
 
 NEG_INF = -1e30
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 
 
 def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -31,10 +32,17 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 with eps 1e-5: the flax
-    ``nn.BatchNorm(use_running_average=True)`` the JAX blocks run at
-    inference. The affine is folded in float32, then applied in the input's
-    dtype."""
+    """BatchNorm over dim 1 with eps 1e-5: flax's ``nn.BatchNorm(momentum=
+    0.9)`` as the JAX blocks use it.
+
+    Eval: the affine of the running statistics, folded in float32 and
+    applied in the input's dtype. Train: the batch mean and variance over
+    every dim but 1, in float32 for any input dtype, with flax's fast
+    variance ``max(E[x^2] - E[x]^2, 0)``; the output is computed in float32
+    and cast back. The running statistics move by 0.1 towards the batch's,
+    with the *biased* variance as flax does; ``F.batch_norm`` would use the
+    unbiased one (n/(n-1) times larger, 20/19 for the head's 20 rows).
+    """
 
     def __init__(self, channels: int):
         super().__init__()
@@ -44,9 +52,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight * torch.rsqrt(self.running_var + BN_EPS)
-        shift = self.bias - self.running_mean * scale
-        return x * _per_channel(scale, x) + _per_channel(shift, x)
+        if not self.training:
+            scale = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+            shift = self.bias - self.running_mean * scale
+            return x * _per_channel(scale, x) + _per_channel(shift, x)
+        xf = x.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = xf.mean(dim=dims)
+        var = torch.clamp(
+            (xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(
+                mean.detach(), alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(
+                var.detach(), alpha=1.0 - BN_MOMENTUM)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - _per_channel(mean, xf)) * _per_channel(mul, xf)
+        return (y + _per_channel(self.bias, xf)).to(x.dtype)
 
 
 class PReLU(nn.Module):
@@ -139,19 +161,22 @@ def masked_max_pool_2d(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 class MLPHead(nn.Module):
-    """BN -> Linear -> BN -> PReLU -> Linear(n_classes) (JAX
-    ``blocks.MLPHead``; its dropout is the identity in eval mode)."""
+    """BN -> Linear -> BN -> PReLU -> Dropout -> Linear(n_classes) (JAX
+    ``blocks.MLPHead``). Dropout zeroes with probability ``dropout`` and
+    scales the kept values by 1/(1 - dropout) in train mode, as flax's."""
 
-    def __init__(self, width: int, n_classes: int):
+    def __init__(self, width: int, n_classes: int, dropout: float = 0.0):
         super().__init__()
         self.bn1 = BatchNorm(width)
         self.fc1 = Linear(width, width)
         self.bn2 = BatchNorm(width)
         self.prelu = PReLU(width)
+        self.dropout = dropout
         self.fc2 = Linear(width, n_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.prelu(self.bn2(self.fc1(self.bn1(x))))
+        h = F.dropout(h, self.dropout, training=self.training)
         return self.fc2(h)
 
 
@@ -160,3 +185,28 @@ def block_depths(num_conv_blocks: int, conv_base_depth: int,
     """Per-stage channel widths: int(growth_rate**k * conv_base_depth)."""
     return [int(growth_rate**k * conv_base_depth)
             for k in range(num_conv_blocks)]
+
+
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """Re-initialize ``model`` in place as flax initializes the JAX model:
+    conv and dense kernels LeCun-normal (normal truncated at 2 std, scaled
+    to variance 1/fan_in), biases 0, BatchNorm scale 1 / bias 0 / mean 0 /
+    var 1, PReLU 0.25. The draws come from ``generator``."""
+    # std of a unit normal truncated to [-2, 2], which flax divides out
+    trunc_std = 0.87962566103423978
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Conv2d, nn.Linear)):
+                w = module.weight
+                fan_in = w[0].numel()
+                std = fan_in ** -0.5 / trunc_std
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                module.bias.zero_()
+            elif isinstance(module, BatchNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
+            elif isinstance(module, PReLU):
+                module.weight.fill_(0.25)

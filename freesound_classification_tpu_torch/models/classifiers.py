@@ -32,7 +32,9 @@ class TwoDimensionalCNN(nn.Module):
     """2d CNN over log-mel images with max aggregation and deep supervision.
 
     ``dtype`` is the compute dtype (float32, or bfloat16 for ``--bf16``);
-    parameters stay float32 and logits come out float32.
+    parameters stay float32 and logits come out float32. ``train()`` mode
+    takes BatchNorm statistics from the batch and applies the head's
+    dropout; ``eval()`` uses the running statistics.
     """
 
     def __init__(
@@ -44,6 +46,7 @@ class TwoDimensionalCNN(nn.Module):
         aggregation_type: str = "max",
         n_classes: int = 80,
         dtype: torch.dtype = torch.float32,
+        output_dropout: float = 0.0,
     ):
         super().__init__()
         if aggregation_type == "rnn":
@@ -59,8 +62,10 @@ class TwoDimensionalCNN(nn.Module):
         # the input carries the spectrogram plus the frequency encoding
         self.blocks = nn.ModuleList(
             ConvBlock2d(c_in, d) for c_in, d in zip([2, *depths], depths))
+        # deep supervision: the pooled features of every block from
+        # start_deep_supervision_on on feed the head
         self.head = MLPHead(sum(depths[start_deep_supervision_on:]),
-                            n_classes)
+                            n_classes, dropout=output_dropout)
 
     def forward(self, spec: torch.Tensor,
                 frame_lengths: torch.Tensor) -> torch.Tensor:
@@ -89,4 +94,5 @@ def build_classifier(network, n_classes: int,
         aggregation_type=network.aggregation_type,
         n_classes=n_classes,
         dtype=dtype,
+        output_dropout=float(getattr(network, "output_dropout", 0.0)),
     )

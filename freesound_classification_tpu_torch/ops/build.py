@@ -1,7 +1,8 @@
 """Build the port's CUDA sources into one shared library, at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-``.so`` with a plain C interface, loaded with ``ctypes``. The library lands in
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one ``.so`` with a plain C
+interface, loaded with ``ctypes``. The library lands in
 ``build/torch_kernels/`` at the repository root (git-ignored), named by a hash
 of the sources, the flags and the compiler, so an edited source or flag builds
 anew and an unchanged one is reused. Nothing is built when a module is
@@ -22,7 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -61,8 +62,8 @@ def library_path(nvcc: str) -> Path:
 def build() -> Path:
     """Compile the library unless a build of the same inputs exists.
 
-    The compiler's report (registers, shared memory and spills per kernel,
-    from ``-Xptxas -v``) is kept beside the library as ``<name>.log``.
+    The compilers' reports (registers, shared memory and spills per kernel,
+    from ``-Xptxas -v``) are kept beside the library as ``<name>.log``.
     """
     nvcc = nvcc_path()
     lib = library_path(nvcc)
@@ -70,14 +71,28 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    reports = [proc.communicate()[0] for proc in procs]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objects)]
+    try:
+        for cmd, proc, report in zip(cmds, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{report}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("".join(reports))
     # rename last, so a concurrent process never loads a half-written file
     os.replace(tmp, lib)
     return lib
@@ -93,4 +108,12 @@ def load_library() -> ctypes.CDLL:
     lib.mel_log_launch.argtypes = [ptr, i64, i64, i64, ptr, ptr,
                                    i32, i32, i32, i32, ptr]
     lib.mel_log_launch.restype = i32
+    # int resample_launch(wave, factor, out, B, L, stream) -> cudaError_t
+    lib.resample_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    lib.resample_launch.restype = i32
+    # int pv_resynth_launch(mag, dphi, phase0, rate, basis, tile_sum, a,
+    #                       syn, out, B, t_in, F, bins_pad, n_pad, hop, r,
+    #                       rows, stream) -> cudaError_t
+    lib.pv_resynth_launch.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+    lib.pv_resynth_launch.restype = i32
     return lib

@@ -1,4 +1,5 @@
-"""Audio DSP: feature descriptors, the Slaney mel filterbank, log-mel features.
+"""Audio DSP: feature descriptors, the Slaney mel filterbank, log-mel features,
+and the first-order IIR of the overdrive effect.
 
 Counterpart of ``freesound_classification_tpu/ops/dsp.py`` for the mel
 descriptors. The JAX package computes the STFT as a block-DFT matmul shaped for
@@ -173,3 +174,42 @@ def featurize(
         filterbank = torch.from_numpy(
             mel_filterbank(44100, feat.n_fft, feat.n_mel)).to(x.device)
     return log_mel_spectrogram(x, filterbank, feat.n_fft, feat.hop_size)
+
+
+def iir_first_order(u: torch.Tensor, a: float,
+                    chunk: int = 512) -> torch.Tensor:
+    """y[n] = u[n] + a * y[n-1] along the last axis of (B, L), y[-1] = 0,
+    for |a| <= 1 (JAX ``dsp.iir_first_order``).
+
+    Solved in float32 blocks: inside each block of ``chunk`` samples
+    y = T u with the lower-triangular Toeplitz T[n, k] = a^(n-k); the block
+    ends then carry into the next blocks through a second such product over
+    the block index, weighted by a^(k+1). The products must run in full
+    float32: a TF32 product (about 3 decimal digits) puts ~5e-2 absolute
+    error into the overdrive's DC-blocking filter, so a CUDA input raises
+    unless PyTorch's float32 matmul precision is "highest" (its default).
+    """
+    if u.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "iir_first_order needs full float32 matmuls; "
+            "torch.get_float32_matmul_precision() is "
+            f"{torch.get_float32_matmul_precision()!r} (TF32)")
+    b, length = u.shape
+    nc = -(-length // chunk)
+    uc = torch.nn.functional.pad(u.float(), (0, nc * chunk - length))
+    uc = uc.view(b, nc, chunk)
+    n = np.arange(chunk)
+    delta = n[:, None] - n[None, :]
+    tri = np.where(delta >= 0, float(a) ** np.maximum(delta, 0), 0.0)
+    tri = torch.from_numpy(tri.astype(np.float32)).to(u.device)
+    y_local = uc @ tri.T  # (B, NC, C)
+    i = np.arange(nc)
+    di = i[:, None] - i[None, :]
+    tri2 = np.where(di >= 0, (float(a) ** chunk) ** np.maximum(di, 0), 0.0)
+    tri2 = torch.from_numpy(tri2.astype(np.float32)).to(u.device)
+    ends = y_local[:, :, -1] @ tri2.T  # (B, NC): each block's final y
+    carry_in = torch.nn.functional.pad(ends[:, :-1], (1, 0))
+    decay = torch.from_numpy(
+        (float(a) ** (n + 1)).astype(np.float32)).to(u.device)
+    y = y_local + carry_in[:, :, None] * decay
+    return y.reshape(b, nc * chunk)[:, :length]

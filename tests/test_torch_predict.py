@@ -133,13 +133,14 @@ def _jax_loader(files, num_workers=0):
 def test_manifest_and_loader_batch_as_the_jax_loader(synth):
     fnames, files = read_manifest(synth["test_csv"], synth["test_dir"])
     assert fnames == synth["fnames"] and files == synth["files"]
-    ours = list(make_loader(ClipDataset(files, sr=SR),
+    classmap = {c: i for i, c in enumerate(CLASSES)}
+    ours = list(make_loader(ClipDataset(files, classmap=classmap, sr=SR),
                             common.default_ladder(None), batch_size=4,
                             num_workers=2))
     theirs = list(_jax_loader(files))
     assert len(ours) == len(theirs) == 3
     for a, b in zip(ours, theirs):
-        assert set(a) == {"signal", "lengths", "index"}
+        assert set(a) == {"signal", "lengths", "labels", "index"}
         for key in a:
             np.testing.assert_array_equal(a[key], b[key])
 
