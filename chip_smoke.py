@@ -100,6 +100,29 @@ TRAIN_EPOCHS = 2
 TRAIN_CLASSES = 8
 STEP_TOL_LOSS = 1e-4
 STEP_TOL_GRAD = 1e-2  # each gradient over the model's largest
+# the fused blocks' shapes on the paths: block0 and the deepest block of the
+# hierarchical model over 10 s (215 frames, halved by block0's pool) and of
+# the 2d predict model (128 mels x 215 frames, halved)
+K6_SHAPES = ((128, 64, 215), (128, 486, 6))
+K45_SHAPES = ((128, 64, 64, 215), (128, 486, 2, 6))
+# the hierarchical model at NETWORK's width with the published recipe's
+# optimizer and augmentation flags (the repo publishes no hierarchical recipe)
+HIER_RECIPE = [*(f"--{k}={v}" for k, v in NETWORK.items()),
+               "--features", FEATURES,
+               "--max_audio_length", "15", "--optimizer", "adam",
+               "--lr", "0.003", "--scheduler", "1cycle_0.0001_0.005",
+               "--weight_decay", "0.0", "--p_mixup", "0.5", "--p_aug", "0.75",
+               "--batch_size", "20", "--bf16"]
+HIER_TRAIN_EPOCHS = 2
+FINETUNE_EPOCHS = 1
+# fused against unfused bf16 ensemble probabilities: the bf16 tolerance of
+# the ensemble comparisons above (the two round at different points)
+FUSED_BF16_TOL = 2e-2
+# fused through the kernels against the plain versions: the two round at the
+# same points, but their sums' order flips one bf16 step in up to ~2% of a
+# block's outputs (the K phases), and a flip travels through the later bf16
+# layers as any rounding does; half the bf16 tolerance
+FUSED_PLAIN_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -325,6 +348,136 @@ def phase_k3() -> dict:
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# K6 and K4/K5: the fused eval resnet blocks
+# ---------------------------------------------------------------------------
+
+
+def random_resnet_block(model_kind: str, channels: int, seed: int):
+    """A ResnetBlock1d or ResnetBlock2d of ``channels`` in eval mode on the
+    card, with the random fold weights of ``interop`` (BatchNorm statistics
+    and PReLU slopes away from their defaults)."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.models import blocks
+
+    params, stats = interop.random_jax_variables(
+        num_conv_blocks=1, start_deep_supervision_on=0,
+        conv_base_depth=channels, growth_rate=1.0, n_classes=2, seed=seed,
+        model_kind=model_kind, input_dim=8)
+    pre = "blocks.0.resnet."
+    sd = {k[len(pre):]: v
+          for k, v in interop.from_jax_variables(params, stats).items()
+          if k.startswith(pre)}
+    cls = (blocks.ResnetBlock1d if model_kind == "hierarchical_cnn"
+           else blocks.ResnetBlock2d)
+    block = cls(channels)
+    block.load_state_dict(sd)
+    return block.to(DEVICE).eval()
+
+
+def check_fused_block(label: str, model_kind: str, shape: tuple,
+                      seed: int) -> dict:
+    """One fused block kernel against its plain version at ``shape`` (B, C,
+    T) or (B, C, H, W) in bf16 (2d maps in channels_last memory, as the
+    model holds them), with three wrong inputs that must fail by far:
+    frames shifted by one, another fold's weights, and a plain variant
+    whose conv2 reads a non-zero h1 halo (x zero-padded instead of h1),
+    with b1 raised by 8 so the halo would show. Returns the numbers."""
+    from freesound_classification_tpu_torch.ops import kernels, resnet_infer
+
+    one_d = model_kind == "hierarchical_cnn"
+    kernel = (kernels.resnet_block_1d_fused if one_d
+              else kernels.resnet_block_2d_fused)
+    plain = (kernels.resnet_block_1d_fused_reference if one_d
+             else kernels.resnet_block_2d_fused_reference)
+    fold = (resnet_infer.fold_block_params_1d if one_d
+            else resnet_infer.fold_block_params)
+    channels = shape[1]
+    wts = resnet_infer.fused_weights(
+        random_resnet_block(model_kind, channels, seed), fold)
+    other = resnet_infer.fused_weights(
+        random_resnet_block(model_kind, channels, seed + 1), fold)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(shape, device=DEVICE, generator=gen).to(torch.bfloat16)
+    if not one_d:
+        x = x.contiguous(memory_format=torch.channels_last)
+    got = kernel(x, wts)
+    want = plain(x, wts)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"{label}: bad output {tuple(got.shape)}")
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    # one bf16 step (2^-7 relative) of the largest output
+    tol = 2.0 ** -7 * want.abs().max().item()
+    frac = (got != want).float().mean().item()
+    shifted = (kernel(torch.roll(x, 1, dims=-1), wts).float()
+               - want).abs().max().item()
+    wrong_fold = (kernel(x, other).float() - want).abs().max().item()
+    bias = wts.bias.clone()
+    bias[0, :channels] += 8.0
+    big = wts._replace(bias=bias)
+    want_big = plain(x, big).float()
+    err_big = (kernel(x, big).float() - want_big).abs().max().item()
+    tol_big = 2.0 ** -7 * want_big.abs().max().item()
+    pad = (1, 1) if one_d else (1, 1, 1, 1)
+    crop = (..., slice(1, -1)) if one_d else (..., slice(1, -1),
+                                              slice(1, -1))
+    halo = (plain(torch.nn.functional.pad(x, pad), big).float()[crop]
+            - want_big).abs().max().item()
+    torch.cuda.synchronize()
+    log(f"{label} {tuple(shape)} bf16: max_abs_err {err:.3e} (tolerance "
+        f"{tol:.3e}, one bf16 step of the largest output), "
+        f"{100 * frac:.4f}% of elements differ; frames shifted by one give "
+        f"{shifted:.3e}, another fold's weights {wrong_fold:.3e}; with b1 "
+        f"+8 the kernel gives {err_big:.3e} (tolerance {tol_big:.3e}) and a "
+        f"non-zero h1 halo {halo:.3e}")
+    if not err <= tol:
+        raise RuntimeError(f"{label} disagrees with its plain version: {err}")
+    if not err_big <= tol_big:
+        raise RuntimeError(f"{label} with b1 +8 disagrees: {err_big}")
+    if not min(shifted, wrong_fold) > 10 * tol or not halo > 10 * tol_big:
+        raise RuntimeError(f"{label}'s comparison cannot tell a wrong input")
+    ms, plain_ms, times = timed_in_turns(lambda: kernel(x, wts),
+                                         lambda: plain(x, wts))
+    positions = x[0, 0].numel() * shape[0]
+    taps = 3 if one_d else 9
+    flops = 2.0 * positions * channels * channels * (2 + taps)
+    n_bytes = (2 * x.numel() * 2 + (2 + taps) * channels * channels * 2
+               + 6 * channels * 4)
+    bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
+    log(f"{label} {tuple(shape)} time: kernel {ms:.4f} ms, plain version "
+        f"{plain_ms:.4f} ms (runs {times}); bound {bound:.4f} ms by "
+        f"{bound_by} ({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def phase_k6() -> dict:
+    """K6 at the hierarchical path's first and deepest block shapes."""
+    first = check_fused_block("K6", "hierarchical_cnn", K6_SHAPES[0], 20)
+    check_fused_block("K6", "hierarchical_cnn", K6_SHAPES[1], 22)
+    return {"name": "resnet_block_1d_kernel", "route": "cuda",
+            "source": "freesound_classification_tpu_torch/csrc/"
+                      "resnet_block.cu",
+            "replaces":
+                "freesound_classification_tpu/ops/pallas_resnet1d.py:107",
+            **first, "library_ms": None}
+
+
+def phase_k45() -> dict:
+    """K4/K5 at the 2d predict path's first and deepest block shapes."""
+    first = check_fused_block("K4/K5", "2d_cnn", K45_SHAPES[0], 30)
+    check_fused_block("K4/K5", "2d_cnn", K45_SHAPES[1], 32)
+    return {"name": "resnet_block_2d_kernel", "route": "cuda",
+            "source": "freesound_classification_tpu_torch/csrc/"
+                      "resnet_block.cu",
+            "replaces":
+                "freesound_classification_tpu/ops/pallas_resnet.py:111, "
+                "freesound_classification_tpu/ops/pallas_resnet.py:269",
+            **first, "library_ms": None}
+
+
 def synthetic_clip_lengths(n: int, seed: int = 0) -> np.ndarray:
     """The bench's test length distribution: lognormal, clipped to 1-15 s."""
     rng = np.random.RandomState(seed)
@@ -358,9 +511,8 @@ def write_wav(path: str, audio: np.ndarray) -> None:
 
 
 def write_inputs(root: str) -> dict:
-    """WAVs, test CSV, class map and a 5-fold experiment dir under ``root``."""
-    from freesound_classification_tpu_torch import interop
-
+    """WAVs, test CSV, class map and a 5-fold experiment dir of each family
+    under ``root``."""
     rng = np.random.RandomState(1)
     test_dir = os.path.join(root, "test")
     os.makedirs(test_dir)
@@ -379,7 +531,21 @@ def write_inputs(root: str) -> dict:
     with open(classmap, "w") as f:
         json.dump({c: i for i, c in enumerate(classes)}, f)
 
-    exp = os.path.join(root, "experiment")
+    return {"test_dir": test_dir, "test_csv": test_csv, "classmap": classmap,
+            "experiment": write_experiment(root, "2d_cnn", 100),
+            "hier_experiment": write_experiment(root, "hierarchical_cnn",
+                                                200),
+            "fnames": fnames, "classes": classes}
+
+
+def write_experiment(root: str, model_kind: str, seed: int) -> str:
+    """A ``N_FOLDS``-fold experiment dir of ``model_kind`` at ``NETWORK``'s
+    width over ``FEATURES``, its folds random from ``seed`` in the JAX
+    package's layout, as a JAX-trained experiment exported for the port."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.ops import dsp
+
+    exp = os.path.join(root, f"experiment_{model_kind}")
     config = {"network": NETWORK,
               "data": {"features": FEATURES, "_n_folds": N_FOLDS,
                        "_n_classes": N_CLASSES},
@@ -391,13 +557,14 @@ def write_inputs(root: str) -> dict:
         fold_dir = os.path.join(exp, "checkpoints", f"fold_{k}")
         os.makedirs(fold_dir)
         params, stats = interop.random_jax_variables(
-            **network, n_classes=N_CLASSES, seed=100 + k)
+            **network, n_classes=N_CLASSES, seed=seed + k,
+            model_kind=model_kind,
+            input_dim=dsp.parse_features(FEATURES).n_features)
         interop.save_fold_npz(os.path.join(fold_dir, "best_model.npz"),
                               params, stats)
     with open(os.path.join(exp, "config.json"), "w") as f:
         json.dump(config, f)
-    return {"test_dir": test_dir, "test_csv": test_csv, "classmap": classmap,
-            "experiment": exp, "fnames": fnames, "classes": classes}
+    return exp
 
 
 def read_predictions(path: str):
@@ -407,17 +574,26 @@ def read_predictions(path: str):
         np.array([[float(v) for v in r[1:]] for r in rows[1:]])
 
 
-def phase_main_path(root: str, smi: str) -> int:
-    from freesound_classification_tpu_torch.cli import common, predict_2d_cnn
+def decoded_batches(inputs: dict) -> list:
+    """The predict CLI's host side: the test clips decoded and padded into
+    its bucketed batches (4 threads)."""
+    from freesound_classification_tpu_torch.cli import common
     from freesound_classification_tpu_torch.data.dataset import ClipDataset
     from freesound_classification_tpu_torch.data.loader import make_loader
+
+    return list(make_loader(
+        ClipDataset([os.path.join(inputs["test_dir"], f)
+                     for f in inputs["fnames"]], sr=SR),
+        common.default_ladder(None), max_batch_elems=MAX_BATCH_ELEMS,
+        num_workers=4))
+
+
+def phase_main_path(root: str, inputs: dict, smi: str) -> tuple:
+    """The 2d predict CLI; returns K1's launches and the CSV's
+    probabilities."""
+    from freesound_classification_tpu_torch.cli import predict_2d_cnn
     from freesound_classification_tpu_torch.ops import kernels
 
-    t0 = time.time()
-    inputs = write_inputs(root)
-    secs = float(synthetic_clip_lengths(N_CLIPS).sum()) / SR
-    log(f"inputs: {N_CLIPS} clips, {secs:.1f} s of audio, {N_FOLDS} folds "
-        f"({time.time() - t0:.1f} s to write)")
     out_csv = os.path.join(root, "preds.csv")
     argv = ["--experiment", inputs["experiment"],
             "--test_df", inputs["test_csv"],
@@ -464,13 +640,8 @@ def phase_main_path(root: str, smi: str) -> int:
             f"{ENSEMBLE_BF16_TOL:g} comparison could not tell wrong features")
 
     # the host side of the CLI: decode + pad, then fold models to the card
-    loader = make_loader(
-        ClipDataset([os.path.join(inputs["test_dir"], f)
-                     for f in inputs["fnames"]], sr=SR),
-        common.default_ladder(None), max_batch_elems=MAX_BATCH_ELEMS,
-        num_workers=4)
     t0 = time.time()
-    host = list(loader)
+    host = decoded_batches(inputs)
     decode_s = time.time() - t0
     t0 = time.time()
     kernel_pred = predict_2d_cnn.build_predictor(
@@ -528,7 +699,7 @@ def phase_main_path(root: str, smi: str) -> int:
     log("device sweep over the decoded batches (clips/s, two runs each): "
         + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in sweeps.items())
         + f" on {smi}")
-    return launches
+    return launches, probs
 
 
 def write_train_inputs(root: str) -> dict:
@@ -564,7 +735,7 @@ def write_train_inputs(root: str) -> dict:
             "classes": classes}
 
 
-def phase_train(root: str, smi: str) -> dict:
+def phase_train(root: str, inputs: dict, smi: str) -> dict:
     from freesound_classification_tpu_torch import interop
     from freesound_classification_tpu_torch.cli import (
         predict_2d_cnn,
@@ -575,10 +746,6 @@ def phase_train(root: str, smi: str) -> dict:
         create_model,
     )
 
-    t0 = time.time()
-    inputs = write_train_inputs(root)
-    log(f"train inputs: {N_TRAIN_CLIPS} labelled clips of 8.5-15 s "
-        f"({time.time() - t0:.1f} s to write)")
     argv = ["--train_df", inputs["train_csv"],
             "--train_data_dir", inputs["train_dir"],
             "--classmap", inputs["classmap"], "--device", DEVICE, *RECIPE,
@@ -647,6 +814,277 @@ def phase_train(root: str, smi: str) -> dict:
     log(f"best_model.npz through the predict CLI: {probs.shape} finite "
         f"probabilities in [{probs.min():.4g}, {probs.max():.4g}]")
     return launches
+
+
+def phase_hier_train(root: str, inputs: dict, smi: str) -> tuple:
+    """The hierarchical train CLI at full width; returns the experiment and
+    the K1/K2/K3 launches of its run."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.cli import train_hierarchical_cnn
+    from freesound_classification_tpu_torch.ops import dsp, kernels
+    from freesound_classification_tpu_torch.training.state import (
+        create_model,
+    )
+
+    argv = ["--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE,
+            *HIER_RECIPE, "--folds", "0", "--n_folds", "5",
+            "--epochs", str(HIER_TRAIN_EPOCHS), "--num_workers", "4",
+            "--log_interval", "1", "--label", "hier_pretrain",
+            "--experiments_dir", os.path.join(root, "experiments")]
+    counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
+               "K3": kernels.pv_resynth}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.time()
+    experiment = train_hierarchical_cnn.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log(f"hierarchical train CLI: {wall:.2f} s for {HIER_TRAIN_EPOCHS} "
+        f"epochs of fold 0 (validation and checkpoints included); launches "
+        f"{launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"the hierarchical train path missed a kernel: "
+                           f"{launches}")
+    fold = train_results(experiment, smi)
+    final, _ = interop.load_fold_npz(os.path.join(
+        experiment.experiment_dir, "checkpoints", "fold_0",
+        "final_model.npz"))
+    fresh, _ = interop.to_jax_variables(create_model(
+        experiment.config.network, TRAIN_CLASSES, torch.bfloat16, 42,
+        torch.device("cpu"), model_kind="hierarchical_cnn",
+        input_dim=dsp.parse_features(FEATURES).n_features).state_dict())
+    moved = {k: float(np.abs(final[k]["conv"]["kernel"]
+                             - fresh[k]["conv"]["kernel"]).max())
+             for k in ("block0", f"block{NETWORK['num_conv_blocks'] - 1}")}
+    moved["head.fc2"] = float(np.abs(final["head"]["fc2"]["kernel"]
+                                     - fresh["head"]["fc2"]["kernel"]).max())
+    log(f"hierarchical parameters moved from their init by (max |dw|): "
+        f"{moved}; validation lwlrap {fold['metric']:.4f}")
+    if not min(moved.values()) > 0:
+        raise RuntimeError("the hierarchical train path did not move the "
+                           "parameters")
+    return experiment, launches
+
+
+def train_results(experiment, smi: str) -> dict:
+    """Fold 0's results.json entry, checked finite, with its last epoch's
+    rate logged."""
+    with open(os.path.join(experiment.experiment_dir, "results.json")) as f:
+        fold = json.load(f)["fold0"]
+    losses = fold["train_loss"]
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"train losses not finite: {losses}")
+    steps, seconds = fold["train_steps"][-1], fold["train_seconds"][-1]
+    log(f"  mean losses {losses}; last epoch {steps:g} steps in "
+        f"{seconds:.3f} s = {steps / seconds:.3f} steps/s, "
+        f"{fold['train_clips_per_sec'][-1]:.2f} clips/s (batch 20, 15 s "
+        f"bucket, bf16, decode and augmentation included) on {smi}")
+    return fold
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{name}/")
+        else:
+            yield f"{prefix}{name}", np.asarray(value)
+
+
+def phase_hier_finetune(root: str, inputs: dict, pretrained, smi: str
+                        ) -> None:
+    """The finetune CLI from the pretrained experiment's fold 0, one epoch,
+    asked for fewer blocks (the pretrained config's must win). Its first
+    train step must start from the pretrained weights and statistics
+    exactly."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.cli import (
+        finetune_hierarchical_cnn,
+    )
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.training import engine as eng
+
+    best = os.path.join(pretrained.experiment_dir, "checkpoints", "fold_0",
+                        "best_model.npz")
+    want = dict(_leaves(dict(zip(("params", "batch_stats"),
+                                 interop.load_fold_npz(best)))))
+    first = {}
+    train_step = eng.Engine.train_step
+
+    def checked_step(self, *args, **kwargs):
+        if not first:  # the state the first optimizer step starts from
+            got = dict(_leaves(dict(zip(
+                ("params", "batch_stats"),
+                interop.to_jax_variables(self.model.state_dict())))))
+            first["keys"] = got.keys() == want.keys()
+            first["max_diff"] = max(float(np.abs(got[k] - want[k]).max())
+                                    for k in want) if first["keys"] else None
+        return train_step(self, *args, **kwargs)
+
+    argv = ["--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE,
+            *HIER_RECIPE,
+            "--num_conv_blocks", str(NETWORK["num_conv_blocks"] // 2),
+            "--folds", "0",
+            "--n_folds", "5", "--epochs", str(FINETUNE_EPOCHS),
+            "--num_workers", "4", "--log_interval", "1",
+            "--label", "hier_finetune",
+            "--pretrained_model", pretrained.experiment_dir,
+            "--pretrained_fold", "0",
+            "--experiments_dir", os.path.join(root, "experiments")]
+    kernels.mel_project_log.launches = 0
+    eng.Engine.train_step = checked_step
+    t0 = time.time()
+    try:
+        experiment = finetune_hierarchical_cnn.main(argv)
+    finally:
+        eng.Engine.train_step = train_step
+    torch.cuda.synchronize()
+    log(f"hierarchical finetune CLI: {time.time() - t0:.2f} s for "
+        f"{FINETUNE_EPOCHS} epoch; K1 launches "
+        f"{kernels.mel_project_log.launches}; the first step started from "
+        f"the pretrained fold's arrays: same keys {first.get('keys')}, max "
+        f"|diff| {first.get('max_diff')}")
+    if not (first.get("keys") and first["max_diff"] == 0.0):
+        raise RuntimeError("the finetune CLI did not start from the "
+                           "pretrained weights")
+    if (int(experiment.config.network.num_conv_blocks)
+            != NETWORK["num_conv_blocks"]):
+        raise RuntimeError("the finetune CLI did not take the pretrained "
+                           "architecture")
+    if kernels.mel_project_log.launches <= 0:
+        raise RuntimeError("the finetune path never launched K1")
+    train_results(experiment, smi)
+
+
+class plain_fused_blocks:
+    """Within the block, the fused resnet blocks run their plain PyTorch
+    versions on the card in place of the kernels (to compare the two on
+    the same path)."""
+
+    names = ("resnet_block_1d_fused", "resnet_block_2d_fused")
+
+    def __enter__(self):
+        from freesound_classification_tpu_torch.ops import kernels
+
+        self.saved = {n: getattr(kernels, n) for n in self.names}
+        for n in self.names:
+            setattr(kernels, n, getattr(kernels, f"{n}_reference"))
+
+    def __exit__(self, *exc):
+        from freesound_classification_tpu_torch.ops import kernels
+
+        for n, fn in self.saved.items():
+            setattr(kernels, n, fn)
+
+
+def ensemble_ms_per_batch(predictors: dict, host: list) -> dict:
+    """Mean ms per batch of each predictor over the same decoded batches,
+    by CUDA events, in turns (first, second, second, first)."""
+    batches = [(torch.as_tensor(b["signal"], device=DEVICE),
+                torch.as_tensor(b["lengths"], device=DEVICE)) for b in host]
+    first, second = predictors
+    times = {name: [] for name in predictors}
+    for name in (first, second, second, first):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for wave_, lengths in batches:
+            predictors[name].predict_batch(wave_, lengths)
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end) / len(batches))
+    return times
+
+
+def fused_ensemble(label: str, model_kind: str, experiment: str,
+                   csv_probs: np.ndarray, host: list, counter, smi: str
+                   ) -> int:
+    """The 5-fold bf16 ensemble of ``experiment`` through
+    ``build_predictor(..., fused_infer=True)`` over the decoded batches:
+    the kernel's launches (one per block, fold and batch), the fused
+    probabilities against the unfused CLI's CSV and against the fused path
+    through the plain versions, and the fused and unfused ensembles' ms per
+    batch. Returns the launches."""
+    from freesound_classification_tpu_torch.cli import predict_2d_cnn
+
+    def predictor(fused):
+        return predict_2d_cnn.build_predictor(
+            experiment, torch.device(DEVICE), dtype=torch.bfloat16,
+            model_kind=model_kind, fused_infer=fused)
+
+    unfused, fused = predictor(False), predictor(True)
+    counter.launches = 0
+    probs = fused.predict_loader(host)
+    torch.cuda.synchronize()
+    launches = counter.launches
+    expected = NETWORK["num_conv_blocks"] * N_FOLDS * len(host)
+    with plain_fused_blocks():
+        plain = fused.predict_loader(host)
+    vs_unfused = float(np.abs(probs - csv_probs).max())
+    vs_plain = float(np.abs(probs - plain).max())
+    log(f"{label} fused ensemble ({len(host)} batches): {launches} launches "
+        f"(expected {expected}); probabilities in [{probs.min():.4g}, "
+        f"{probs.max():.4g}]; max |dp| against the unfused CLI's CSV "
+        f"{vs_unfused:.3e} (tolerance {FUSED_BF16_TOL:g}), against the "
+        f"fused path through the plain versions {vs_plain:.3e} (tolerance "
+        f"{FUSED_PLAIN_TOL:g})")
+    if launches != expected:
+        raise RuntimeError(f"{label}: {launches} fused launches, expected "
+                           f"{expected}")
+    if not (np.isfinite(probs).all() and vs_unfused <= FUSED_BF16_TOL):
+        raise RuntimeError(f"{label}: fused ensemble disagrees with the "
+                           f"unfused one: {vs_unfused}")
+    if not vs_plain <= FUSED_PLAIN_TOL:
+        raise RuntimeError(f"{label}: fused ensemble through the kernel "
+                           f"disagrees with the plain versions: {vs_plain}")
+    times = ensemble_ms_per_batch({"unfused": unfused, "fused": fused}, host)
+    log(f"{label} 5-fold bf16 ensemble, ms per batch (mean over the "
+        f"{len(host)} batches, runs in turns): "
+        + ", ".join(f"{k} {np.mean(v):.3f} ({v[0]:.3f} / {v[1]:.3f})"
+                    for k, v in times.items()) + f" on {smi}")
+    return launches
+
+
+def phase_hier_predict(root: str, inputs: dict, host: list, smi: str
+                       ) -> int:
+    """The predict CLI with ``--model_kind hierarchical_cnn`` over the 200
+    test clips, then the same ensemble fused; returns K6's launches."""
+    from freesound_classification_tpu_torch.cli import predict_2d_cnn
+    from freesound_classification_tpu_torch.ops import kernels
+
+    out_csv = os.path.join(root, "hier_preds.csv")
+    t0 = time.time()
+    predict_2d_cnn.main([
+        "--experiment", inputs["hier_experiment"],
+        "--test_df", inputs["test_csv"], "--test_data_dir",
+        inputs["test_dir"], "--classmap", inputs["classmap"],
+        "--output_df", out_csv, "--max_batch_elems", str(MAX_BATCH_ELEMS),
+        "--num_workers", "4", "--device", DEVICE, "--bf16",
+        "--model_kind", "hierarchical_cnn"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    header, fnames, probs = read_predictions(out_csv)
+    if (header != ["fname", *sorted(inputs["classes"])]
+            or fnames != inputs["fnames"]
+            or probs.shape != (N_CLIPS, N_CLASSES)
+            or not np.isfinite(probs).all() or probs.min() < 0
+            or probs.max() > 1):
+        raise RuntimeError(f"bad hierarchical CSV: {probs.shape}")
+    swapped = float(np.abs(probs - np.roll(probs, 1, axis=0)).max())
+    log(f"hierarchical predict CLI: {wall:.3f} s (first run), "
+        f"{N_CLIPS / wall:.2f} clips/s; CSV {probs.shape} in "
+        f"[{probs.min():.4g}, {probs.max():.4g}]; max |dp| between "
+        f"neighbouring clips {swapped:.4g}")
+    if not swapped > 2 * FUSED_BF16_TOL:
+        raise RuntimeError("hierarchical predictions barely depend on the "
+                           "clip")
+    return fused_ensemble("hierarchical", "hierarchical_cnn",
+                          inputs["hier_experiment"], probs, host,
+                          kernels.resnet_block_1d_fused, smi)
 
 
 def phase_f32_step() -> None:
@@ -739,17 +1177,35 @@ def phase_f32_step() -> None:
 
 
 def main() -> None:
+    from freesound_classification_tpu_torch.ops import kernels
+
     smi = phase_device()
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
     k3 = phase_k3()
+    k6 = phase_k6()
+    k45 = phase_k45()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        k1["launches"] = phase_main_path(root, smi)
-        train = phase_train(root, smi)
+        t0 = time.time()
+        inputs = write_inputs(root)
+        train_inputs = write_train_inputs(root)
+        secs = float(synthetic_clip_lengths(N_CLIPS).sum()) / SR
+        log(f"inputs: {N_CLIPS} test clips, {secs:.1f} s of audio, "
+            f"{N_FOLDS} folds of each family; {N_TRAIN_CLIPS} labelled "
+            f"clips of 8.5-15 s ({time.time() - t0:.1f} s to write)")
+        k1["launches"], probs_2d = phase_main_path(root, inputs, smi)
+        host = decoded_batches(inputs)
+        k45["launches"] = fused_ensemble(
+            "2d", "2d_cnn", inputs["experiment"], probs_2d, host,
+            kernels.resnet_block_2d_fused, smi)
+        k6["launches"] = phase_hier_predict(root, inputs, host, smi)
+        train = phase_train(root, train_inputs, smi)
+        pretrained, _ = phase_hier_train(root, train_inputs, smi)
+        phase_hier_finetune(root, train_inputs, pretrained, smi)
     k2["launches"], k3["launches"] = train["K2"], train["K3"]
     phase_f32_step()
-    log(json.dumps({"kernels": [k1, k2, k3]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k45, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

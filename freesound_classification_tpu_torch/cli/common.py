@@ -1,7 +1,8 @@
 """Shared CLI plumbing of the port (JAX ``cli/common.py``): the device, the
-bucket ladder, the train CLI's flag surface and its per-fold driver.
+bucket ladder, the train CLIs' flag surface and their per-fold loop,
+keyed by the model kind (``2d_cnn`` or ``hierarchical_cnn``).
 
-The train driver reads the manifests with the ``csv`` module, splits folds
+The train loop reads the manifests with the ``csv`` module, splits folds
 with the port's own numpy stratification, trains each requested fold with
 the ``Engine``, and writes ``checkpoints/fold_k/{best,final}_model.npz`` and
 ``predictions/val_preds_fold_k.csv``. Test predictions, ``submission.csv``,
@@ -29,7 +30,10 @@ from freesound_classification_tpu_torch.data.folds import (
     train_validation_data_stratified,
 )
 from freesound_classification_tpu_torch.data.loader import make_loader
-from freesound_classification_tpu_torch.models.frontend import Frontend
+from freesound_classification_tpu_torch.models.frontend import (
+    MODEL_FAMILY,
+    Frontend,
+)
 from freesound_classification_tpu_torch.ops.augment import (
     AugmentConfig,
     make_augmenter,
@@ -194,13 +198,18 @@ def experiment_config(args, n_classes: int, input_dim: int) -> dict:
 
 
 def build_engine(args, experiment: Experiment, n_classes: int,
-                 device: torch.device, seed: int = 42) -> Engine:
-    """A fresh model, the frontend (K1), the augmenter (K2, K3) and the
-    engine for one fold."""
+                 device: torch.device, seed: int = 42,
+                 model_kind: str = "2d_cnn") -> Engine:
+    """A fresh ``model_kind`` model, the frontend of its family (K1 for
+    mel features), the augmenter (K2, K3) and the engine for one fold;
+    ``args.warm_start_path``, where the finetune CLI sets it, seeds every
+    fold's model."""
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = create_model(experiment.config.network, n_classes, dtype, seed,
-                         device)
-    frontend = Frontend(args.features, "2d", sr=SR, device=device)
+                         device, model_kind=model_kind,
+                         input_dim=parse_features(args.features).n_features)
+    frontend = Frontend(args.features, MODEL_FAMILY[model_kind], sr=SR,
+                        device=device)
     augment = make_augmenter(AugmentConfig(
         p_mixup=args.p_mixup, p_aug=args.p_aug,
         # chunk shuffle only for non-rnn models, as the reference
@@ -209,7 +218,8 @@ def build_engine(args, experiment: Experiment, n_classes: int,
     return Engine(model, frontend, experiment.config.train, loss=args.loss,
                   augment=augment,
                   checkpoint_dir=experiment.register_directory("checkpoints"),
-                  seed=seed, device=device)
+                  seed=seed, device=device,
+                  warm_start_path=getattr(args, "warm_start_path", None))
 
 
 def write_predictions(path: str, fnames, class_names, probs) -> None:
@@ -222,9 +232,10 @@ def write_predictions(path: str, fnames, class_names, probs) -> None:
             writer.writerow([name, *(f"{v:.9g}" for v in row)])
 
 
-def run_training(args) -> Experiment:
-    """Train each of ``args.folds``: fit and validate, save the final
-    model, reload the best and write its out-of-fold predictions."""
+def run_training(args, model_kind: str = "2d_cnn") -> Experiment:
+    """Train a ``model_kind`` model on each of ``args.folds``: fit and
+    validate, save the final model, reload the best and write its
+    out-of-fold predictions."""
     refuse_unported(args)
     device = resolve_device(args.device)
     class_map = load_classmap(args.classmap)
@@ -263,7 +274,8 @@ def run_training(args) -> Experiment:
             valid_loader = make_loader(valid_ds, full_ladder, **batching)
             # the head's dropout draws from PyTorch's default generator
             torch.manual_seed(args.kfold_seed + fold)
-            engine = build_engine(args, experiment, n_classes, device)
+            engine = build_engine(args, experiment, n_classes, device,
+                                  model_kind=model_kind)
             scores = engine.fit_validate(train_loader, valid_loader,
                                          epochs=args.epochs, fold=fold,
                                          log_interval=args.log_interval)

@@ -6,10 +6,14 @@
         --test_data_dir test --classmap classmap.json --output_df preds.csv
 
 Reads the experiment's ``config.json`` and each fold's
-``checkpoints/fold_k/best_model.npz`` (written by the port's train CLI, or
+``checkpoints/fold_k/best_model.npz`` (written by the port's train CLIs, or
 from a JAX checkpoint by ``scripts/export_fold_weights.py``), runs the fold
-ensemble over the test CSV, and writes ``fname`` plus the sorted class columns. On CUDA the log-mel
-frontend always runs the hand-written kernel K1.
+ensemble over the test CSV, and writes ``fname`` plus the sorted class
+columns. ``--model_kind`` picks the family: ``2d_cnn`` (the default) or
+``hierarchical_cnn``. On CUDA a log-mel frontend always runs the
+hand-written kernel K1. ``build_predictor(..., fused_infer=True)`` runs the
+eval resnet blocks through the fused kernels (K4/K5 in 2d, K6 in 1d); it is
+a library option with no flag, off by default, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ from freesound_classification_tpu_torch.data.loader import make_loader
 from freesound_classification_tpu_torch.models.classifiers import (
     build_classifier,
 )
-from freesound_classification_tpu_torch.models.frontend import Frontend
+from freesound_classification_tpu_torch.models.frontend import (
+    MODEL_FAMILY,
+    Frontend,
+)
 from freesound_classification_tpu_torch.ops import dsp, kernels
 from freesound_classification_tpu_torch.training.ensemble import (
     EnsemblePredictor,
@@ -74,9 +81,12 @@ def build_predictor(
     dtype: torch.dtype = torch.float32,
     mel_project: dsp.MelProject = kernels.mel_project_log,
     folds=None,
+    model_kind: str = "2d_cnn",
+    fused_infer: bool = False,
 ) -> EnsemblePredictor:
-    """The fold ensemble of the experiment at ``experiment_dir`` on
-    ``device``.
+    """The fold ensemble of the ``model_kind`` experiment at
+    ``experiment_dir`` on ``device``; ``fused_infer`` routes the eval-mode
+    resnet blocks through the fused kernels.
 
     The models are built on the ``meta`` device and take the fold arrays as
     their tensors (``assign=True``), so no default init runs only to be
@@ -88,13 +98,16 @@ def build_predictor(
     models = []
     for path in fold_weight_paths(experiment, folds):
         with torch.device("meta"):
-            model = build_classifier(cfg.network, n_classes, dtype=dtype)
+            model = build_classifier(
+                model_kind, cfg.network, n_classes, dtype=dtype,
+                fused_infer=fused_infer,
+                input_dim=dsp.parse_features(cfg.data.features).n_features)
         model.load_state_dict(
             interop.from_jax_variables(*interop.load_fold_npz(path)),
             assign=True)
         models.append(model)
-    frontend = Frontend(cfg.data.features, "2d", sr=common.SR, device=device,
-                        mel_project=mel_project)
+    frontend = Frontend(cfg.data.features, MODEL_FAMILY[model_kind],
+                        sr=common.SR, device=device, mel_project=mel_project)
     return EnsemblePredictor(models, frontend, device)
 
 
@@ -103,10 +116,10 @@ def main(argv=None) -> None:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_predict_arguments(parser)
     args = parser.parse_args(argv)
-    if args.model_kind != "2d_cnn":
+    if args.model_kind == "backbone_cnn":
         raise NotImplementedError(
-            f"--model_kind {args.model_kind}: the port predicts with the 2d "
-            "CNN only so far (ROADMAP M4)")
+            "--model_kind backbone_cnn: the resnet backbone family is not "
+            "ported yet (ROADMAP M4.2)")
     device = common.resolve_device(args.device)
 
     class_names = class_names_from_classmap(load_classmap(args.classmap))
@@ -120,7 +133,7 @@ def main(argv=None) -> None:
     predictor = build_predictor(
         args.experiment, device,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        folds=args.folds)
+        folds=args.folds, model_kind=args.model_kind)
     probs = predictor.predict_loader(loader)
     common.write_predictions(args.output_df, fnames, class_names, probs)
     print(f"wrote {args.output_df}")

@@ -3,10 +3,12 @@ state_dict, both ways.
 
 The JAX package keeps a model as two nested dicts of arrays, ``params`` and
 ``batch_stats``, keyed as flax names them (``block0/conv/kernel``,
-``block0/resnet/bn1/scale``, ``head/fc1/kernel``, ...). ``from_jax_variables``
-turns them into the port's ``TwoDimensionalCNN`` state_dict: conv kernels go
-HWIO -> OIHW, dense kernels are transposed, BatchNorm scale/bias/mean/var
-become weight/bias/running_mean/running_var.
+``block0/resnet/bn1/scale``, ``head/fc1/kernel``, ...). Both classifier
+families the port has, ``TwoDimensionalCNN`` and ``HierarchicalCNN``, use
+the same names, so one map serves both: ``from_jax_variables`` turns them
+into the port's state_dict, conv kernels HWIO -> OIHW (2d) or (k, in, out)
+-> (out, in, k) (1d), dense kernels transposed, BatchNorm
+scale/bias/mean/var to weight/bias/running_mean/running_var.
 
 ``to_jax_variables`` is the reverse map.
 
@@ -42,9 +44,11 @@ def _map_bn(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
 
 
 def _map_conv(sd: dict, key: str, p: Mapping) -> None:
-    # flax (kh, kw, in, out) -> torch (out, in, kh, kw)
-    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]),
-                                          (3, 2, 0, 1)))
+    # flax (kh, kw, in, out) -> torch (out, in, kh, kw); flax (k, in, out)
+    # -> torch (out, in, k)
+    kernel = np.asarray(p["kernel"])
+    order = (3, 2, 0, 1) if kernel.ndim == 4 else (2, 1, 0)
+    sd[f"{key}.weight"] = _t(np.transpose(kernel, order))
     sd[f"{key}.bias"] = _t(p["bias"])
 
 
@@ -59,7 +63,8 @@ def _map_prelu(sd: dict, key: str, p: Mapping) -> None:
 
 def from_jax_variables(params: Mapping,
                        batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """JAX ``TwoDimensionalCNN`` variables -> the port's state_dict."""
+    """JAX ``TwoDimensionalCNN`` or ``HierarchicalCNN`` variables -> the
+    port's state_dict of the same family."""
     sd: dict[str, torch.Tensor] = {}
     k = 0
     while f"block{k}" in params:
@@ -86,9 +91,9 @@ def from_jax_variables(params: Mapping,
 
 def to_jax_variables(
         state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
-    """The port's ``TwoDimensionalCNN`` state_dict -> JAX (params,
-    batch_stats) as nested dicts of float32 numpy arrays: the inverse of
-    ``from_jax_variables``."""
+    """The port's ``TwoDimensionalCNN`` or ``HierarchicalCNN`` state_dict ->
+    JAX (params, batch_stats) as nested dicts of float32 numpy arrays: the
+    inverse of ``from_jax_variables``."""
     def a(key: str) -> np.ndarray:
         return state_dict[key].detach().to("cpu", torch.float32).numpy()
 
@@ -98,8 +103,9 @@ def to_jax_variables(
                  "var": a(f"{key}.running_var")})
 
     def conv(key: str) -> dict:
-        return {"kernel": np.ascontiguousarray(
-                    np.transpose(a(f"{key}.weight"), (2, 3, 1, 0))),
+        w = a(f"{key}.weight")
+        order = (2, 3, 1, 0) if w.ndim == 4 else (2, 1, 0)
+        return {"kernel": np.ascontiguousarray(np.transpose(w, order)),
                 "bias": a(f"{key}.bias")}
 
     def linear(key: str) -> dict:
@@ -177,10 +183,13 @@ def random_jax_variables(
     growth_rate: float,
     n_classes: int,
     seed: int,
+    model_kind: str = "2d_cnn",
+    input_dim: int | None = None,
 ) -> Tuple[dict, dict]:
-    """Random ``TwoDimensionalCNN`` variables in the JAX package's layout,
-    from a numpy seed: (params, batch_stats) as nested dicts of float32
-    arrays.
+    """Random ``TwoDimensionalCNN`` (``model_kind`` "2d_cnn") or
+    ``HierarchicalCNN`` ("hierarchical_cnn", over ``input_dim`` features
+    per frame) variables in the JAX package's layout, from a numpy seed:
+    (params, batch_stats) as nested dicts of float32 arrays.
 
     Kernels are LeCun-normal like flax's default init. Biases, BatchNorm
     statistics and PReLU slopes get small random offsets from flax's
@@ -191,9 +200,18 @@ def random_jax_variables(
     def normal(shape, std):
         return (std * rng.randn(*shape)).astype(np.float32)
 
+    if model_kind == "2d_cnn":
+        spatial, c_first = 2, 2  # spectrogram + frequency encoding
+    elif model_kind == "hierarchical_cnn":
+        if input_dim is None:
+            raise ValueError("hierarchical_cnn needs input_dim")
+        spatial, c_first = 1, int(input_dim)
+    else:
+        raise ValueError(f"no random variables for {model_kind!r}")
+
     def conv(k, c_in, c_out):
-        return {"kernel": normal((k, k, c_in, c_out),
-                                 (k * k * c_in) ** -0.5),
+        return {"kernel": normal((k,) * spatial + (c_in, c_out),
+                                 (k ** spatial * c_in) ** -0.5),
                 "bias": normal((c_out,), 0.1)}
 
     def dense(c_in, c_out):
@@ -212,7 +230,7 @@ def random_jax_variables(
     params: dict = {}
     stats: dict = {}
     depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
-    for k, (c_in, d) in enumerate(zip([2, *depths], depths)):
+    for k, (c_in, d) in enumerate(zip([c_first, *depths], depths)):
         p: dict = {"conv": conv(3, c_in, d), "prelu": prelu(d)}
         s: dict = {}
         p["bn_in"], s["bn_in"] = bn(c_in)

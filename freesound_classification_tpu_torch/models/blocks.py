@@ -1,16 +1,20 @@
-"""Building blocks of the 2d CNN, NCHW, in eval and train mode.
+"""Building blocks of the 2d and the 1d CNN, NCHW and (B, C, T), in eval and
+train mode.
 
 Counterparts of ``freesound_classification_tpu/models/blocks.py``. The JAX
-package is channels-last; inside the port's model tensors are NCHW (an NHWC
+package is channels-last; inside the port's models tensors are NCHW (an NHWC
 input permuted to NCHW is already in PyTorch's channels_last memory format,
-which cuDNN keeps through the convolutions). Parameters stay float32 and are
+which cuDNN keeps through the convolutions) and (B, C, T) for ``nn.Conv1d``.
+``fused_infer=True`` runs eval-mode resnet blocks through the folded, fused
+kernels (``ops/resnet_infer.py``: K6 in 1d, K4/K5 in 2d); training, init
+and the checkpoint layout are the same either way. Parameters stay float32 and are
 cast to the activations' dtype at use, as flax does for a ``dtype=bfloat16``
 module. BatchNorm follows flax's: batch statistics in float32 when training,
 and running statistics updated with the biased batch variance.
 
-``phase_conv_pool_2d`` of the JAX package is an XLA rewrite of conv3x3 +
-max-pool that gives the same result, so the port runs ``conv2d`` +
-``max_pool2d``.
+``phase_conv_pool_2d``/``_1d`` of the JAX package are XLA rewrites of conv3 +
+max-pool that give the same result, so the port runs the convolution and
+the max-pool.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from freesound_classification_tpu_torch.ops import resnet_infer
 
 NEG_INF = -1e30
 BN_EPS = 1e-5
@@ -82,6 +88,14 @@ class PReLU(nn.Module):
         return F.prelu(x, self.weight.to(x.dtype))
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` whose float32 parameters run in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype))
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose float32 parameters run in the input's dtype."""
 
@@ -97,19 +111,21 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
-class ResnetBlock2d(nn.Module):
-    """1x1 -> 3x3 (pad 1) -> 1x1 conv residual block, BN+PReLU after each
-    (JAX ``blocks.ResnetBlock2d``)."""
+class _ResnetBlock(nn.Module):
+    """1x1 -> 3 (pad 1) -> 1x1 conv residual block, BN+PReLU after each."""
 
-    def __init__(self, depth: int):
+    conv = Conv2d
+
+    def __init__(self, depth: int, fused_infer: bool = False):
         super().__init__()
-        self.conv1 = Conv2d(depth, depth, 1)
+        self.fused_infer = fused_infer
+        self.conv1 = self.conv(depth, depth, 1)
         self.bn1 = BatchNorm(depth)
         self.prelu1 = PReLU(depth)
-        self.conv2 = Conv2d(depth, depth, 3, padding=1)
+        self.conv2 = self.conv(depth, depth, 3, padding=1)
         self.bn2 = BatchNorm(depth)
         self.prelu2 = PReLU(depth)
-        self.conv3 = Conv2d(depth, depth, 1)
+        self.conv3 = self.conv(depth, depth, 1)
         self.bn3 = BatchNorm(depth)
         self.prelu3 = PReLU(depth)
 
@@ -120,18 +136,64 @@ class ResnetBlock2d(nn.Module):
         return self.prelu3(h + x)
 
 
+class ResnetBlock1d(_ResnetBlock):
+    """The block over (B, C, T) (JAX ``blocks.ResnetBlock1d``). With
+    ``fused_infer``, eval-mode forwards run K6."""
+
+    conv = Conv1d
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_infer and not self.training:
+            return resnet_infer.resnet_block_1d_infer(x, self)
+        return super().forward(x)
+
+
+class ResnetBlock2d(_ResnetBlock):
+    """The block over NCHW (JAX ``blocks.ResnetBlock2d``). With
+    ``fused_infer``, eval-mode forwards run K4/K5, as the JAX block routes
+    to its transposed-layout kernel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_infer and not self.training:
+            return resnet_infer.resnet_block_2d_infer(x, self, use_kernel=True)
+        return super().forward(x)
+
+
+class ConvBlock1d(nn.Module):
+    """BN -> conv3 (pad 1) -> max-pool 2 -> BN -> PReLU -> ResnetBlock1d
+    (JAX ``blocks.ConvBlock1d``). Halves T; a time axis of size 1 pools with
+    window 1, where ``max_pool1d`` with window 2 would raise."""
+
+    def __init__(self, in_channels: int, depth: int,
+                 fused_infer: bool = False):
+        super().__init__()
+        self.bn_in = BatchNorm(in_channels)
+        self.conv = Conv1d(in_channels, depth, 3, padding=1)
+        self.bn_out = BatchNorm(depth)
+        self.prelu = PReLU(depth)
+        self.resnet = ResnetBlock1d(depth, fused_infer)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv(self.bn_in(x))
+        if x.shape[2] >= 2:
+            h = F.max_pool1d(h, 2)
+        h = self.prelu(self.bn_out(h))
+        return self.resnet(h)
+
+
 class ConvBlock2d(nn.Module):
     """BN -> conv3x3 -> max-pool 2x2 -> BN -> PReLU -> ResnetBlock2d
     (JAX ``blocks.ConvBlock2d``). Halves H and W; an axis of size 1 pools
     with window 1, where ``max_pool2d`` with window 2 would raise."""
 
-    def __init__(self, in_channels: int, depth: int):
+    def __init__(self, in_channels: int, depth: int,
+                 fused_infer: bool = False):
         super().__init__()
         self.bn_in = BatchNorm(in_channels)
         self.conv = Conv2d(in_channels, depth, 3, padding=1)
         self.bn_out = BatchNorm(depth)
         self.prelu = PReLU(depth)
-        self.resnet = ResnetBlock2d(depth)
+        self.resnet = ResnetBlock2d(depth, fused_infer)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         window = (2 if x.shape[2] >= 2 else 1, 2 if x.shape[3] >= 2 else 1)
@@ -146,6 +208,20 @@ def time_mask(lengths: torch.Tensor, n_frames: int) -> torch.Tensor:
     """(B,) valid frame counts -> (B, n_frames) bool mask."""
     t = torch.arange(n_frames, device=lengths.device)
     return t[None, :] < lengths[:, None]
+
+
+def mask_time(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Zero the padded time frames (dim 2) of a (B, C, T) map, so bucket
+    padding stays the zero of the convolutions' own padding however deep
+    the receptive field."""
+    return h * time_mask(lengths, h.shape[2])[:, None, :].to(h.dtype)
+
+
+def masked_max_pool_time(h: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Global max over the valid frames of a (B, C, T) map -> (B, C)."""
+    mask = time_mask(lengths, h.shape[2])[:, None, :]
+    return torch.where(mask, h, NEG_INF).amax(dim=2)
 
 
 def mask_time_2d(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -196,7 +272,7 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     trunc_std = 0.87962566103423978
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Conv2d, nn.Linear)):
+            if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 w = module.weight
                 fan_in = w[0].numel()
                 std = fan_in ** -0.5 / trunc_std

@@ -1,8 +1,16 @@
-"""The 2d mel-spectrogram CNN (JAX ``models/classifiers.py:TwoDimensionalCNN``).
+"""The classifier families (JAX ``models/classifiers.py``):
 
-Public layouts are the JAX package's: the spectrogram arrives as
-(B, H=n_features, W=n_frames, 1) with per-clip valid frame counts, and the
-model returns (B, n_classes) float32 logits. Inside, tensors are NCHW.
+- ``TwoDimensionalCNN``: the 2d CNN over log-mel images with the frequency
+  encoding channel;
+- ``HierarchicalCNN``: the 1d conv tower over per-frame features (log-mel,
+  log-STFT or raw samples) with deep supervision.
+
+Public layouts are the JAX package's: the 2d model takes (B, H=n_features,
+W=n_frames, 1), the 1d model (B, T, F), each with per-clip valid frame
+counts, and both return (B, n_classes) float32 logits. Inside, tensors are
+NCHW and (B, C, T). ``fused_infer`` runs the eval-mode resnet blocks through
+the fused kernels (K4/K5 in 2d, K6 in 1d); training and the weights are the
+same either way.
 """
 
 from __future__ import annotations
@@ -11,12 +19,25 @@ import torch
 from torch import nn
 
 from freesound_classification_tpu_torch.models.blocks import (
+    ConvBlock1d,
     ConvBlock2d,
     MLPHead,
     block_depths,
+    mask_time,
     mask_time_2d,
     masked_max_pool_2d,
+    masked_max_pool_time,
 )
+
+
+def _check_aggregation(aggregation_type: str) -> None:
+    if aggregation_type == "rnn":
+        raise NotImplementedError(
+            "aggregation_type='rnn' needs MaskedBiGRU, which the port "
+            "does not have yet (ROADMAP M1.5)")
+    if aggregation_type != "max":
+        raise ValueError(
+            f"unknown aggregation_type {aggregation_type!r}")
 
 
 def add_frequency_encoding(x: torch.Tensor) -> torch.Tensor:
@@ -47,21 +68,17 @@ class TwoDimensionalCNN(nn.Module):
         n_classes: int = 80,
         dtype: torch.dtype = torch.float32,
         output_dropout: float = 0.0,
+        fused_infer: bool = False,
     ):
         super().__init__()
-        if aggregation_type == "rnn":
-            raise NotImplementedError(
-                "aggregation_type='rnn' needs MaskedBiGRU, which the port "
-                "does not have yet (ROADMAP M1.5)")
-        if aggregation_type != "max":
-            raise ValueError(
-                f"unknown aggregation_type {aggregation_type!r}")
+        _check_aggregation(aggregation_type)
         self.start_deep_supervision_on = start_deep_supervision_on
         self.dtype = dtype
         depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
         # the input carries the spectrogram plus the frequency encoding
         self.blocks = nn.ModuleList(
-            ConvBlock2d(c_in, d) for c_in, d in zip([2, *depths], depths))
+            ConvBlock2d(c_in, d, fused_infer)
+            for c_in, d in zip([2, *depths], depths))
         # deep supervision: the pooled features of every block from
         # start_deep_supervision_on on feed the head
         self.head = MLPHead(sum(depths[start_deep_supervision_on:]),
@@ -82,11 +99,61 @@ class TwoDimensionalCNN(nn.Module):
         return self.head(torch.cat(features, dim=-1)).float()
 
 
-def build_classifier(network, n_classes: int,
-                     dtype: torch.dtype = torch.float32) -> TwoDimensionalCNN:
-    """The 2d CNN from an experiment's ``config.network``
-    (``utils.config.Config`` or any object with those attributes)."""
-    return TwoDimensionalCNN(
+class HierarchicalCNN(nn.Module):
+    """1d conv tower over per-frame features with max aggregation and deep
+    supervision (JAX ``HierarchicalCNN``). ``input_dim`` is F, the
+    features per frame (n_mels, n_fft // 2 + 1, or 1 for raw samples);
+    ``dtype``, parameters and modes as ``TwoDimensionalCNN``'s."""
+
+    def __init__(
+        self,
+        input_dim: int,
+        num_conv_blocks: int = 5,
+        start_deep_supervision_on: int = 2,
+        conv_base_depth: int = 64,
+        growth_rate: float = 2.0,
+        aggregation_type: str = "max",
+        n_classes: int = 80,
+        dtype: torch.dtype = torch.float32,
+        output_dropout: float = 0.0,
+        fused_infer: bool = False,
+    ):
+        super().__init__()
+        _check_aggregation(aggregation_type)
+        self.start_deep_supervision_on = start_deep_supervision_on
+        self.dtype = dtype
+        depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
+        self.blocks = nn.ModuleList(
+            ConvBlock1d(c_in, d, fused_infer)
+            for c_in, d in zip([input_dim, *depths], depths))
+        self.head = MLPHead(sum(depths[start_deep_supervision_on:]),
+                            n_classes, dropout=output_dropout)
+
+    def forward(self, feats: torch.Tensor,
+                frame_lengths: torch.Tensor) -> torch.Tensor:
+        h = feats.to(self.dtype).transpose(1, 2)  # (B, T, F) -> (B, F, T)
+        lengths = frame_lengths
+        features = []
+        for k, block in enumerate(self.blocks):
+            h = block(h)
+            lengths = torch.clamp(lengths // 2, min=1)
+            h = mask_time(h, lengths)
+            if k >= self.start_deep_supervision_on:
+                features.append(masked_max_pool_time(h, lengths))
+        return self.head(torch.cat(features, dim=-1)).float()
+
+
+def build_classifier(model_kind: str, network, n_classes: int,
+                     dtype: torch.dtype = torch.float32,
+                     fused_infer: bool = False,
+                     input_dim: int | None = None) -> nn.Module:
+    """The classifier of ``model_kind`` from an experiment's
+    ``config.network`` (``utils.config.Config`` or any object with those
+    attributes), as the JAX ``build_classifier``. ``input_dim`` (features
+    per frame) is needed by the 1d family only. ``fused_infer`` routes
+    eval-mode resnet blocks through the fused kernels (default off, as in
+    the JAX package)."""
+    common = dict(
         num_conv_blocks=int(network.num_conv_blocks),
         start_deep_supervision_on=int(network.start_deep_supervision_on),
         conv_base_depth=int(network.conv_base_depth),
@@ -95,4 +162,17 @@ def build_classifier(network, n_classes: int,
         n_classes=n_classes,
         dtype=dtype,
         output_dropout=float(getattr(network, "output_dropout", 0.0)),
+        fused_infer=fused_infer,
     )
+    if model_kind == "2d_cnn":
+        return TwoDimensionalCNN(**common)
+    if model_kind == "hierarchical_cnn":
+        if input_dim is None:
+            raise ValueError("hierarchical_cnn needs input_dim, the "
+                             "features per frame")
+        return HierarchicalCNN(int(input_dim), **common)
+    if model_kind == "backbone_cnn":
+        raise NotImplementedError(
+            "model_kind 'backbone_cnn': the resnet backbone family is not "
+            "ported yet (ROADMAP M4.2)")
+    raise ValueError(f"unknown model kind {model_kind!r}")

@@ -116,4 +116,10 @@ def load_library() -> ctypes.CDLL:
     #                       rows, stream) -> cudaError_t
     lib.pv_resynth_launch.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
     lib.pv_resynth_launch.restype = i32
+    # int resnet_block_launch(x, w1, w2, w3, bias, slope, out, taps, B, C,
+    #                         cp, H, W, sb, sc, sh, sw, tile_h, tile_w,
+    #                         m_rows, r1, stream) -> cudaError_t
+    lib.resnet_block_launch.argtypes = ([ptr] * 7 + [i32] * 6 + [i64] * 4
+                                        + [i32] * 4 + [ptr])
+    lib.resnet_block_launch.restype = i32
     return lib

@@ -1,13 +1,14 @@
 """Audio DSP: feature descriptors, the Slaney mel filterbank, log-mel features,
 and the first-order IIR of the overdrive effect.
 
-Counterpart of ``freesound_classification_tpu/ops/dsp.py`` for the mel
-descriptors. The JAX package computes the STFT as a block-DFT matmul shaped for
-the TPU's matrix unit; here it is ``torch.stft`` with the same conventions
-(periodic Hann window, ``center=True`` reflect padding, one-sided, not
-normalized), which is the function ``dsp._logmel_xla`` computes. The
+Counterpart of ``freesound_classification_tpu/ops/dsp.py`` for the mel, stft
+and raw descriptors. The JAX package computes the STFT as a block-DFT matmul
+shaped for the TPU's matrix unit; here it is ``torch.stft`` with the same
+conventions (periodic Hann window, ``center=True`` reflect padding, one-sided,
+not normalized), which is the function ``dsp._logmel_xla`` computes. The
 magnitude -> mel -> log tail is the hand-written kernel K1
-(``ops/kernels.mel_project_log``).
+(``ops/kernels.mel_project_log``); the log-STFT magnitude of the ``stft_*``
+descriptors is plain PyTorch, as it is plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -158,22 +159,31 @@ def log_mel_spectrogram(
     return mel_project(stft(x, n_fft, hop_size), filterbank)
 
 
+def log_stft_spectrogram(x: torch.Tensor, n_fft: int,
+                         hop_size: int) -> torch.Tensor:
+    """Waveform (B, L) -> log STFT magnitude (B, F, T), log(|S| + 1e-4)
+    (JAX ``dsp.log_stft_spectrogram``)."""
+    return torch.log(stft(x, n_fft, hop_size).abs() + kernels.LOG_EPS)
+
+
 def featurize(
     x: torch.Tensor,
     descriptor: str,
     filterbank: torch.Tensor | None = None,
+    mel_project: MelProject = kernels.mel_project_log,
 ) -> torch.Tensor:
-    """Waveform (B, L) -> features (B, n_features, T) for a mel descriptor."""
+    """Waveform (B, L) -> features (B, n_features, T) for a mel or stft
+    descriptor, or (B, 1, L) for "raw" (JAX ``dsp.featurize``)."""
     feat = parse_features(descriptor)
-    if feat.kind != "mel":
-        raise NotImplementedError(
-            f"{descriptor!r}: the port featurizes mel descriptors only; "
-            "stft/raw features come with the other model families "
-            "(ROADMAP M4)")
-    if filterbank is None:
-        filterbank = torch.from_numpy(
-            mel_filterbank(44100, feat.n_fft, feat.n_mel)).to(x.device)
-    return log_mel_spectrogram(x, filterbank, feat.n_fft, feat.hop_size)
+    if feat.kind == "mel":
+        if filterbank is None:
+            filterbank = torch.from_numpy(
+                mel_filterbank(44100, feat.n_fft, feat.n_mel)).to(x.device)
+        return log_mel_spectrogram(x, filterbank, feat.n_fft, feat.hop_size,
+                                   mel_project=mel_project)
+    if feat.kind == "stft":
+        return log_stft_spectrogram(x, feat.n_fft, feat.hop_size)
+    return x[:, None, :]
 
 
 def iir_first_order(u: torch.Tensor, a: float,

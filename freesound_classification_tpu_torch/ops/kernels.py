@@ -12,6 +12,11 @@ Each replaces a TPU kernel of
 - K3, ``pv_resynth`` (``csrc/pv_resynth.cu``, replaces
   ``_pv_resynth_kernel``): phase-vocoder resynthesis with overlap-add, the
   output half of the chain's PV stretch.
+- K4/K5 and K6, ``resnet_block_2d_fused`` and ``resnet_block_1d_fused``
+  (``csrc/resnet_block.cu``, replace ``_fused_kernel`` and
+  ``_fused_t_kernel`` of ``ops/pallas_resnet.py`` and ``_fused_1d_kernel``
+  of ``ops/pallas_resnet1d.py``): the eval-mode resnet block with
+  BatchNorm folded, the ``fused_infer`` option of the models.
 
 A wrapper runs its plain twin only for tensors on the CPU. A CUDA tensor
 launches the kernel, or the wrapper raises; nothing falls back. Each launch
@@ -21,8 +26,11 @@ path went through the kernel.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 LOG_EPS = 1e-4
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y/z, one block row per clip
@@ -325,3 +333,226 @@ def pv_resynth(mag, dphi, phase0, rate, icos, isin, hop: int,
 
 
 pv_resynth.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4/K5 and K6: the eval-mode resnet block with BatchNorm folded
+# ---------------------------------------------------------------------------
+
+_MAX_SHARED_BYTES = 232448  # dynamic shared memory a Hopper block may use
+_RESNET_WARPS = 8  # the kernel's warps, each with a 16 x 16 float32 stage
+
+
+class FusedBlockWeights(NamedTuple):
+    """A folded resnet block as the kernel reads it: w1, w3 (cp, cp) and w2
+    (taps, cp, cp) bf16 with input channels on rows (the JAX package's
+    (C, K) layout), bias and slope (3, cp) float32 (b1, b2, b3 and the three
+    PReLU slopes); zero past ``channels``, cp = channels rounded up to 16."""
+
+    w1: torch.Tensor
+    w2: torch.Tensor
+    w3: torch.Tensor
+    bias: torch.Tensor
+    slope: torch.Tensor
+    channels: int
+
+
+def pack_resnet_block(fp: dict) -> FusedBlockWeights:
+    """A folded block (``ops/resnet_infer.fold_block_params{,_1d}``: float32
+    w1 (C, C), w2 (taps, C, C), w3 (C, C), b1-b3, a1-a3) -> its kernel
+    weights: the float32 fold rounded once to bf16, and zero padding."""
+    c = fp["w1"].shape[0]
+    cp = -(-c // 16) * 16
+
+    def mat(m):
+        return F.pad(m, (0, cp - c, 0, cp - c)).to(torch.bfloat16) \
+            .contiguous()
+
+    def vec(*vs):
+        return F.pad(torch.stack(vs).float(), (0, cp - c)).contiguous()
+
+    return FusedBlockWeights(mat(fp["w1"]), mat(fp["w2"]), mat(fp["w3"]),
+                             vec(fp["b1"], fp["b2"], fp["b3"]),
+                             vec(fp["a1"], fp["a2"], fp["a3"]), c)
+
+
+def conv1x1(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A (C, K) matrix (the JAX package's layout) as a 1x1 convolution over
+    dim 1 of a (B, C, T) or (B, C, H, W) map."""
+    spatial = h.dim() - 2
+    w = w.T.reshape(w.shape[1], w.shape[0], *([1] * spatial))
+    return (F.conv1d if spatial == 1 else F.conv2d)(h, w)
+
+
+def _fused_block_reference(x: torch.Tensor, wts: FusedBlockWeights,
+                           conv2) -> torch.Tensor:
+    """The kernel's function in float32 at its bf16 rounding points: x, the
+    weights, h1, h2 and y are bf16 values, every sum is float32."""
+    c = wts.channels
+    shape = (1, c) + (1,) * (x.dim() - 2)
+
+    def vec(v):
+        return v[:c].view(shape)
+
+    def mat(w):
+        return w[..., :c, :c].float()
+
+    def bf16(h):
+        return h.to(torch.bfloat16).float()
+
+    xb = bf16(x)
+    h1 = bf16(F.prelu(conv1x1(xb, mat(wts.w1)) + vec(wts.bias[0]),
+                      wts.slope[0, :c]))
+    h2 = bf16(F.prelu(conv2(h1, mat(wts.w2)) + vec(wts.bias[1]),
+                      wts.slope[1, :c]))
+    y = F.prelu(conv1x1(h2, mat(wts.w3)) + vec(wts.bias[2]) + xb,
+                wts.slope[2, :c])
+    return y.to(torch.bfloat16).to(x.dtype)
+
+
+def resnet_block_1d_fused_reference(x: torch.Tensor,
+                                    wts: FusedBlockWeights) -> torch.Tensor:
+    """Plain twin of K6: (B, C, T) -> (B, C, T) in x's dtype. conv2's three
+    taps read h1 at t - 1, t, t + 1, and h1 = 0 outside [0, T)."""
+    return _fused_block_reference(
+        x, wts, lambda h, w2: F.conv1d(h, w2.permute(2, 1, 0), padding=1))
+
+
+def resnet_block_2d_fused_reference(x: torch.Tensor,
+                                    wts: FusedBlockWeights) -> torch.Tensor:
+    """Plain twin of K4/K5: (B, C, H, W) -> (B, C, H, W) in x's dtype and
+    memory format. conv2's tap 3 dh + dw reads h1 at (h + dh - 1,
+    w + dw - 1), and h1 = 0 outside the map."""
+    def conv2(h, w2):
+        k = w2.shape[-1]
+        return F.conv2d(h, w2.reshape(3, 3, k, k).permute(3, 2, 0, 1),
+                        padding=1)
+
+    return _fused_block_reference(x, wts, conv2)
+
+
+def _resnet_shared_bytes(r1: int, m_rows: int, cp: int) -> int:
+    """x and h1 (r1 rows), h2 (m_rows rows) in bf16, the warps' float32
+    stages, six float32 vectors, and an int64 offset per row."""
+    return ((2 * r1 + m_rows) * (cp + 16) * 2
+            + (_RESNET_WARPS * 256 + 6 * cp) * 4 + (r1 + m_rows) * 8)
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def resnet_block_tiles(taps: int, cp: int, height: int, width: int) -> tuple:
+    """The kernel's tile: (tile_h, tile_w, m_rows, r1). A 1d tile is up to
+    64 frames; a 2d tile up to 14 pixels wide and as many rows as keep its
+    flat band (tile_h rows of tile_w + 2) within 64. m_rows is the band
+    rounded to 16; r1, the shared rows of x and h1, covers the halo and
+    every row the taps read. Tiles shrink until shared memory fits."""
+    if taps == 3:
+        tile_h, tile_w = 1, min(width, 64)
+    else:
+        tile_w = min(width, 14)
+        tile_h = min(height, max(1, 64 // (tile_w + 2)))
+    while True:
+        wp = tile_w + 2
+        if taps == 3:
+            m_rows = _round16(tile_w)
+            r1 = _round16(max(wp, m_rows + 2))
+        else:
+            m_rows = _round16(tile_h * wp)
+            r1 = _round16(max((tile_h + 2) * wp, m_rows + 2 * wp + 2))
+        if _resnet_shared_bytes(r1, m_rows, cp) <= _MAX_SHARED_BYTES:
+            return tile_h, tile_w, m_rows, r1
+        if tile_h > 1:
+            tile_h -= 1
+        elif tile_w > 1:
+            tile_w = max(1, tile_w - (16 if taps == 3 else 1))
+        else:
+            raise ValueError(f"resnet block: {cp} channels do not fit "
+                             "shared memory")
+
+
+def _resnet_block_launch(name: str, x: torch.Tensor, wts: FusedBlockWeights,
+                         taps: int) -> torch.Tensor:
+    spatial = 1 if taps == 3 else 2
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x must be on the CPU or a CUDA device, "
+                         f"got {x.device}")
+    if x.dim() != 2 + spatial or x.shape[1] != wts.channels:
+        raise ValueError(f"{name}: x {tuple(x.shape)} for a "
+                         f"{wts.channels}-channel {spatial}d block")
+    cp = wts.w1.shape[0]
+    want = {"w1": ((cp, cp), torch.bfloat16), "w3": ((cp, cp), torch.bfloat16),
+            "w2": ((taps, cp, cp), torch.bfloat16),
+            "bias": ((3, cp), torch.float32),
+            "slope": ((3, cp), torch.float32)}
+    for key, (shape, dtype) in want.items():
+        t = getattr(wts, key)
+        if (t.shape != shape or t.dtype != dtype or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {key} must be contiguous {dtype} "
+                             f"{shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if cp % 16 or not 0 < wts.channels <= cp or min(x.shape) <= 0:
+        raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}, "
+                         f"cp {cp}")
+    xb = x.to(torch.bfloat16)
+    out = torch.empty_like(xb)
+    if out.stride() != xb.stride():  # not dense: the kernel reads out's
+        xb = torch.empty_like(xb).copy_(xb)
+    n_batch = x.shape[0]
+    height, width = (1, x.shape[2]) if spatial == 1 else x.shape[2:]
+    sb, sc, *rest = xb.stride()
+    sh, sw = (0, rest[0]) if spatial == 1 else rest
+    tile_h, tile_w, m_rows, r1 = resnet_block_tiles(taps, cp, height, width)
+    tiles = n_batch * -(-height // tile_h) * -(-width // tile_w)
+    if tiles >= 2**31:
+        raise ValueError(f"{name}: {tiles} tiles exceed the grid")
+
+    from freesound_classification_tpu_torch.ops import build
+
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.resnet_block_launch(
+            xb.data_ptr(), wts.w1.data_ptr(), wts.w2.data_ptr(),
+            wts.w3.data_ptr(), wts.bias.data_ptr(), wts.slope.data_ptr(),
+            out.data_ptr(), taps, n_batch, wts.channels, cp, height, width,
+            sb, sc, sh, sw, tile_h, tile_w, m_rows, r1,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"resnet_block_kernel launch failed: cudaError "
+                           f"{err}")
+    return out.to(x.dtype)
+
+
+def resnet_block_1d_fused(x: torch.Tensor,
+                          wts: FusedBlockWeights) -> torch.Tensor:
+    """K6: the folded ResnetBlock1d on a (B, C, T) map, any strides, any
+    float dtype (rounded to bf16 on the way in, bf16 values out in x's
+    dtype). CPU tensors take ``resnet_block_1d_fused_reference``; CUDA
+    tensors launch ``resnet_block_kernel<3>``."""
+    if x.device.type == "cpu":
+        return resnet_block_1d_fused_reference(x, wts)
+    out = _resnet_block_launch("resnet_block_1d_fused", x, wts, 3)
+    resnet_block_1d_fused.launches += 1
+    return out
+
+
+resnet_block_1d_fused.launches = 0
+
+
+def resnet_block_2d_fused(x: torch.Tensor,
+                          wts: FusedBlockWeights) -> torch.Tensor:
+    """K4/K5: the folded ResnetBlock2d on an NCHW map in any memory format
+    (read in place: channels_last is the model's), as
+    ``resnet_block_1d_fused``. CPU tensors take
+    ``resnet_block_2d_fused_reference``; CUDA tensors launch
+    ``resnet_block_kernel<9>``."""
+    if x.device.type == "cpu":
+        return resnet_block_2d_fused_reference(x, wts)
+    out = _resnet_block_launch("resnet_block_2d_fused", x, wts, 9)
+    resnet_block_2d_fused.launches += 1
+    return out
+
+
+resnet_block_2d_fused.launches = 0

@@ -3,8 +3,10 @@
 The JAX package keeps orbax train states; the port saves a model's weights
 and BatchNorm statistics in the JAX package's variable layout
 (``interop.to_jax_variables``) as the flat ``.npz`` that the predict CLI and
-``scripts/export_fold_weights.py`` already share. Each file is written to a
-temporary name and renamed into place, so a reader never sees half a file.
+``scripts/export_fold_weights.py`` already share, for either classifier
+family. Each file is written to a temporary name and renamed into place, so
+a reader never sees half a file. ``load_model`` serves reloading a fold's
+best model and the finetune CLI's warm start from another experiment.
 Optimizer state is not saved: resuming waits (ROADMAP).
 """
 

@@ -1,4 +1,4 @@
-"""The training engine of the 2d CNN (JAX ``training/engine.py``).
+"""The training engine of the classifiers (JAX ``training/engine.py``).
 
 One train step (``Engine.train_step``), as the JAX package's jitted step:
 augment the batch on the device (the effects chain runs K2 and K3), then
@@ -10,11 +10,14 @@ frontend take no gradient.
 Around it, as the JAX engine: the epoch switch-off of augmentation
 (``switch_off_augmentations_on``; scale 0 skips the augmenter), the MixUp
 partner pool (the previous clean batch of the same bucket shape), full-set
-validation lwlrap, and ``fit_validate`` saving ``best_model.npz`` per fold.
+validation lwlrap, ``fit_validate`` saving ``best_model.npz`` per fold, and
+the warm start of the finetune CLI (``warm_start_path``: every fold's fit
+starts from that ``best_model.npz``'s weights and BatchNorm statistics, with
+a fresh optimizer and step count).
 
 Not ported yet, and refused with the ROADMAP item named: gradient
-accumulation, resume bundles and warm start, tensorboard summaries,
-profiling, fold-parallel and multi-device training.
+accumulation, resume bundles, tensorboard summaries, profiling,
+fold-parallel and multi-device training.
 """
 
 from __future__ import annotations
@@ -46,13 +49,16 @@ class Engine:
     ``config.train``). ``augment`` is ``ops.augment.make_augmenter``'s
     function or None. ``seed`` seeds the generator of every random draw of
     the augmenter; dropout draws from PyTorch's default generator.
+    ``warm_start_path``, a fold ``.npz`` of the same architecture, seeds
+    the model at the start of every ``fit_validate``.
     """
 
     def __init__(self, model: nn.Module, frontend: Frontend, train_config,
                  loss: str = "lsep_naive",
                  augment: Optional[Callable] = None,
                  checkpoint_dir: Optional[str] = None, seed: int = 42,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu",
+                 warm_start_path: Optional[str] = None):
         accum = int(getattr(train_config, "accumulation_steps", 1))
         if accum > 1:
             raise NotImplementedError(
@@ -65,6 +71,7 @@ class Engine:
         self.loss_fn = make_loss(loss)
         self.augment = augment
         self.checkpoint_dir = checkpoint_dir
+        self.warm_start_path = warm_start_path
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.schedule = None
@@ -203,6 +210,9 @@ class Engine:
         # never carry MixUp partners across folds
         self._mixup_pool = {}
         self.make_optimizer(steps_per_epoch * epochs, steps_per_epoch)
+        if self.warm_start_path:
+            print(f"warm start from {self.warm_start_path}")
+            self.warm_start(self.warm_start_path)
         switch_off = int(getattr(self.train_config,
                                  "switch_off_augmentations_on", 10**9))
         scores, best = [], -np.inf
@@ -235,3 +245,9 @@ class Engine:
 
     def load_model(self, fold: int, name: str) -> None:
         checkpoints.load_model(self.model_path(fold, name), self.model)
+
+    def warm_start(self, path: str) -> None:
+        """Load the weights and BatchNorm statistics of another
+        experiment's fold ``.npz`` (JAX ``Engine.warm_start``); the
+        optimizer state and the step count stay as they are."""
+        checkpoints.load_model(path, self.model)

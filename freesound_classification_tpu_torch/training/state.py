@@ -10,18 +10,21 @@ as flax initializes the JAX model.
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from freesound_classification_tpu_torch.models.blocks import init_like_flax
 from freesound_classification_tpu_torch.models.classifiers import (
-    TwoDimensionalCNN,
     build_classifier,
 )
 
 
 def create_model(network, n_classes: int, dtype: torch.dtype, seed: int,
-                 device: torch.device) -> TwoDimensionalCNN:
-    """The 2d CNN of ``network`` (an experiment's ``config.network``) on
-    ``device``, with flax's initializers drawn from ``seed``."""
-    model = build_classifier(network, n_classes, dtype=dtype)
+                 device: torch.device, model_kind: str = "2d_cnn",
+                 input_dim: int | None = None) -> nn.Module:
+    """The ``model_kind`` classifier of ``network`` (an experiment's
+    ``config.network``; ``input_dim`` features per frame for the 1d
+    family) on ``device``, with flax's initializers drawn from ``seed``."""
+    model = build_classifier(model_kind, network, n_classes, dtype=dtype,
+                             input_dim=input_dim)
     init_like_flax(model, torch.Generator().manual_seed(seed))
     return model.to(device)

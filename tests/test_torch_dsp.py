@@ -101,12 +101,16 @@ def test_log_mel_matches_jax_high_precision(length):
 
 
 def test_featurize_rejects_non_mel():
-    with pytest.raises(NotImplementedError, match="mel"):
-        dsp.featurize(torch.zeros(1, 4096), "stft_1024_256")
-    with pytest.raises(NotImplementedError):
-        Frontend("raw", "2d")
-    with pytest.raises(NotImplementedError):
-        Frontend(DESCRIPTOR, "1d")
+    """Descriptors other than mel/stft/raw, and model families other than
+    "1d"/"2d", raise; stft and raw descriptors are featurized
+    (tests/test_torch_hierarchical.py holds them against JAX)."""
+    with pytest.raises(ValueError, match="descriptor"):
+        dsp.featurize(torch.zeros(1, 4096), "cqt_1024_256")
+    with pytest.raises(ValueError, match="family"):
+        Frontend(DESCRIPTOR, "3d")
+    assert dsp.featurize(torch.zeros(1, 4096), "stft_1024_256").shape == \
+        (1, 513, 17)
+    assert dsp.featurize(torch.zeros(1, 4096), "raw").shape == (1, 1, 4096)
 
 
 def test_frontend_matches_jax():

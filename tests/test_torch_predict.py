@@ -224,7 +224,7 @@ def test_predict_cli_refuses_what_it_cannot_run(synth, tmp_path):
             predict_2d_cnn.main(base + ["--device", "cuda"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         predict_2d_cnn.main(base + ["--device", "cpu",
-                                    "--model_kind", "hierarchical_cnn"])
+                                    "--model_kind", "backbone_cnn"])
     assert not (tmp_path / "p.csv").exists()
 
 

@@ -70,6 +70,21 @@ def test_losses_match_jax(name, average):
     np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-6)
 
 
+def test_naive_lsep_is_non_finite_on_saturated_logits_in_both_packages():
+    """The naive LSEP computes exp(s_j - s_i) times the pair mask in both
+    packages, so saturated logits give the same non-finite values: a
+    confident right row NaN (exp overflows to inf on a pair the mask
+    zeroes: inf * 0), a confident wrong row inf."""
+    logits = np.array([[-60.0, 60.0, 0.0], [60.0, -60.0, 0.0]], np.float32)
+    targets = np.array([[0.0, 1.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
+    want = np.asarray(jlosses.lsep_loss(jnp.asarray(logits),
+                                        jnp.asarray(targets), average=False))
+    got = losses.lsep_loss(torch.from_numpy(logits),
+                           torch.from_numpy(targets), average=False).numpy()
+    assert np.isnan(want[0]) and np.isposinf(want[1])
+    np.testing.assert_array_equal(got, want)
+
+
 def test_lwlrap_matches_jax_with_ties_and_row_mask():
     logits, targets = _logits_targets(b=9, seed=1)
     scores = np.round(1 / (1 + np.exp(-logits)), 1)  # ties on purpose
