@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Two paths, each driven through the CLI a user would call:
+The paths, each driven through the CLI a user would call:
 
 - predict: 5-fold inference of the reference-scale 2d mel CNN (6 blocks,
   base depth 64, growth 1.5, max aggregation, deep supervision from block 2,
@@ -16,6 +16,12 @@ Two paths, each driven through the CLI a user would call:
   0.75, batch 20, bf16) through the port's train CLI, one fold, two short
   epochs on synthetic labelled clips; its best_model.npz then predicts
   through the predict CLI.
+- the hierarchical 1d CNN (train, finetune, predict) at the predict path's
+  width, and the resnet34 backbone (train with the recipe's optimizer and
+  augmentation flags; 5-fold predict with random folds), each with the
+  same inputs.
+- the fused options of the 5-fold ensembles: ``fused_infer`` (K4/K5, K6,
+  K7) and the 2d CNN's ``fused_head`` (K8), against the unfused CLIs.
 
 Phases, each of which raises on failure (none catches its own):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
@@ -27,6 +33,10 @@ Phases, each of which raises on failure (none catches its own):
      factor and a shifted wave failing by far
   5. K3: the phase-vocoder resynthesis against its plain twin at the same
      shape (n_fft 1024, hop 256), on a real analysis; shifted frames fail
+  K6, K4/K5, K7 (the backbone's four stage shapes) and K8 (the 2d block0
+     head): each against its plain version at the paths' shapes, and three
+     wrong inputs failing by far (shifted frames, another fold's weights,
+     and padding the wrong tensor: x instead of h1, or x before bn_in)
   6. predict path: the predict CLI with launch counts reset just before
      it; the CSV's schema and values; K1 launched; the predictions vary
      across clips by more than the bf16 tolerance, and the same ensemble
@@ -36,6 +46,13 @@ Phases, each of which raises on failure (none catches its own):
   7. train path: the train CLI with the counts reset just before it; K1, K2
      and K3 launched; losses finite; parameters moved; best_model.npz
      predicts finite probabilities through the predict CLI; steps/s
+  then: the 2d ensemble fused (K4/K5, then K8 with ``fused_head``), the
+     hierarchical predict CLI and its fused ensemble (K6), the backbone
+     predict CLI and its fused ensemble (K7: 13 launches per fold and
+     batch), each with its launch count, its probabilities against the
+     unfused CSV and against the plain versions, and ms per batch in turns;
+     the hierarchical train and finetune CLIs and the backbone train CLI
+     (K1-K3 launched, losses finite, parameters moved, steps/s)
   8. float32 step: one train step (no augmentation, TF32 off) on the card
      against the same step on the CPU: loss 1e-4, gradients over the
      model's largest gradient 1e-2
@@ -105,6 +122,13 @@ STEP_TOL_GRAD = 1e-2  # each gradient over the model's largest
 # the 2d predict model (128 mels x 215 frames, halved)
 K6_SHAPES = ((128, 64, 215), (128, 486, 6))
 K45_SHAPES = ((128, 64, 64, 215), (128, 486, 2, 6))
+# the backbone path's identity blocks over 10 s (431 frames -> 216 after
+# conv1 -> 108 after the max-pool), one shape per stage; and the 2d path's
+# block0 head
+BACKBONE = "resnet34"
+K7_SHAPES = ((128, 64, 32, 108), (128, 128, 16, 54), (128, 256, 8, 27),
+             (128, 512, 4, 14))
+K8_SHAPE = (128, 2, 128, 431)
 # the hierarchical model at NETWORK's width with the published recipe's
 # optimizer and augmentation flags (the repo publishes no hierarchical recipe)
 HIER_RECIPE = [*(f"--{k}={v}" for k, v in NETWORK.items()),
@@ -115,6 +139,16 @@ HIER_RECIPE = [*(f"--{k}={v}" for k, v in NETWORK.items()),
                "--batch_size", "20", "--bf16"]
 HIER_TRAIN_EPOCHS = 2
 FINETUNE_EPOCHS = 1
+# the backbone (resnet34, the deeper of the CLI's two) with the published
+# recipe's optimizer and augmentation flags (the repo publishes no backbone
+# recipe)
+BACKBONE_RECIPE = ["--backbone", BACKBONE, "--aggregation_type", "max",
+                   "--output_dropout", "0.5", "--features", FEATURES,
+                   "--max_audio_length", "15", "--optimizer", "adam",
+                   "--lr", "0.003", "--scheduler", "1cycle_0.0001_0.005",
+                   "--weight_decay", "0.0", "--p_mixup", "0.5",
+                   "--p_aug", "0.75", "--batch_size", "20", "--bf16"]
+BACKBONE_TRAIN_EPOCHS = 2
 # fused against unfused bf16 ensemble probabilities: the bf16 tolerance of
 # the ensemble comparisons above (the two round at different points)
 FUSED_BF16_TOL = 2e-2
@@ -375,14 +409,58 @@ def random_resnet_block(model_kind: str, channels: int, seed: int):
     return block.to(DEVICE).eval()
 
 
+def check_kernel(label: str, kernel, plain, x, wts, other, raised,
+                 wrong_halo) -> dict:
+    """``kernel`` against ``plain`` on the same inputs, within one bf16 step
+    of the largest output, and three wrong inputs that must fail by far:
+    frames (the last dim) shifted by one, another fold's weights ``other``,
+    and ``wrong_halo`` (a plain variant that pads the wrong tensor) against
+    the kernel with the weights ``raised``, under which the wrong padding
+    shows. Returns the error and the times."""
+    got = kernel(x, wts)
+    want = plain(x, wts)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"{label}: bad output {tuple(got.shape)}")
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    # one bf16 step (2^-7 relative) of the largest output
+    tol = 2.0 ** -7 * want.abs().max().item()
+    frac = (got != want).float().mean().item()
+    shifted = (kernel(torch.roll(x, 1, dims=-1), wts).float()
+               - want).abs().max().item()
+    wrong_fold = (kernel(x, other).float() - want).abs().max().item()
+    want_raised = plain(x, raised).float()
+    err_raised = (kernel(x, raised).float() - want_raised).abs().max().item()
+    tol_raised = 2.0 ** -7 * want_raised.abs().max().item()
+    halo = (wrong_halo(x, raised).float() - want_raised).abs().max().item()
+    torch.cuda.synchronize()
+    log(f"{label} {tuple(x.shape)} {x.dtype}: max_abs_err {err:.3e} "
+        f"(tolerance {tol:.3e}, one bf16 step of the largest output), "
+        f"{100 * frac:.4f}% of elements differ; frames shifted by one give "
+        f"{shifted:.3e}, another fold's weights {wrong_fold:.3e}; with the "
+        f"raised weights the kernel gives {err_raised:.3e} (tolerance "
+        f"{tol_raised:.3e}) and the wrong padding {halo:.3e}")
+    if not err <= tol:
+        raise RuntimeError(f"{label} disagrees with its plain version: {err}")
+    if not err_raised <= tol_raised:
+        raise RuntimeError(f"{label} with raised weights disagrees: "
+                           f"{err_raised}")
+    if not min(shifted, wrong_fold) > 10 * tol or not halo > 10 * tol_raised:
+        raise RuntimeError(f"{label}'s comparison cannot tell a wrong input")
+    ms, plain_ms, times = timed_in_turns(lambda: kernel(x, wts),
+                                         lambda: plain(x, wts))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "times": times}
+
+
 def check_fused_block(label: str, model_kind: str, shape: tuple,
                       seed: int) -> dict:
     """One fused block kernel against its plain version at ``shape`` (B, C,
     T) or (B, C, H, W) in bf16 (2d maps in channels_last memory, as the
-    model holds them), with three wrong inputs that must fail by far:
-    frames shifted by one, another fold's weights, and a plain variant
-    whose conv2 reads a non-zero h1 halo (x zero-padded instead of h1),
-    with b1 raised by 8 so the halo would show. Returns the numbers."""
+    model holds them), through ``check_kernel``: b1 raised by 8, and a plain
+    variant whose conv2 reads a non-zero h1 halo (x zero-padded instead of
+    h1). Returns the numbers."""
     from freesound_classification_tpu_torch.ops import kernels, resnet_infer
 
     one_d = model_kind == "hierarchical_cnn"
@@ -401,56 +479,28 @@ def check_fused_block(label: str, model_kind: str, shape: tuple,
     x = torch.randn(shape, device=DEVICE, generator=gen).to(torch.bfloat16)
     if not one_d:
         x = x.contiguous(memory_format=torch.channels_last)
-    got = kernel(x, wts)
-    want = plain(x, wts)
-    torch.cuda.synchronize()
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        raise RuntimeError(f"{label}: bad output {tuple(got.shape)}")
-    got, want = got.float(), want.float()
-    err = (got - want).abs().max().item()
-    # one bf16 step (2^-7 relative) of the largest output
-    tol = 2.0 ** -7 * want.abs().max().item()
-    frac = (got != want).float().mean().item()
-    shifted = (kernel(torch.roll(x, 1, dims=-1), wts).float()
-               - want).abs().max().item()
-    wrong_fold = (kernel(x, other).float() - want).abs().max().item()
     bias = wts.bias.clone()
     bias[0, :channels] += 8.0
-    big = wts._replace(bias=bias)
-    want_big = plain(x, big).float()
-    err_big = (kernel(x, big).float() - want_big).abs().max().item()
-    tol_big = 2.0 ** -7 * want_big.abs().max().item()
     pad = (1, 1) if one_d else (1, 1, 1, 1)
     crop = (..., slice(1, -1)) if one_d else (..., slice(1, -1),
                                               slice(1, -1))
-    halo = (plain(torch.nn.functional.pad(x, pad), big).float()[crop]
-            - want_big).abs().max().item()
-    torch.cuda.synchronize()
-    log(f"{label} {tuple(shape)} bf16: max_abs_err {err:.3e} (tolerance "
-        f"{tol:.3e}, one bf16 step of the largest output), "
-        f"{100 * frac:.4f}% of elements differ; frames shifted by one give "
-        f"{shifted:.3e}, another fold's weights {wrong_fold:.3e}; with b1 "
-        f"+8 the kernel gives {err_big:.3e} (tolerance {tol_big:.3e}) and a "
-        f"non-zero h1 halo {halo:.3e}")
-    if not err <= tol:
-        raise RuntimeError(f"{label} disagrees with its plain version: {err}")
-    if not err_big <= tol_big:
-        raise RuntimeError(f"{label} with b1 +8 disagrees: {err_big}")
-    if not min(shifted, wrong_fold) > 10 * tol or not halo > 10 * tol_big:
-        raise RuntimeError(f"{label}'s comparison cannot tell a wrong input")
-    ms, plain_ms, times = timed_in_turns(lambda: kernel(x, wts),
-                                         lambda: plain(x, wts))
+
+    def padded_x(x_, w_):
+        return plain(torch.nn.functional.pad(x_, pad), w_)[crop]
+
+    out = check_kernel(label, kernel, plain, x, wts, other,
+                       wts._replace(bias=bias), padded_x)
     positions = x[0, 0].numel() * shape[0]
     taps = 3 if one_d else 9
     flops = 2.0 * positions * channels * channels * (2 + taps)
     n_bytes = (2 * x.numel() * 2 + (2 + taps) * channels * channels * 2
                + 6 * channels * 4)
     bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
-    log(f"{label} {tuple(shape)} time: kernel {ms:.4f} ms, plain version "
-        f"{plain_ms:.4f} ms (runs {times}); bound {bound:.4f} ms by "
-        f"{bound_by} ({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+    log(f"{label} {tuple(shape)} time: kernel {out['ms']:.4f} ms, plain "
+        f"version {out['plain_ms']:.4f} ms (runs {out.pop('times')}); bound "
+        f"{bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+        f"{n_bytes / 1e6:.1f} MB)")
+    return dict(out, bound_ms=bound, bound_by=bound_by)
 
 
 def phase_k6() -> dict:
@@ -476,6 +526,152 @@ def phase_k45() -> dict:
                 "freesound_classification_tpu/ops/pallas_resnet.py:111, "
                 "freesound_classification_tpu/ops/pallas_resnet.py:269",
             **first, "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8: the backbone's fused BasicBlock and the 2d CNN's fused head
+# ---------------------------------------------------------------------------
+
+
+def random_basic_block(channels: int, seed: int):
+    """An identity (stride-1, ``channels`` wide) BasicBlock in eval mode on
+    the card, with the random fold weights of ``interop`` for the
+    backbone."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.models import backbone
+
+    params, stats = interop.random_jax_variables(
+        n_classes=2, seed=seed, model_kind="backbone_cnn",
+        backbone=BACKBONE)
+    stage = {64: 0, 128: 1, 256: 2, 512: 3}[channels]
+    pre = f"trunk.stage{stage}_block1."
+    sd = {k[len(pre):]: v
+          for k, v in interop.from_jax_variables(params, stats).items()
+          if k.startswith(pre)}
+    block = backbone.BasicBlock(channels, channels)
+    block.load_state_dict(sd)
+    return block.to(DEVICE).eval()
+
+
+def phase_k7() -> dict:
+    """K7 at the four stage shapes of the backbone path (B 128 x 10 s), with
+    b1 raised by 8 for the halo check (the plain version on x padded by one,
+    whose h1 ring is then relu(b1 + ...), not 0)."""
+    from freesound_classification_tpu_torch.ops import (
+        backbone_infer,
+        kernels,
+        resnet_infer,
+    )
+
+    first = None
+    for shape in K7_SHAPES:
+        channels = shape[1]
+
+        def weights(seed):
+            return resnet_infer.fused_weights(
+                random_basic_block(channels, seed),
+                backbone_infer.fold_basic_params, kernels.pack_basic_block)
+
+        wts, other = weights(40), weights(41)
+        bias = wts.bias.clone()
+        bias[0, :channels] += 8.0
+        gen = torch.Generator(device=DEVICE).manual_seed(channels)
+        x = torch.randn(shape, device=DEVICE, generator=gen).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+        def padded_x(x_, w_):
+            return kernels.basic_block_fused_reference(
+                torch.nn.functional.pad(x_, (1, 1, 1, 1)), w_)[
+                ..., 1:-1, 1:-1]
+
+        out = check_kernel("K7", kernels.basic_block_fused,
+                           kernels.basic_block_fused_reference, x, wts,
+                           other, wts._replace(bias=bias), padded_x)
+        positions = shape[0] * shape[2] * shape[3]
+        flops = 2.0 * 2 * 9 * channels * channels * positions
+        n_bytes = (2 * x.numel() * 2 + 2 * 9 * channels * channels * 2
+                   + 2 * channels * 4)
+        bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
+        log(f"K7 {shape} time: kernel {out['ms']:.4f} ms, plain version "
+            f"{out['plain_ms']:.4f} ms (runs {out.pop('times')}); bound "
+            f"{bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+            f"{n_bytes / 1e6:.1f} MB) on tile "
+            f"{kernels.basic_block_tiles(channels, *shape[2:])[:2]}")
+        if first is None:
+            first = dict(out, bound_ms=bound, bound_by=bound_by)
+    return {"name": "basic_block_kernel", "route": "cuda",
+            "source": "freesound_classification_tpu_torch/csrc/"
+                      "resnet_block.cu",
+            "replaces":
+                "freesound_classification_tpu/ops/pallas_backbone.py:101",
+            **first, "library_ms": None}
+
+
+def phase_k8() -> dict:
+    """K8 at the 2d path's block0 (B 128 x 10 s, 128 mels, the spectrogram
+    and its frequency encoding, bf16) -> (128, 64, 64, 215), with t_in
+    raised by 8 for the padding check (the plain version fed x padded
+    before bn_in, whose SAME zeros become t_in)."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.models import blocks
+    from freesound_classification_tpu_torch.ops import (
+        head_infer,
+        kernels,
+        resnet_infer,
+    )
+
+    def weights(seed):
+        params, stats = interop.random_jax_variables(
+            num_conv_blocks=1, start_deep_supervision_on=0,
+            conv_base_depth=NETWORK["conv_base_depth"], growth_rate=1.0,
+            n_classes=2, seed=seed)
+        block = blocks.ConvBlock2d(K8_SHAPE[1], NETWORK["conv_base_depth"])
+        block.load_state_dict({
+            k[len("blocks.0."):]: v
+            for k, v in interop.from_jax_variables(params, stats).items()
+            if k.startswith("blocks.0.")})
+        return resnet_infer.fused_weights(block.to(DEVICE).eval(),
+                                          head_infer.fold_head_params,
+                                          kernels.pack_conv_head)
+
+    wts, other = weights(50), weights(51)
+    raised = wts._replace(t_in=wts.t_in + 8.0)
+    b, c_in, h, w = K8_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(52)
+    spec = 3.0 * torch.randn(b, h, w, 1, device=DEVICE, generator=gen) - 5.0
+    freq = torch.linspace(-1.0, 1.0, h, device=DEVICE)[None, :, None, None]
+    x = torch.cat([spec, freq.expand(b, h, w, 1)], dim=-1).to(
+        torch.bfloat16).permute(0, 3, 1, 2)  # NCHW, channels_last memory
+
+    def padded_before_bn(x_, w_):
+        xp = torch.nn.functional.pad(x_.float(), (1, 1, 1, 1))
+        xa = (xp * w_.s_in.view(1, -1, 1, 1) + w_.t_in.view(1, -1, 1, 1)) \
+            .to(torch.bfloat16).float()
+        k = w_.w.float().reshape(3, 3, c_in, -1).permute(3, 2, 0, 1)
+        y = torch.nn.functional.max_pool2d(
+            torch.nn.functional.conv2d(xa, k), 2)
+        y = y * w_.scale.view(1, -1, 1, 1) + w_.shift.view(1, -1, 1, 1)
+        return torch.where(y >= 0, y, w_.alpha.view(1, -1, 1, 1) * y) \
+            .to(torch.bfloat16)
+
+    out = check_kernel("K8", kernels.conv_head_fused,
+                       kernels.conv_head_fused_reference, x, wts, other,
+                       raised, padded_before_bn)
+    depth = wts.w.shape[2]
+    positions = b * (h // 2) * (w // 2) * 4  # the conv outputs pooled
+    flops = 2.0 * positions * 9 * c_in * depth
+    n_bytes = (x.numel() * 2 + b * depth * (h // 2) * (w // 2) * 2
+               + wts.w.numel() * 2 + (2 * c_in + 3 * depth) * 4)
+    bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
+    log(f"K8 {K8_SHAPE} -> {(b, depth, h // 2, w // 2)} time: kernel "
+        f"{out['ms']:.4f} ms, plain version {out['plain_ms']:.4f} ms (runs "
+        f"{out.pop('times')}); bound {bound:.4f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+    return {"name": "conv_head_kernel", "route": "cuda",
+            "source": "freesound_classification_tpu_torch/csrc/conv_head.cu",
+            "replaces": "freesound_classification_tpu/ops/pallas_head.py:135",
+            **out, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def synthetic_clip_lengths(n: int, seed: int = 0) -> np.ndarray:
@@ -535,18 +731,21 @@ def write_inputs(root: str) -> dict:
             "experiment": write_experiment(root, "2d_cnn", 100),
             "hier_experiment": write_experiment(root, "hierarchical_cnn",
                                                 200),
+            "backbone_experiment": write_experiment(root, "backbone_cnn",
+                                                    300),
             "fnames": fnames, "classes": classes}
 
 
 def write_experiment(root: str, model_kind: str, seed: int) -> str:
     """A ``N_FOLDS``-fold experiment dir of ``model_kind`` at ``NETWORK``'s
-    width over ``FEATURES``, its folds random from ``seed`` in the JAX
-    package's layout, as a JAX-trained experiment exported for the port."""
+    width (the backbone: ``BACKBONE``) over ``FEATURES``, its folds random
+    from ``seed`` in the JAX package's layout, as a JAX-trained experiment
+    exported for the port."""
     from freesound_classification_tpu_torch import interop
     from freesound_classification_tpu_torch.ops import dsp
 
     exp = os.path.join(root, f"experiment_{model_kind}")
-    config = {"network": NETWORK,
+    config = {"network": dict(NETWORK, backbone=BACKBONE),
               "data": {"features": FEATURES, "_n_folds": N_FOLDS,
                        "_n_classes": N_CLASSES},
               "train": {}, "label": "chip_smoke"}
@@ -558,7 +757,7 @@ def write_experiment(root: str, model_kind: str, seed: int) -> str:
         os.makedirs(fold_dir)
         params, stats = interop.random_jax_variables(
             **network, n_classes=N_CLASSES, seed=seed + k,
-            model_kind=model_kind,
+            model_kind=model_kind, backbone=BACKBONE,
             input_dim=dsp.parse_features(FEATURES).n_features)
         interop.save_fold_npz(os.path.join(fold_dir, "best_model.npz"),
                               params, stats)
@@ -965,7 +1164,8 @@ class plain_fused_blocks:
     versions on the card in place of the kernels (to compare the two on
     the same path)."""
 
-    names = ("resnet_block_1d_fused", "resnet_block_2d_fused")
+    names = ("resnet_block_1d_fused", "resnet_block_2d_fused",
+             "basic_block_fused", "conv_head_fused")
 
     def __enter__(self):
         from freesound_classification_tpu_torch.ops import kernels
@@ -1001,27 +1201,32 @@ def ensemble_ms_per_batch(predictors: dict, host: list) -> dict:
 
 
 def fused_ensemble(label: str, model_kind: str, experiment: str,
-                   csv_probs: np.ndarray, host: list, counter, smi: str
-                   ) -> int:
+                   csv_probs: np.ndarray, host: list, counter, smi: str,
+                   per_model: int | None = None,
+                   option: str = "fused_infer") -> int:
     """The 5-fold bf16 ensemble of ``experiment`` through
-    ``build_predictor(..., fused_infer=True)`` over the decoded batches:
-    the kernel's launches (one per block, fold and batch), the fused
-    probabilities against the unfused CLI's CSV and against the fused path
-    through the plain versions, and the fused and unfused ensembles' ms per
-    batch. Returns the launches."""
+    ``build_predictor(..., option=True)`` (``fused_infer`` or
+    ``fused_head``) over the decoded batches: the kernel's launches
+    (``per_model`` per fold and batch, by default one per block of
+    ``NETWORK``), the fused probabilities against the
+    unfused CLI's CSV and against the fused path through the plain
+    versions, and the fused and unfused ensembles' ms per batch. Returns
+    the launches."""
     from freesound_classification_tpu_torch.cli import predict_2d_cnn
 
     def predictor(fused):
         return predict_2d_cnn.build_predictor(
             experiment, torch.device(DEVICE), dtype=torch.bfloat16,
-            model_kind=model_kind, fused_infer=fused)
+            model_kind=model_kind, **{option: fused})
 
     unfused, fused = predictor(False), predictor(True)
     counter.launches = 0
     probs = fused.predict_loader(host)
     torch.cuda.synchronize()
     launches = counter.launches
-    expected = NETWORK["num_conv_blocks"] * N_FOLDS * len(host)
+    if per_model is None:
+        per_model = NETWORK["num_conv_blocks"]
+    expected = per_model * N_FOLDS * len(host)
     with plain_fused_blocks():
         plain = fused.predict_loader(host)
     vs_unfused = float(np.abs(probs - csv_probs).max())
@@ -1085,6 +1290,116 @@ def phase_hier_predict(root: str, inputs: dict, host: list, smi: str
     return fused_ensemble("hierarchical", "hierarchical_cnn",
                           inputs["hier_experiment"], probs, host,
                           kernels.resnet_block_1d_fused, smi)
+
+
+def phase_backbone_predict(root: str, inputs: dict, host: list, smi: str
+                           ) -> int:
+    """The predict CLI with ``--model_kind backbone_cnn`` (5 folds of
+    ``BACKBONE`` in bf16) over the 200 test clips, a warm-up run and a
+    timed one, then the same ensemble with ``fused_infer``; returns K7's
+    launches (13 identity blocks of resnet34 per fold and batch)."""
+    from freesound_classification_tpu_torch.cli import predict_2d_cnn
+    from freesound_classification_tpu_torch.models.backbone import (
+        RESNET_STAGES,
+    )
+    from freesound_classification_tpu_torch.ops import kernels
+
+    out_csv = os.path.join(root, "backbone_preds.csv")
+    argv = ["--experiment", inputs["backbone_experiment"],
+            "--test_df", inputs["test_csv"], "--test_data_dir",
+            inputs["test_dir"], "--classmap", inputs["classmap"],
+            "--output_df", out_csv, "--max_batch_elems",
+            str(MAX_BATCH_ELEMS), "--num_workers", "4", "--device", DEVICE,
+            "--bf16", "--model_kind", "backbone_cnn"]
+    walls = []
+    for _ in range(2):  # warm-up, then timed
+        t0 = time.time()
+        predict_2d_cnn.main(argv)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    header, fnames, probs = read_predictions(out_csv)
+    if (header != ["fname", *sorted(inputs["classes"])]
+            or fnames != inputs["fnames"]
+            or probs.shape != (N_CLIPS, N_CLASSES)
+            or not np.isfinite(probs).all() or probs.min() < 0
+            or probs.max() > 1):
+        raise RuntimeError(f"bad backbone CSV: {probs.shape}")
+    swapped = float(np.abs(probs - np.roll(probs, 1, axis=0)).max())
+    log(f"backbone predict CLI ({BACKBONE}, 5 folds, bf16): warm-up "
+        f"{walls[0]:.3f} s, timed {walls[1]:.3f} s = "
+        f"{N_CLIPS / walls[1]:.2f} clips/s end to end on {smi}; CSV "
+        f"{probs.shape} in [{probs.min():.4g}, {probs.max():.4g}]; max |dp| "
+        f"between neighbouring clips {swapped:.4g}")
+    if not swapped > 2 * FUSED_BF16_TOL:
+        raise RuntimeError("backbone predictions barely depend on the clip")
+    identity = sum(n - (stage > 0)
+                   for stage, n in enumerate(RESNET_STAGES[BACKBONE]))
+    return fused_ensemble("backbone", "backbone_cnn",
+                          inputs["backbone_experiment"], probs, host,
+                          kernels.basic_block_fused, smi,
+                          per_model=identity)
+
+
+def phase_backbone_train(root: str, inputs: dict, smi: str) -> dict:
+    """The backbone train CLI (``BACKBONE_RECIPE``) on fold 0; returns the
+    K1/K2/K3 launches of its run."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.cli import train_backbone_cnn
+    from freesound_classification_tpu_torch.models.backbone import (
+        RESNET_STAGES,
+    )
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.training.state import (
+        create_model,
+    )
+
+    argv = ["--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE,
+            *BACKBONE_RECIPE, "--folds", "0", "--n_folds", "5",
+            "--epochs", str(BACKBONE_TRAIN_EPOCHS), "--num_workers", "4",
+            "--log_interval", "1", "--label", "backbone",
+            "--experiments_dir", os.path.join(root, "experiments")]
+    counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
+               "K3": kernels.pv_resynth}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.time()
+    experiment = train_backbone_cnn.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log(f"backbone train CLI ({BACKBONE}): {wall:.2f} s for "
+        f"{BACKBONE_TRAIN_EPOCHS} epochs of fold 0 (validation and "
+        f"checkpoints included); launches {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"the backbone train path missed a kernel: "
+                           f"{launches}")
+    if experiment.config.network.backbone != BACKBONE:
+        raise RuntimeError("config.json lacks network.backbone")
+    fold = train_results(experiment, smi)
+    final, _ = interop.load_fold_npz(os.path.join(
+        experiment.experiment_dir, "checkpoints", "fold_0",
+        "final_model.npz"))
+    fresh, _ = interop.to_jax_variables(create_model(
+        experiment.config.network, TRAIN_CLASSES, torch.bfloat16, 42,
+        torch.device("cpu"), model_kind="backbone_cnn").state_dict())
+    last = f"stage3_block{RESNET_STAGES[BACKBONE][-1] - 1}"
+    trunk, fresh_trunk = final["trunk"], fresh["trunk"]
+    moved = {
+        "trunk.conv1": float(np.abs(trunk["conv1"]["kernel"]
+                                    - fresh_trunk["conv1"]["kernel"]).max()),
+        f"trunk.{last}.conv2": float(np.abs(
+            trunk[last]["conv2"]["kernel"]
+            - fresh_trunk[last]["conv2"]["kernel"]).max())}
+    moved["head.fc2"] = float(np.abs(final["head"]["fc2"]["kernel"]
+                                     - fresh["head"]["fc2"]["kernel"]).max())
+    log(f"backbone parameters moved from their init by (max |dw|): "
+        f"{moved}; validation lwlrap {fold['metric']:.4f}")
+    if not min(moved.values()) > 0:
+        raise RuntimeError("the backbone train path did not move the "
+                           "parameters")
+    return launches
 
 
 def phase_f32_step() -> None:
@@ -1186,6 +1501,8 @@ def main() -> None:
     k3 = phase_k3()
     k6 = phase_k6()
     k45 = phase_k45()
+    k7 = phase_k7()
+    k8 = phase_k8()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.time()
         inputs = write_inputs(root)
@@ -1199,13 +1516,18 @@ def main() -> None:
         k45["launches"] = fused_ensemble(
             "2d", "2d_cnn", inputs["experiment"], probs_2d, host,
             kernels.resnet_block_2d_fused, smi)
+        k8["launches"] = fused_ensemble(
+            "2d head", "2d_cnn", inputs["experiment"], probs_2d, host,
+            kernels.conv_head_fused, smi, per_model=1, option="fused_head")
         k6["launches"] = phase_hier_predict(root, inputs, host, smi)
+        k7["launches"] = phase_backbone_predict(root, inputs, host, smi)
         train = phase_train(root, train_inputs, smi)
         pretrained, _ = phase_hier_train(root, train_inputs, smi)
         phase_hier_finetune(root, train_inputs, pretrained, smi)
+        phase_backbone_train(root, train_inputs, smi)
     k2["launches"], k3["launches"] = train["K2"], train["K3"]
     phase_f32_step()
-    log(json.dumps({"kernels": [k1, k2, k3, k45, k6]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k45, k6, k7, k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

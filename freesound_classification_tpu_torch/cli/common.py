@@ -1,6 +1,7 @@
 """Shared CLI plumbing of the port (JAX ``cli/common.py``): the device, the
 bucket ladder, the train CLIs' flag surface and their per-fold loop,
-keyed by the model kind (``2d_cnn`` or ``hierarchical_cnn``).
+keyed by the model kind (``2d_cnn``, ``hierarchical_cnn`` or
+``backbone_cnn``).
 
 The train loop reads the manifests with the ``csv`` module, splits folds
 with the port's own numpy stratification, trains each requested fold with
@@ -152,17 +153,21 @@ def refuse_unported(args) -> None:
                 f"{flag}: not ported yet (ROADMAP {item})")
 
 
-def experiment_config(args, n_classes: int, input_dim: int) -> dict:
-    """The nested experiment config of the JAX CLI."""
+def experiment_config(args, n_classes: int, input_dim: int,
+                      extra_network: Optional[dict] = None) -> dict:
+    """The nested experiment config of the JAX CLI; ``extra_network`` adds
+    to its network section (the backbone CLI's ``backbone``)."""
+    network = {
+        "num_conv_blocks": args.num_conv_blocks,
+        "start_deep_supervision_on": args.start_deep_supervision_on,
+        "conv_base_depth": args.conv_base_depth,
+        "growth_rate": args.growth_rate,
+        "output_dropout": args.output_dropout,
+        "aggregation_type": args.aggregation_type,
+    }
+    network.update(extra_network or {})
     return {
-        "network": {
-            "num_conv_blocks": args.num_conv_blocks,
-            "start_deep_supervision_on": args.start_deep_supervision_on,
-            "conv_base_depth": args.conv_base_depth,
-            "growth_rate": args.growth_rate,
-            "output_dropout": args.output_dropout,
-            "aggregation_type": args.aggregation_type,
-        },
+        "network": network,
         "data": {
             "features": args.features,
             "_n_folds": args.n_folds,
@@ -232,16 +237,19 @@ def write_predictions(path: str, fnames, class_names, probs) -> None:
             writer.writerow([name, *(f"{v:.9g}" for v in row)])
 
 
-def run_training(args, model_kind: str = "2d_cnn") -> Experiment:
+def run_training(args, model_kind: str = "2d_cnn",
+                 extra_network: Optional[dict] = None) -> Experiment:
     """Train a ``model_kind`` model on each of ``args.folds``: fit and
     validate, save the final model, reload the best and write its
-    out-of-fold predictions."""
+    out-of-fold predictions. ``extra_network`` goes into the config's
+    network section."""
     refuse_unported(args)
     device = resolve_device(args.device)
     class_map = load_classmap(args.classmap)
     n_classes = len(class_map)
     config = experiment_config(args, n_classes,
-                               parse_features(args.features).n_features)
+                               parse_features(args.features).n_features,
+                               extra_network)
     with Experiment(config, experiments_dir=args.experiments_dir) \
             as experiment:
         print(experiment.config)

@@ -9,11 +9,13 @@ Reads the experiment's ``config.json`` and each fold's
 ``checkpoints/fold_k/best_model.npz`` (written by the port's train CLIs, or
 from a JAX checkpoint by ``scripts/export_fold_weights.py``), runs the fold
 ensemble over the test CSV, and writes ``fname`` plus the sorted class
-columns. ``--model_kind`` picks the family: ``2d_cnn`` (the default) or
-``hierarchical_cnn``. On CUDA a log-mel frontend always runs the
-hand-written kernel K1. ``build_predictor(..., fused_infer=True)`` runs the
-eval resnet blocks through the fused kernels (K4/K5 in 2d, K6 in 1d); it is
-a library option with no flag, off by default, as in the JAX package.
+columns. ``--model_kind`` picks the family: ``2d_cnn`` (the default),
+``hierarchical_cnn`` or ``backbone_cnn``. On CUDA a log-mel frontend always
+runs the hand-written kernel K1. ``build_predictor(..., fused_infer=True)``
+runs the eval resnet blocks through the fused kernels (K4/K5 in 2d, K6 in
+1d, K7 in the backbone) and ``fused_head=True`` the 2d block0 head through
+K8; they are library options with no flag, off by default, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -83,10 +85,12 @@ def build_predictor(
     folds=None,
     model_kind: str = "2d_cnn",
     fused_infer: bool = False,
+    fused_head: bool = False,
 ) -> EnsemblePredictor:
     """The fold ensemble of the ``model_kind`` experiment at
     ``experiment_dir`` on ``device``; ``fused_infer`` routes the eval-mode
-    resnet blocks through the fused kernels.
+    resnet blocks through the fused kernels, ``fused_head`` the 2d block0
+    head through K8. A fold of another family than ``model_kind`` raises.
 
     The models are built on the ``meta`` device and take the fold arrays as
     their tensors (``assign=True``), so no default init runs only to be
@@ -97,14 +101,18 @@ def build_predictor(
     n_classes = int(cfg.data._n_classes)
     models = []
     for path in fold_weight_paths(experiment, folds):
+        params, stats = interop.load_fold_npz(path)
+        if interop.model_kind_of(params) != model_kind:
+            raise ValueError(
+                f"{path} holds a {interop.model_kind_of(params)} model, not "
+                f"the {model_kind} that --model_kind asks for")
         with torch.device("meta"):
             model = build_classifier(
                 model_kind, cfg.network, n_classes, dtype=dtype,
-                fused_infer=fused_infer,
+                fused_infer=fused_infer, fused_head=fused_head,
                 input_dim=dsp.parse_features(cfg.data.features).n_features)
-        model.load_state_dict(
-            interop.from_jax_variables(*interop.load_fold_npz(path)),
-            assign=True)
+        model.load_state_dict(interop.from_jax_variables(params, stats),
+                              assign=True)
         models.append(model)
     frontend = Frontend(cfg.data.features, MODEL_FAMILY[model_kind],
                         sr=common.SR, device=device, mel_project=mel_project)
@@ -116,10 +124,6 @@ def main(argv=None) -> None:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_predict_arguments(parser)
     args = parser.parse_args(argv)
-    if args.model_kind == "backbone_cnn":
-        raise NotImplementedError(
-            "--model_kind backbone_cnn: the resnet backbone family is not "
-            "ported yet (ROADMAP M4.2)")
     device = common.resolve_device(args.device)
 
     class_names = class_names_from_classmap(load_classmap(args.classmap))

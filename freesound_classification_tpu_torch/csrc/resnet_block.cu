@@ -1,5 +1,6 @@
 // K4, K5 and K6: the eval-mode resnet block with BatchNorm folded into its
-// convolutions, in one pass per tile of positions.
+// convolutions, in one pass per tile of positions; and K7, the backbone's
+// eval-mode BasicBlock, on the same machinery (see basic_block_kernel).
 //
 // Replaces three TPU kernels that compute one function in two layouts:
 //   K6  _fused_1d_kernel  freesound_classification_tpu/ops/pallas_resnet1d.py
@@ -67,11 +68,13 @@ struct Geometry {
   int height, width;  // the map (1d: height 1)
   int tile_h, tile_w;
   int tiles_h, tiles_w;
-  int wp;      // tile_w + 2: halo row width
-  int n_halo;  // halo positions: wp (1d) or (tile_h + 2) wp (2d)
+  int halo;    // x's halo: 1 (resnet block) or 2 (basic block)
+  int wp;      // tile_w + 2 halo: halo row width
+  int n_halo;  // halo positions: wp (1d) or (tile_h + 2 halo) wp (2d)
   int base;    // flat halo index of the band's first row: 1 or wp + 1
   int m_rows;  // band rows, a multiple of 16
-  int r1;      // shared rows of x and h1, a multiple of 16
+  int m_out;   // basic block: output band rows, a multiple of 16
+  int r1;      // shared rows of x (and h1), a multiple of 16
   long long sb, sc, sh, sw;  // element strides of x and out
   int channel_fast;          // sc == 1: lanes walk channels, else positions
 };
@@ -87,22 +90,24 @@ __device__ __forceinline__ int tap_offset(const Geometry& g, int tap) {
 template <int kTaps>
 __device__ long long halo_offset(const Geometry& g, int h0, int w0, int q) {
   if (q >= g.n_halo) return -1;
-  const int hh = kTaps == 3 ? 0 : h0 - 1 + q / g.wp;
-  const int ww = kTaps == 3 ? w0 - 1 + q : w0 - 1 + q % g.wp;
+  const int hh = kTaps == 3 ? 0 : h0 - g.halo + q / g.wp;
+  const int ww = kTaps == 3 ? w0 - 1 + q : w0 - g.halo + q % g.wp;
   if (hh < 0 || hh >= g.height || ww < 0 || ww >= g.width) return -1;
   return hh * g.sh + ww * g.sw;
 }
 
-// band row j -> its output's offset in the image, or -1 for halo columns,
-// rows past the tile and positions past the map
+// the output at flat halo index `flat` -> its offset in the image, or -1 for
+// halo columns, rows past the tile and positions past the map
 template <int kTaps>
-__device__ long long center_offset(const Geometry& g, int h0, int w0, int j) {
-  const int flat = g.base + j;
-  const int row = kTaps == 3 ? 1 : flat / g.wp;
+__device__ long long center_offset(const Geometry& g, int h0, int w0,
+                                   int flat) {
+  const int row = kTaps == 3 ? g.halo : flat / g.wp;
   const int col = kTaps == 3 ? flat : flat % g.wp;
-  if (row < 1 || row > g.tile_h || col < 1 || col > g.tile_w) return -1;
-  const int hh = kTaps == 3 ? 0 : h0 - 1 + row;
-  const int ww = w0 - 1 + col;
+  if (row < g.halo || row >= g.tile_h + g.halo || col < g.halo ||
+      col >= g.tile_w + g.halo)
+    return -1;
+  const int hh = kTaps == 3 ? 0 : h0 - g.halo + row;
+  const int ww = w0 - g.halo + col;
   if (hh >= g.height || ww >= g.width) return -1;
   return hh * g.sh + ww * g.sw;
 }
@@ -144,9 +149,13 @@ __device__ __forceinline__ void step_products(
 // channels of a[(row + a_base + offset(tap)) * ld + c]
 // * w[(tap * cp + c) * cp + col], then epi(row, col, value) over each
 // tile, one element per call (lane e of the tile: row e / 16, col e % 16).
-// A step is one (tap, 16 channels); its weight fragment w + 16 step cp +
-// 16 n is loaded while the step before it runs on the tensor cores.
-template <int kTaps, typename Epilogue>
+// A step is one (tap, 16 channels); its weight fragment is loaded while the
+// step before it runs on the tensor cores. In w's plain layout (kTiled
+// false) the fragment is 16 rows of 32 bytes cp apart, w + 16 step cp +
+// 16 n; tiled (K7), w holds each fragment as 512 contiguous bytes, step-
+// major, w + 256 (step cp / 16 + n), which a warp reads in four full
+// 128-byte lines instead of sixteen 32-byte sectors.
+template <int kTaps, bool kTiled, typename Epilogue>
 __device__ __forceinline__ void conv_rows(const Geometry& g,
                                           const __nv_bfloat16* a, int a_base,
                                           int taps, int n_rows,
@@ -161,20 +170,21 @@ __device__ __forceinline__ void conv_rows(const Geometry& g,
   for (int item = warp; item < n_items; item += kWarps) {
     const int n = item % n_strips;
     const int m0 = (item / n_strips) * kGroup;
-    const __nv_bfloat16* wn = w + n * 16;
-    const long long step_stride = 16LL * g.cp;
+    const __nv_bfloat16* wn = w + n * (kTiled ? 256 : 16);
+    const long long step_stride = kTiled ? 256LL * n_strips : 16LL * g.cp;
+    const int ldw = kTiled ? 16 : g.cp;
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kGroup];
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) wmma::fill_fragment(acc[i], 0.f);
     WeightFragment f0, f1;
-    wmma::load_matrix_sync(f0, wn, g.cp);
+    wmma::load_matrix_sync(f0, wn, ldw);
 #pragma unroll 1
     for (int s = 0; s < steps; s += 2) {
       if (s + 1 < steps)
-        wmma::load_matrix_sync(f1, wn + (s + 1) * step_stride, g.cp);
+        wmma::load_matrix_sync(f1, wn + (s + 1) * step_stride, ldw);
       step_products<kTaps>(g, a, a_base, taps, n_tiles, m0, s, f0, acc);
       if (s + 2 < steps)
-        wmma::load_matrix_sync(f0, wn + (s + 2) * step_stride, g.cp);
+        wmma::load_matrix_sync(f0, wn + (s + 2) * step_stride, ldw);
       if (s + 1 < steps)
         step_products<kTaps>(g, a, a_base, taps, n_tiles, m0, s + 1, f1,
                              acc);
@@ -227,7 +237,7 @@ resnet_block_kernel(const __nv_bfloat16* __restrict__ x,
   for (int q = threadIdx.x; q < g.r1; q += kThreads)
     halo_at[q] = halo_offset<kTaps>(g, h0, w0, q);
   for (int j = threadIdx.x; j < g.m_rows; j += kThreads)
-    out_at[j] = center_offset<kTaps>(g, h0, w0, j);
+    out_at[j] = center_offset<kTaps>(g, h0, w0, g.base + j);
   __syncthreads();
 
   // x over the halo rows; zeros off the map and past C
@@ -241,7 +251,7 @@ resnet_block_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();
 
   // h1 over every halo row: zero off the map (SAME padding of conv2)
-  conv_rows<kTaps>(g, xs, 0, 1, g.r1, w1, stage,
+  conv_rows<kTaps, false>(g, xs, 0, 1, g.r1, w1, stage,
                    [&](int q, int k, float v) {
                      h1[q * g.ld + k] = __float2bfloat16_rn(
                          halo_at[q] >= 0
@@ -251,7 +261,7 @@ resnet_block_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();
 
   // h2 over the band
-  conv_rows<kTaps>(g, h1, g.base, kTaps, g.m_rows, w2, stage,
+  conv_rows<kTaps, false>(g, h1, g.base, kTaps, g.m_rows, w2, stage,
                    [&](int j, int k, float v) {
                      h2[j * g.ld + k] = __float2bfloat16_rn(prelu(
                          __fadd_rn(v, vec[g.cp + k]), vec[4 * g.cp + k]));
@@ -259,7 +269,7 @@ resnet_block_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();  // h1 is dead from here on: y takes its rows
 
   // y = prelu(h2 w3 + b3 + x), x from its halo row base + j
-  conv_rows<kTaps>(g, h2, 0, 1, g.m_rows, w3, stage,
+  conv_rows<kTaps, false>(g, h2, 0, 1, g.m_rows, w3, stage,
                    [&](int j, int k, float v) {
                      const float y = __fadd_rn(
                          __fadd_rn(v, vec[2 * g.cp + k]),
@@ -304,6 +314,87 @@ int launch(const void* x, const void* w1, const void* w2, const void* w3,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// K7: the backbone's eval-mode stride-1 identity BasicBlock with BatchNorm
+// folded (replaces _basic_t_kernel, freesound_classification_tpu/ops/
+// pallas_backbone.py). Per position p of a (B, C, H, W) bf16 map, with
+// folded bf16 weights w1, w2 (9 taps x C x C) and float32 biases b1, b2:
+//   h1[p] = bf16(relu(sum_taps x[p + tap] w1[tap] + b1)) inside the map,
+//           0 outside it
+//   y[p]  = bf16(relu((sum_taps h1[p + tap] w2[tap] + b2) + x[p]))
+// as the TPU kernel rounds: x, the weights and h1 bf16, sums float32.
+//
+// SAME padding is on h1, so a tile's h1 is computed over the tile plus a
+// one-position halo, from x over the tile plus a halo of 2: x is held in
+// flat rows tile_w + 4 wide (wp), h1 over a band of m_rows flat rows that
+// starts at x's row wp + 1 (the map position (h0 - 1, w0 - 1)), and y over
+// a band of m_out rows that starts at h1's row wp + 1 (the tile's first
+// position). Band rows on halo columns are computed and dropped; h1 rows
+// off the map are written as 0. y goes from the epilogue straight to the
+// map (x stays live for the residual, so it has no rows to be staged in).
+__global__ void __launch_bounds__(kThreads)
+basic_block_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ w1,
+                   const __nv_bfloat16* __restrict__ w2,
+                   const float* __restrict__ bias,  // (2, cp): b1, b2
+                   __nv_bfloat16* __restrict__ out, Geometry g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // r1 rows
+  __nv_bfloat16* h1 = xs + g.r1 * g.ld;                          // m_rows
+  float* stages = reinterpret_cast<float*>(h1 + g.m_rows * g.ld);
+  float* stage = stages + (threadIdx.x / 32) * 256;
+  float* vec = stages + kWarps * 256;  // b1, b2: 2 x cp
+  long long* halo_at = reinterpret_cast<long long*>(vec + 2 * g.cp);  // r1
+  long long* out_at = halo_at + g.r1;                                 // m_out
+
+  const int per_image = g.tiles_h * g.tiles_w;
+  const int b = blockIdx.x / per_image;
+  const int t = blockIdx.x % per_image;
+  const int h0 = (t / g.tiles_w) * g.tile_h;
+  const int w0 = (t % g.tiles_w) * g.tile_w;
+  const __nv_bfloat16* xb = x + b * g.sb;
+  __nv_bfloat16* ob = out + b * g.sb;
+  const int y_base = 2 * g.wp + 2;  // x's flat row of y's band row 0
+
+  for (int i = threadIdx.x; i < 2 * g.cp; i += kThreads) vec[i] = bias[i];
+  for (int q = threadIdx.x; q < g.r1; q += kThreads)
+    halo_at[q] = halo_offset<9>(g, h0, w0, q);
+  for (int j = threadIdx.x; j < g.m_out; j += kThreads)
+    out_at[j] = center_offset<9>(g, h0, w0, y_base + j);
+  __syncthreads();
+
+  // x over the tile plus a halo of 2; zeros off the map and past C
+  for (int idx = threadIdx.x; idx < g.r1 * g.cp; idx += kThreads) {
+    const int q = g.channel_fast ? idx / g.cp : idx % g.r1;
+    const int k = g.channel_fast ? idx % g.cp : idx / g.r1;
+    const long long at = halo_at[q];
+    xs[q * g.ld + k] = k < g.channels && at >= 0 ? xb[k * g.sc + at]
+                                                 : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+
+  // h1 over the band: zero off the map (SAME padding of conv2)
+  conv_rows<9, true>(g, xs, g.base, 9, g.m_rows, w1, stage,
+               [&](int j, int k, float v) {
+                 h1[j * g.ld + k] = __float2bfloat16_rn(
+                     halo_at[g.base + j] >= 0 ? fmaxf(__fadd_rn(v, vec[k]), 0.f)
+                                              : 0.f);
+               });
+  __syncthreads();
+
+  // y = relu((conv2(h1) + b2) + x) to the map
+  conv_rows<9, true>(g, h1, g.wp + 1, 9, g.m_out, w2, stage,
+               [&](int j, int k, float v) {
+                 const long long at = out_at[j];
+                 if (k < g.channels && at >= 0) {
+                   const float y = __fadd_rn(
+                       __fadd_rn(v, vec[g.cp + k]),
+                       __bfloat162float(xs[(y_base + j) * g.ld + k]));
+                   ob[k * g.sc + at] = __float2bfloat16_rn(fmaxf(y, 0.f));
+                 }
+               });
+}
+
 }  // namespace
 
 // x, out: bf16 maps (B, C, H, W) with element strides sb, sc, sh, sw (out
@@ -330,10 +421,12 @@ extern "C" int resnet_block_launch(
   g.tile_w = tile_w;
   g.tiles_h = (height + tile_h - 1) / tile_h;
   g.tiles_w = (width + tile_w - 1) / tile_w;
+  g.halo = 1;
   g.wp = tile_w + 2;
   g.n_halo = taps == 3 ? g.wp : (tile_h + 2) * g.wp;
   g.base = taps == 3 ? 1 : g.wp + 1;
   g.m_rows = m_rows;
+  g.m_out = 0;
   g.r1 = r1;
   g.sb = sb;
   g.sc = sc;
@@ -345,4 +438,59 @@ extern "C" int resnet_block_launch(
   if (taps == 9)
     return launch<9>(x, w1, w2, w3, bias, slope, out, n_batch, g, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7. x, out: bf16 maps (B, C, H, W) with element strides sb, sc, sh, sw
+// (out has x's strides). w1, w2: bf16 (9, cp, cp) matrices, tap 3 dh + dw,
+// rows input channels, zero past C, tiled: (9 cp / 16, cp / 16, 16, 16),
+// fragment (step, strip) = rows 16 step.., columns 16 strip..; bias: (2,
+// cp) float32 (b1, b2), zero past C;
+// all contiguous on the current device. The tile geometry is the caller's
+// (ops/kernels.py basic_block_tiles): the h1 band of m_rows rows and the y
+// band of m_out rows, and r1 x rows, must cover every row the taps read.
+// stream: a cudaStream_t. Returns the cudaError_t of the launch.
+extern "C" int basic_block_launch(
+    const void* x, const void* w1, const void* w2, const void* bias,
+    void* out, int n_batch, int channels, int cp, int height, int width,
+    long long sb, long long sc, long long sh, long long sw, int tile_h,
+    int tile_w, int m_rows, int m_out, int r1, void* stream) {
+  Geometry g;
+  g.channels = channels;
+  g.cp = cp;
+  g.ld = cp + 16;
+  g.height = height;
+  g.width = width;
+  g.tile_h = tile_h;
+  g.tile_w = tile_w;
+  g.tiles_h = (height + tile_h - 1) / tile_h;
+  g.tiles_w = (width + tile_w - 1) / tile_w;
+  g.halo = 2;
+  g.wp = tile_w + 4;
+  g.n_halo = (tile_h + 4) * g.wp;
+  g.base = g.wp + 1;
+  g.m_rows = m_rows;
+  g.m_out = m_out;
+  g.r1 = r1;
+  g.sb = sb;
+  g.sc = sc;
+  g.sh = sh;
+  g.sw = sw;
+  g.channel_fast = sc == 1;
+  const size_t smem =
+      static_cast<size_t>(r1 + m_rows) * g.ld * sizeof(__nv_bfloat16) +
+      (kWarps * 256 + 2 * cp) * sizeof(float) +
+      static_cast<size_t>(r1 + m_out) * sizeof(long long);
+  cudaError_t err = cudaFuncSetAttribute(
+      basic_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      static_cast<unsigned>(n_batch) * g.tiles_h * g.tiles_w;
+  basic_block_kernel<<<blocks, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), g);
+  return static_cast<int>(cudaGetLastError());
 }

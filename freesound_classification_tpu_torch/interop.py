@@ -3,14 +3,19 @@ state_dict, both ways.
 
 The JAX package keeps a model as two nested dicts of arrays, ``params`` and
 ``batch_stats``, keyed as flax names them (``block0/conv/kernel``,
-``block0/resnet/bn1/scale``, ``head/fc1/kernel``, ...). Both classifier
-families the port has, ``TwoDimensionalCNN`` and ``HierarchicalCNN``, use
-the same names, so one map serves both: ``from_jax_variables`` turns them
-into the port's state_dict, conv kernels HWIO -> OIHW (2d) or (k, in, out)
--> (out, in, k) (1d), dense kernels transposed, BatchNorm
-scale/bias/mean/var to weight/bias/running_mean/running_var.
+``block0/resnet/bn1/scale``, ``head/fc1/kernel``, ...). The two CNN
+families, ``TwoDimensionalCNN`` and ``HierarchicalCNN``, use the same names,
+so one map serves both: ``from_jax_variables`` turns them into the port's
+state_dict, conv kernels HWIO -> OIHW (2d) or (k, in, out) -> (out, in, k)
+(1d), dense kernels transposed, BatchNorm scale/bias/mean/var to
+weight/bias/running_mean/running_var. The backbone (``CNNBackbone``, whose
+variables have ``trunk``) keeps the JAX names as its module names
+(``input_norm``, ``trunk/conv1``, ``trunk/stage{s}_block{b}/downsample_bn``,
+``head/fc1``, ...; its convolutions have no bias), so its map is the same
+per-leaf conversion by name.
 
-``to_jax_variables`` is the reverse map.
+``to_jax_variables`` is the reverse map; ``model_kind_of`` tells the family
+from the variables.
 
 A fold is stored as a flat ``.npz`` of those arrays keyed by ``/``-joined
 paths (``params/block0/conv/kernel``, ...): ``scripts/export_fold_weights.py``
@@ -27,9 +32,16 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from freesound_classification_tpu_torch.models.backbone import (
+    RESNET_STAGES,
+    TRUNK_WIDTH,
+)
 from freesound_classification_tpu_torch.models.blocks import block_depths
 
 _COLLECTIONS = ("params", "batch_stats")
+# the random backbone's conditioning (random_jax_variables)
+RESIDUAL_SCALE = 0.2
+CLASSIFIER_SCALE = 0.3
 
 
 def _t(x) -> torch.Tensor:
@@ -49,7 +61,8 @@ def _map_conv(sd: dict, key: str, p: Mapping) -> None:
     kernel = np.asarray(p["kernel"])
     order = (3, 2, 0, 1) if kernel.ndim == 4 else (2, 1, 0)
     sd[f"{key}.weight"] = _t(np.transpose(kernel, order))
-    sd[f"{key}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
 
 
 def _map_linear(sd: dict, key: str, p: Mapping) -> None:
@@ -61,11 +74,44 @@ def _map_prelu(sd: dict, key: str, p: Mapping) -> None:
     sd[f"{key}.weight"] = _t(p["alpha"])
 
 
+def model_kind_of(params: Mapping) -> str:
+    """The family of JAX variables: "backbone_cnn" (a ``trunk``),
+    "2d_cnn" (a 4-d block0 conv kernel) or "hierarchical_cnn"."""
+    if "trunk" in params:
+        return "backbone_cnn"
+    if np.ndim(params["block0"]["conv"]["kernel"]) == 4:
+        return "2d_cnn"
+    return "hierarchical_cnn"
+
+
+def _from_jax_by_name(sd: dict, prefix: str, params: Mapping,
+                      stats: Mapping) -> None:
+    """Every leaf module of ``params`` under its own name: a dict with a
+    kernel is a conv (rank 3-4) or a dense layer (rank 2), one with a scale
+    a BatchNorm (statistics from ``stats``), one with an alpha a PReLU."""
+    for name, p in params.items():
+        key = f"{prefix}{name}"
+        if "kernel" in p:
+            if np.ndim(p["kernel"]) == 2:
+                _map_linear(sd, key, p)
+            else:
+                _map_conv(sd, key, p)
+        elif "scale" in p:
+            _map_bn(sd, key, p, stats[name])
+        elif "alpha" in p:
+            _map_prelu(sd, key, p)
+        else:
+            _from_jax_by_name(sd, f"{key}.", p, stats.get(name, {}))
+
+
 def from_jax_variables(params: Mapping,
                        batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """JAX ``TwoDimensionalCNN`` or ``HierarchicalCNN`` variables -> the
-    port's state_dict of the same family."""
+    """JAX ``TwoDimensionalCNN``, ``HierarchicalCNN`` or ``CNNBackbone``
+    variables -> the port's state_dict of the same family."""
     sd: dict[str, torch.Tensor] = {}
+    if model_kind_of(params) == "backbone_cnn":
+        _from_jax_by_name(sd, "", params, batch_stats)
+        return sd
     k = 0
     while f"block{k}" in params:
         p, s = params[f"block{k}"], batch_stats[f"block{k}"]
@@ -91,9 +137,9 @@ def from_jax_variables(params: Mapping,
 
 def to_jax_variables(
         state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
-    """The port's ``TwoDimensionalCNN`` or ``HierarchicalCNN`` state_dict ->
-    JAX (params, batch_stats) as nested dicts of float32 numpy arrays: the
-    inverse of ``from_jax_variables``."""
+    """The port's ``TwoDimensionalCNN``, ``HierarchicalCNN`` or
+    ``CNNBackbone`` state_dict -> JAX (params, batch_stats) as nested dicts
+    of float32 numpy arrays: the inverse of ``from_jax_variables``."""
     def a(key: str) -> np.ndarray:
         return state_dict[key].detach().to("cpu", torch.float32).numpy()
 
@@ -105,8 +151,10 @@ def to_jax_variables(
     def conv(key: str) -> dict:
         w = a(f"{key}.weight")
         order = (2, 3, 1, 0) if w.ndim == 4 else (2, 1, 0)
-        return {"kernel": np.ascontiguousarray(np.transpose(w, order)),
-                "bias": a(f"{key}.bias")}
+        out = {"kernel": np.ascontiguousarray(np.transpose(w, order))}
+        if f"{key}.bias" in state_dict:
+            out["bias"] = a(f"{key}.bias")
+        return out
 
     def linear(key: str) -> dict:
         return {"kernel": np.ascontiguousarray(a(f"{key}.weight").T),
@@ -117,6 +165,20 @@ def to_jax_variables(
 
     params: dict = {}
     stats: dict = {}
+    if any(key.startswith("trunk.") for key in state_dict):
+        # the backbone: every module under its own (JAX) name
+        for key in sorted({k.rsplit(".", 1)[0] for k in state_dict}):
+            *path, leaf = key.split(".")
+            p_node = _subtree(params, path)
+            if f"{key}.running_mean" in state_dict:
+                p_node[leaf], _subtree(stats, path)[leaf] = bn(key)
+            elif state_dict[f"{key}.weight"].dim() == 4:
+                p_node[leaf] = conv(key)
+            elif state_dict[f"{key}.weight"].dim() == 2:
+                p_node[leaf] = linear(key)
+            else:
+                p_node[leaf] = prelu(key)
+        return params, stats
     k = 0
     while f"blocks.{k}.conv.weight" in state_dict:
         pre = f"blocks.{k}"
@@ -140,6 +202,12 @@ def to_jax_variables(
     head["bn2"], head_stats["bn2"] = bn("head.bn2")
     params["head"], stats["head"] = head, head_stats
     return params, stats
+
+
+def _subtree(tree: dict, path) -> dict:
+    for name in path:
+        tree = tree.setdefault(name, {})
+    return tree
 
 
 def _flatten(tree: Mapping, prefix: str, out: dict) -> None:
@@ -177,23 +245,34 @@ def load_fold_npz(path: str) -> Tuple[dict, dict]:
 
 
 def random_jax_variables(
-    num_conv_blocks: int,
-    start_deep_supervision_on: int,
-    conv_base_depth: int,
-    growth_rate: float,
-    n_classes: int,
-    seed: int,
+    num_conv_blocks: int = 5,
+    start_deep_supervision_on: int = 2,
+    conv_base_depth: int = 64,
+    growth_rate: float = 2.0,
+    n_classes: int = 80,
+    seed: int = 0,
     model_kind: str = "2d_cnn",
     input_dim: int | None = None,
+    backbone: str = "resnet18",
 ) -> Tuple[dict, dict]:
-    """Random ``TwoDimensionalCNN`` (``model_kind`` "2d_cnn") or
+    """Random ``TwoDimensionalCNN`` (``model_kind`` "2d_cnn"),
     ``HierarchicalCNN`` ("hierarchical_cnn", over ``input_dim`` features
-    per frame) variables in the JAX package's layout, from a numpy seed:
-    (params, batch_stats) as nested dicts of float32 arrays.
+    per frame) or ``CNNBackbone`` ("backbone_cnn", the ``backbone`` arch;
+    the tower's widths do not apply) variables in the JAX package's layout,
+    from a numpy seed: (params, batch_stats) as nested dicts of float32
+    arrays.
 
     Kernels are LeCun-normal like flax's default init. Biases, BatchNorm
     statistics and PReLU slopes get small random offsets from flax's
     constants, so every tensor the bridge maps carries information.
+
+    The backbone's residual branches end in a BatchNorm of scale ~0.2 (as a
+    trained resnet's, or a zero-initialized residual scale, keep them
+    small), and its classifier kernel is 0.3 of LeCun's scale. With
+    flax's constants every block about doubles its input's variance, so a
+    random resnet34's logits reach the hundreds, the sigmoids saturate, and
+    bf16 rounding noise decides the probabilities near 0.5; so conditioned,
+    its logits spread by about 1.
     """
     rng = np.random.RandomState(seed)
 
@@ -206,13 +285,17 @@ def random_jax_variables(
         if input_dim is None:
             raise ValueError("hierarchical_cnn needs input_dim")
         spatial, c_first = 1, int(input_dim)
+    elif model_kind == "backbone_cnn":
+        spatial = 2
     else:
         raise ValueError(f"no random variables for {model_kind!r}")
 
-    def conv(k, c_in, c_out):
-        return {"kernel": normal((k,) * spatial + (c_in, c_out),
-                                 (k ** spatial * c_in) ** -0.5),
-                "bias": normal((c_out,), 0.1)}
+    def conv(k, c_in, c_out, bias=True):
+        out = {"kernel": normal((k,) * spatial + (c_in, c_out),
+                                (k ** spatial * c_in) ** -0.5)}
+        if bias:
+            out["bias"] = normal((c_out,), 0.1)
+        return out
 
     def dense(c_in, c_out):
         return {"kernel": normal((c_in, c_out), c_in ** -0.5),
@@ -227,8 +310,43 @@ def random_jax_variables(
     def prelu(c):
         return {"alpha": 0.25 + normal((c,), 0.05)}
 
+    def head(width):
+        h: dict = {"fc1": dense(width, width), "prelu": prelu(width),
+                   "fc2": dense(width, n_classes)}
+        hs: dict = {}
+        h["bn1"], hs["bn1"] = bn(width)
+        h["bn2"], hs["bn2"] = bn(width)
+        return h, hs
+
     params: dict = {}
     stats: dict = {}
+    if model_kind == "backbone_cnn":
+        params["input_norm"], stats["input_norm"] = bn(3)
+        trunk: dict = {"conv1": conv(7, 3, 64, bias=False)}
+        trunk_stats: dict = {}
+        trunk["bn1"], trunk_stats["bn1"] = bn(64)
+        c_in = 64
+        for stage, n_blocks in enumerate(RESNET_STAGES[backbone]):
+            features = 64 * 2**stage
+            for b in range(n_blocks):
+                strides = 2 if stage > 0 and b == 0 else 1
+                p = {"conv1": conv(3, c_in, features, bias=False),
+                     "conv2": conv(3, features, features, bias=False)}
+                s: dict = {}
+                p["bn1"], s["bn1"] = bn(features)
+                p["bn2"], s["bn2"] = bn(features)
+                p["bn2"]["scale"] *= np.float32(RESIDUAL_SCALE)
+                if c_in != features or strides != 1:
+                    p["downsample"] = conv(1, c_in, features, bias=False)
+                    p["downsample_bn"], s["downsample_bn"] = bn(features)
+                name = f"stage{stage}_block{b}"
+                trunk[name], trunk_stats[name] = p, s
+                c_in = features
+        params["trunk"], stats["trunk"] = trunk, trunk_stats
+        params["head"], stats["head"] = head(TRUNK_WIDTH)
+        params["head"]["fc2"]["kernel"] *= np.float32(CLASSIFIER_SCALE)
+        return params, stats
+
     depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
     for k, (c_in, d) in enumerate(zip([c_first, *depths], depths)):
         p: dict = {"conv": conv(3, c_in, d), "prelu": prelu(d)}
@@ -243,11 +361,6 @@ def random_jax_variables(
             r[f"prelu{i}"] = prelu(d)
         p["resnet"], s["resnet"] = r, rs
         params[f"block{k}"], stats[f"block{k}"] = p, s
-    width = sum(depths[start_deep_supervision_on:])
-    head: dict = {"fc1": dense(width, width), "prelu": prelu(width),
-                  "fc2": dense(width, n_classes)}
-    head_stats: dict = {}
-    head["bn1"], head_stats["bn1"] = bn(width)
-    head["bn2"], head_stats["bn2"] = bn(width)
-    params["head"], stats["head"] = head, head_stats
+    params["head"], stats["head"] = head(
+        sum(depths[start_deep_supervision_on:]))
     return params, stats

@@ -6,8 +6,9 @@ package is channels-last; inside the port's models tensors are NCHW (an NHWC
 input permuted to NCHW is already in PyTorch's channels_last memory format,
 which cuDNN keeps through the convolutions) and (B, C, T) for ``nn.Conv1d``.
 ``fused_infer=True`` runs eval-mode resnet blocks through the folded, fused
-kernels (``ops/resnet_infer.py``: K6 in 1d, K4/K5 in 2d); training, init
-and the checkpoint layout are the same either way. Parameters stay float32 and are
+kernels (``ops/resnet_infer.py``: K6 in 1d, K4/K5 in 2d), and
+``fused_head=True`` the 2d block0 head through K8 (``ops/head_infer.py``);
+training, init and the checkpoint layout are the same either way. Parameters stay float32 and are
 cast to the activations' dtype at use, as flax does for a ``dtype=bfloat16``
 module. BatchNorm follows flax's: batch statistics in float32 when training,
 and running statistics updated with the biased batch variance.
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from freesound_classification_tpu_torch.ops import resnet_infer
+from freesound_classification_tpu_torch.ops import head_infer, resnet_infer
 
 NEG_INF = -1e30
 BN_EPS = 1e-5
@@ -97,11 +98,12 @@ class Conv1d(nn.Conv1d):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` whose float32 parameters run in the input's dtype."""
+    """``nn.Conv2d`` whose float32 parameters run in the input's dtype; with
+    ``bias=False`` (the backbone's convolutions) there is no bias."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class Linear(nn.Linear):
@@ -184,11 +186,18 @@ class ConvBlock1d(nn.Module):
 class ConvBlock2d(nn.Module):
     """BN -> conv3x3 -> max-pool 2x2 -> BN -> PReLU -> ResnetBlock2d
     (JAX ``blocks.ConvBlock2d``). Halves H and W; an axis of size 1 pools
-    with window 1, where ``max_pool2d`` with window 2 would raise."""
+    with window 1, where ``max_pool2d`` with window 2 would raise.
+
+    With ``fused_head``, an eval-mode forward over a map of at least 2 x 2
+    that ``head_infer.head_supported`` accepts (block0's 2-channel input)
+    runs the head, BN -> conv -> pool -> BN -> PReLU, through K8, whose
+    output is bf16 values in x's dtype (the model's); then the resnet
+    block."""
 
     def __init__(self, in_channels: int, depth: int,
-                 fused_infer: bool = False):
+                 fused_infer: bool = False, fused_head: bool = False):
         super().__init__()
+        self.fused_head = fused_head
         self.bn_in = BatchNorm(in_channels)
         self.conv = Conv2d(in_channels, depth, 3, padding=1)
         self.bn_out = BatchNorm(depth)
@@ -196,6 +205,11 @@ class ConvBlock2d(nn.Module):
         self.resnet = ResnetBlock2d(depth, fused_infer)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.fused_head and not self.training
+                and head_infer.head_supported(x.shape,
+                                              self.conv.out_channels)):
+            return self.resnet(
+                head_infer.conv_block_2d_head_infer(x, self))
         window = (2 if x.shape[2] >= 2 else 1, 2 if x.shape[3] >= 2 else 1)
         h = self.conv(self.bn_in(x))
         if window != (1, 1):
@@ -278,7 +292,8 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
                 std = fan_in ** -0.5 / trunc_std
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
-                module.bias.zero_()
+                if module.bias is not None:
+                    module.bias.zero_()
             elif isinstance(module, BatchNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()

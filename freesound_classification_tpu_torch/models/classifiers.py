@@ -3,14 +3,17 @@
 - ``TwoDimensionalCNN``: the 2d CNN over log-mel images with the frequency
   encoding channel;
 - ``HierarchicalCNN``: the 1d conv tower over per-frame features (log-mel,
-  log-STFT or raw samples) with deep supervision.
+  log-STFT or raw samples) with deep supervision;
+- ``CNNBackbone`` (``models/backbone.py``): the resnet18/34 trunk over the
+  3-channel spectrogram.
 
 Public layouts are the JAX package's: the 2d model takes (B, H=n_features,
 W=n_frames, 1), the 1d model (B, T, F), each with per-clip valid frame
-counts, and both return (B, n_classes) float32 logits. Inside, tensors are
+counts, and all return (B, n_classes) float32 logits. Inside, tensors are
 NCHW and (B, C, T). ``fused_infer`` runs the eval-mode resnet blocks through
-the fused kernels (K4/K5 in 2d, K6 in 1d); training and the weights are the
-same either way.
+the fused kernels (K4/K5 in 2d, K6 in 1d, K7 in the backbone) and
+``fused_head`` the 2d CNN's block0 head through K8; training and the
+weights are the same either way.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from freesound_classification_tpu_torch.models.backbone import CNNBackbone
 from freesound_classification_tpu_torch.models.blocks import (
     ConvBlock1d,
     ConvBlock2d,
@@ -69,6 +73,7 @@ class TwoDimensionalCNN(nn.Module):
         dtype: torch.dtype = torch.float32,
         output_dropout: float = 0.0,
         fused_infer: bool = False,
+        fused_head: bool = False,
     ):
         super().__init__()
         _check_aggregation(aggregation_type)
@@ -77,7 +82,7 @@ class TwoDimensionalCNN(nn.Module):
         depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
         # the input carries the spectrogram plus the frequency encoding
         self.blocks = nn.ModuleList(
-            ConvBlock2d(c_in, d, fused_infer)
+            ConvBlock2d(c_in, d, fused_infer, fused_head)
             for c_in, d in zip([2, *depths], depths))
         # deep supervision: the pooled features of every block from
         # start_deep_supervision_on on feed the head
@@ -146,13 +151,22 @@ class HierarchicalCNN(nn.Module):
 def build_classifier(model_kind: str, network, n_classes: int,
                      dtype: torch.dtype = torch.float32,
                      fused_infer: bool = False,
-                     input_dim: int | None = None) -> nn.Module:
+                     input_dim: int | None = None,
+                     fused_head: bool = False) -> nn.Module:
     """The classifier of ``model_kind`` from an experiment's
     ``config.network`` (``utils.config.Config`` or any object with those
     attributes), as the JAX ``build_classifier``. ``input_dim`` (features
-    per frame) is needed by the 1d family only. ``fused_infer`` routes
-    eval-mode resnet blocks through the fused kernels (default off, as in
-    the JAX package)."""
+    per frame) is needed by the 1d family only; the backbone reads
+    ``network.backbone`` (default "resnet18") and ``output_dropout``.
+    ``fused_infer`` routes eval-mode resnet blocks through the fused
+    kernels, ``fused_head`` the 2d CNN's block0 head through K8 (both
+    default off, as in the JAX package)."""
+    if model_kind == "backbone_cnn":
+        return CNNBackbone(
+            arch=str(getattr(network, "backbone", "resnet18")),
+            n_classes=n_classes, dtype=dtype,
+            output_dropout=float(getattr(network, "output_dropout", 0.0)),
+            fused_infer=fused_infer)
     common = dict(
         num_conv_blocks=int(network.num_conv_blocks),
         start_deep_supervision_on=int(network.start_deep_supervision_on),
@@ -165,14 +179,10 @@ def build_classifier(model_kind: str, network, n_classes: int,
         fused_infer=fused_infer,
     )
     if model_kind == "2d_cnn":
-        return TwoDimensionalCNN(**common)
+        return TwoDimensionalCNN(fused_head=fused_head, **common)
     if model_kind == "hierarchical_cnn":
         if input_dim is None:
             raise ValueError("hierarchical_cnn needs input_dim, the "
                              "features per frame")
         return HierarchicalCNN(int(input_dim), **common)
-    if model_kind == "backbone_cnn":
-        raise NotImplementedError(
-            "model_kind 'backbone_cnn': the resnet backbone family is not "
-            "ported yet (ROADMAP M4.2)")
     raise ValueError(f"unknown model kind {model_kind!r}")

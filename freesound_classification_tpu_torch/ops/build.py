@@ -122,4 +122,16 @@ def load_library() -> ctypes.CDLL:
     lib.resnet_block_launch.argtypes = ([ptr] * 7 + [i32] * 6 + [i64] * 4
                                         + [i32] * 4 + [ptr])
     lib.resnet_block_launch.restype = i32
+    # int basic_block_launch(x, w1, w2, bias, out, B, C, cp, H, W, sb, sc,
+    #                        sh, sw, tile_h, tile_w, m_rows, m_out, r1,
+    #                        stream) -> cudaError_t
+    lib.basic_block_launch.argtypes = ([ptr] * 5 + [i32] * 5 + [i64] * 4
+                                       + [i32] * 5 + [ptr])
+    lib.basic_block_launch.restype = i32
+    # int conv_head_launch(x, x_bf16, s_in, t_in, w, scale, shift, alpha,
+    #                      out, B, C_in, H, W, depth, sb, sc, sh, sw, osb,
+    #                      osc, osh, osw, stream) -> cudaError_t
+    lib.conv_head_launch.argtypes = ([ptr, i32] + [ptr] * 7 + [i32] * 5
+                                     + [i64] * 8 + [ptr])
+    lib.conv_head_launch.restype = i32
     return lib

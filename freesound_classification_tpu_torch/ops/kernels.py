@@ -17,6 +17,13 @@ Each replaces a TPU kernel of
   ``_fused_t_kernel`` of ``ops/pallas_resnet.py`` and ``_fused_1d_kernel``
   of ``ops/pallas_resnet1d.py``): the eval-mode resnet block with
   BatchNorm folded, the ``fused_infer`` option of the models.
+- K7, ``basic_block_fused`` (``csrc/resnet_block.cu``, replaces
+  ``_basic_t_kernel`` of ``ops/pallas_backbone.py``): the eval-mode
+  stride-1 identity BasicBlock of the backbone, BatchNorm folded
+  (``fused_infer``).
+- K8, ``conv_head_fused`` (``csrc/conv_head.cu``, replaces ``_head_kernel``
+  of ``ops/pallas_head.py``): the 2d CNN's eval-mode block0 head, bn_in ->
+  conv3x3 -> 2x2 max-pool -> bn_out -> PReLU in one pass (``fused_head``).
 
 A wrapper runs its plain twin only for tensors on the CPU. A CUDA tensor
 launches the kernel, or the wrapper raises; nothing falls back. Each launch
@@ -556,3 +563,274 @@ def resnet_block_2d_fused(x: torch.Tensor,
 
 
 resnet_block_2d_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: the eval-mode backbone BasicBlock with BatchNorm folded
+# ---------------------------------------------------------------------------
+
+
+class BasicBlockWeights(NamedTuple):
+    """A folded stride-1 identity BasicBlock as K7 reads it: w1, w2 bf16
+    (9, cp, cp) matrices (tap 3 dh + dw, input channels on rows) stored
+    tiled, (9 cp / 16, cp / 16, 16, 16): 16 x 16 fragment (step, strip) is
+    rows 16 step.., columns 16 strip.. (``tile_fragments``); bias (2, cp)
+    float32 (b1, b2); zero past ``channels``, cp = channels rounded up to
+    16."""
+
+    w1: torch.Tensor
+    w2: torch.Tensor
+    bias: torch.Tensor
+    channels: int
+
+
+def tile_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(taps, cp, cp) -> (taps cp / 16, cp / 16, 16, 16), each 16 x 16
+    fragment contiguous (K7's weight layout)."""
+    cp = w.shape[-1]
+    return w.reshape(-1, 16, cp // 16, 16).permute(0, 2, 1, 3).contiguous()
+
+
+def untile_fragments(w: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``tile_fragments``: -> (9, cp, cp)."""
+    cp = w.shape[1] * 16
+    return w.permute(0, 2, 1, 3).reshape(9, cp, cp)
+
+
+def pack_basic_block(fp: dict) -> BasicBlockWeights:
+    """A folded block (``ops/backbone_infer.fold_basic_params``: float32
+    w1, w2 (3, 3, C, C), b1, b2) -> its kernel weights: the float32 fold
+    rounded once to bf16, zero padding, fragments tiled."""
+    c = fp["w1"].shape[2]
+    cp = _round16(c)
+
+    def mat(w):
+        return tile_fragments(F.pad(w.reshape(9, c, c),
+                                    (0, cp - c, 0, cp - c))
+                              .to(torch.bfloat16))
+
+    bias = F.pad(torch.stack([fp["b1"], fp["b2"]]).float(), (0, cp - c))
+    return BasicBlockWeights(mat(fp["w1"]), mat(fp["w2"]), bias.contiguous(),
+                             c)
+
+
+def _conv3x3(h: torch.Tensor, w: torch.Tensor, c: int) -> torch.Tensor:
+    """An NCHW map times tiled (9, cp, cp) tap-major weights, SAME
+    padding."""
+    w = untile_fragments(w)
+    k = w[:, :c, :c].float().reshape(3, 3, c, c).permute(3, 2, 0, 1)
+    return F.conv2d(h, k, padding=1)
+
+
+def basic_block_fused_reference(x: torch.Tensor,
+                                wts: BasicBlockWeights) -> torch.Tensor:
+    """Plain twin of K7: (B, C, H, W) -> the same shape in x's dtype and
+    memory format, ``relu(conv3x3(h1) + b2 + x)`` with ``h1 =
+    relu(conv3x3(x) + b1)``, h1 = 0 outside the map. The kernel's rounding
+    points: x, the weights and h1 are bf16 values, the sums and biases
+    float32, and y is rounded to bf16."""
+    c = wts.channels
+    xb = x.to(torch.bfloat16).float()
+    b1, b2 = (wts.bias[i, :c].view(1, c, 1, 1) for i in (0, 1))
+    h1 = F.relu(_conv3x3(xb, wts.w1, c) + b1).to(torch.bfloat16).float()
+    y = F.relu(_conv3x3(h1, wts.w2, c) + b2 + xb)
+    return y.to(torch.bfloat16).to(x.dtype)
+
+
+def _basic_shared_bytes(r1: int, m_h1: int, m_out: int, cp: int) -> int:
+    """x (r1 rows) and h1 (m_h1 rows) in bf16, the warps' float32 stages,
+    b1 and b2, and an int64 offset per x row and per output row."""
+    return ((r1 + m_h1) * (cp + 16) * 2 + (_RESNET_WARPS * 256 + 2 * cp) * 4
+            + (r1 + m_out) * 8)
+
+
+def basic_block_tiles(cp: int, height: int, width: int) -> tuple:
+    """K7's tile: (tile_h, tile_w, m_h1, m_out, r1). x is held over the
+    tile plus a halo of 2 as flat rows tile_w + 4 wide; h1 over a band of
+    m_h1 rows that covers the tile plus a halo of 1, y over a band of m_out
+    rows that covers the tile; r1 covers every x row the taps read. A tile
+    is up to 28 pixels wide and as many rows as keep 128 flat rows; it
+    shrinks until shared memory fits."""
+    tile_w = min(width, 28)
+    tile_h = min(height, max(1, 128 // (tile_w + 4)))
+    while True:
+        wp = tile_w + 4
+        m_out = _round16((tile_h - 1) * wp + tile_w)
+        m_h1 = _round16(max((tile_h + 2) * wp - 2, m_out + 2 * wp + 2))
+        r1 = _round16(m_h1 + 2 * wp + 2)
+        if _basic_shared_bytes(r1, m_h1, m_out, cp) <= _MAX_SHARED_BYTES:
+            return tile_h, tile_w, m_h1, m_out, r1
+        if tile_h > 1:
+            tile_h -= 1
+        elif tile_w > 1:
+            tile_w -= 1
+        else:
+            raise ValueError(f"basic block: {cp} channels do not fit "
+                             "shared memory")
+
+
+def basic_block_fused(x: torch.Tensor,
+                      wts: BasicBlockWeights) -> torch.Tensor:
+    """K7: the folded stride-1 identity BasicBlock on an NCHW map in any
+    memory format (read in place), any float dtype (rounded to bf16 on the
+    way in, bf16 values out in x's dtype). CPU tensors take
+    ``basic_block_fused_reference``; CUDA tensors launch
+    ``basic_block_kernel`` (``csrc/resnet_block.cu``)."""
+    if x.device.type == "cpu":
+        return basic_block_fused_reference(x, wts)
+    name = "basic_block_fused"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x must be on the CPU or a CUDA device, "
+                         f"got {x.device}")
+    if x.dim() != 4 or x.shape[1] != wts.channels or min(x.shape) <= 0:
+        raise ValueError(f"{name}: x {tuple(x.shape)} for a "
+                         f"{wts.channels}-channel block")
+    cp = wts.bias.shape[1]
+    tiled = (9 * cp // 16, cp // 16, 16, 16)
+    want = {"w1": (tiled, torch.bfloat16), "w2": (tiled, torch.bfloat16),
+            "bias": ((2, cp), torch.float32)}
+    for key, (shape, dtype) in want.items():
+        t = getattr(wts, key)
+        if (t.shape != shape or t.dtype != dtype or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {key} must be contiguous {dtype} "
+                             f"{shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if cp % 16 or not 0 < wts.channels <= cp:
+        raise ValueError(f"{name}: {wts.channels} channels padded to {cp}")
+    xb = x.to(torch.bfloat16)
+    out = torch.empty_like(xb)
+    if out.stride() != xb.stride():  # not dense: the kernel reads out's
+        xb = torch.empty_like(xb).copy_(xb)
+    n_batch, _, height, width = x.shape
+    tile_h, tile_w, m_h1, m_out, r1 = basic_block_tiles(cp, height, width)
+    tiles = n_batch * -(-height // tile_h) * -(-width // tile_w)
+    if tiles >= 2**31:
+        raise ValueError(f"{name}: {tiles} tiles exceed the grid")
+
+    from freesound_classification_tpu_torch.ops import build
+
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.basic_block_launch(
+            xb.data_ptr(), wts.w1.data_ptr(), wts.w2.data_ptr(),
+            wts.bias.data_ptr(), out.data_ptr(), n_batch, wts.channels, cp,
+            height, width, *xb.stride(), tile_h, tile_w, m_h1, m_out, r1,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"basic_block_kernel launch failed: cudaError "
+                           f"{err}")
+    basic_block_fused.launches += 1
+    return out.to(x.dtype)
+
+
+basic_block_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: the eval-mode ConvBlock2d head (bn_in -> conv3x3 -> 2x2 max -> bn_out
+# -> PReLU)
+# ---------------------------------------------------------------------------
+
+HEAD_MAX_IN = 4  # input channels the kernel takes (block0 has 2)
+HEAD_TILE = (8, 32)  # pooled rows and columns per block of the kernel
+
+
+class HeadWeights(NamedTuple):
+    """A folded head as K8 reads it: s_in, t_in (C_in,) float32 (bn_in, an
+    affine on the input), w (9, C_in, depth) bf16, tap 3 dh + dw; scale,
+    shift and alpha (depth,) float32 (bn_out with the conv bias folded in,
+    applied after the pool, and the PReLU slopes)."""
+
+    s_in: torch.Tensor
+    t_in: torch.Tensor
+    w: torch.Tensor
+    scale: torch.Tensor
+    shift: torch.Tensor
+    alpha: torch.Tensor
+
+
+def pack_conv_head(fp: dict) -> HeadWeights:
+    """A folded head (``ops/head_infer.fold_head_params``, float32) -> its
+    kernel weights: the conv kernel rounded once to bf16."""
+    c_in, depth = fp["kern"].shape[2:]
+    return HeadWeights(
+        fp["s_in"].float().contiguous(), fp["t_in"].float().contiguous(),
+        fp["kern"].reshape(9, c_in, depth).to(torch.bfloat16).contiguous(),
+        fp["scale"].float().contiguous(), fp["bias"].float().contiguous(),
+        fp["alpha"].float().contiguous())
+
+
+def conv_head_fused_reference(x: torch.Tensor,
+                              wts: HeadWeights) -> torch.Tensor:
+    """Plain twin of K8: (B, C_in, H, W), any float dtype -> (B, depth,
+    H // 2, W // 2) bf16. bn_in(x) in float32 rounded to bf16 (the SAME
+    zeros are zeros of bn_in(x)), the bf16 conv with float32 sums, the 2x2
+    max of the float32 conv outputs, ``* scale + shift``, PReLU, bf16."""
+    c_in, depth = wts.w.shape[1:]
+
+    def per_channel(v):
+        return v.view(1, -1, 1, 1)
+
+    xa = (x.float() * per_channel(wts.s_in) + per_channel(wts.t_in)) \
+        .to(torch.bfloat16).float()
+    k = wts.w.float().reshape(3, 3, c_in, depth).permute(3, 2, 0, 1)
+    y = F.max_pool2d(F.conv2d(xa, k, padding=1), 2)
+    y = y * per_channel(wts.scale) + per_channel(wts.shift)
+    return torch.where(y >= 0, y, per_channel(wts.alpha) * y) \
+        .to(torch.bfloat16)
+
+
+def conv_head_fused(x: torch.Tensor, wts: HeadWeights) -> torch.Tensor:
+    """K8: the folded head on an NCHW map (any strides; float32 or bf16)
+    -> (B, depth, H // 2, W // 2) bf16 in channels_last memory. CPU tensors
+    take ``conv_head_fused_reference``; CUDA tensors launch
+    ``conv_head_kernel`` (``csrc/conv_head.cu``). 1 <= C_in <= 4, H and
+    W >= 2, depth a multiple of 16 in [16, 128]."""
+    if x.device.type == "cpu":
+        return conv_head_fused_reference(x, wts)
+    name = "conv_head_fused"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x must be on the CPU or a CUDA device, "
+                         f"got {x.device}")
+    c_in, depth = wts.w.shape[1:]
+    if (x.dim() != 4 or x.shape[1] != c_in or not 1 <= c_in <= HEAD_MAX_IN
+            or min(x.shape[2:]) < 2 or x.shape[0] <= 0
+            or depth % 16 or not 16 <= depth <= 128):
+        raise ValueError(f"{name}: unsupported x {tuple(x.shape)} for "
+                         f"{c_in} -> {depth} channels")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    for key in HeadWeights._fields:
+        t = getattr(wts, key)
+        dtype = torch.bfloat16 if key == "w" else torch.float32
+        if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous {dtype} on "
+                             f"{x.device}, got {t.dtype} on {t.device}")
+    n_batch, _, height, width = x.shape
+    h_out, w_out = height // 2, width // 2
+    out = torch.empty((n_batch, depth, h_out, w_out), dtype=torch.bfloat16,
+                      device=x.device, memory_format=torch.channels_last)
+    blocks = (n_batch * -(-h_out // HEAD_TILE[0])
+              * -(-w_out // HEAD_TILE[1]))
+    if blocks >= 2**31:
+        raise ValueError(f"{name}: {blocks} blocks exceed the grid")
+
+    from freesound_classification_tpu_torch.ops import build
+
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.conv_head_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), wts.s_in.data_ptr(),
+            wts.t_in.data_ptr(), wts.w.data_ptr(), wts.scale.data_ptr(),
+            wts.shift.data_ptr(), wts.alpha.data_ptr(), out.data_ptr(),
+            n_batch, c_in, height, width, depth, *x.stride(), *out.stride(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_head_kernel launch failed: cudaError {err}")
+    conv_head_fused.launches += 1
+    return out
+
+
+conv_head_fused.launches = 0

@@ -61,17 +61,18 @@ def fold_block_params(block: nn.Module, eps: float = 1e-5) -> dict:
     return _fold_block(block, eps)
 
 
-def fused_weights(block: nn.Module, fold) -> kernels.FusedBlockWeights:
-    """``block``'s kernel weights, kept on the block until one of its
-    tensors is replaced or changed in place (a new storage or a new version
-    counter): an eager forward would otherwise fold and pack again on every
-    call, some 35 small launches per block."""
+def fused_weights(block: nn.Module, fold,
+                  pack=kernels.pack_resnet_block):
+    """``pack(fold(block))``, ``block``'s kernel weights, kept on the block
+    until one of its tensors is replaced or changed in place (a new storage
+    or a new version counter): an eager forward would otherwise fold and
+    pack again on every call, some 35 small launches per block."""
     tensors = [*block.parameters(), *block.buffers()]
     key = tuple((t.data_ptr(), t._version) for t in tensors)
     cached = getattr(block, "_fused_weights_cache", None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            cached = (key, kernels.pack_resnet_block(fold(block)))
+            cached = (key, pack(fold(block)))
         block._fused_weights_cache = cached
     return cached[1]
 

@@ -30,6 +30,7 @@ from freesound_classification_tpu_torch.cli import (
     train_hierarchical_cnn,
 )
 from freesound_classification_tpu_torch.data import audio_io
+from freesound_classification_tpu_torch.models.backbone import CNNBackbone
 from freesound_classification_tpu_torch.models.classifiers import (
     HierarchicalCNN,
     TwoDimensionalCNN,
@@ -217,8 +218,11 @@ def test_build_classifier_model_kinds():
     assert hier.head.dropout == 0.25
     assert isinstance(build_classifier("2d_cnn", net, N_CLASSES),
                       TwoDimensionalCNN)
-    with pytest.raises(NotImplementedError, match="M4.2"):
-        build_classifier("backbone_cnn", net, N_CLASSES)
+    backbone = build_classifier("backbone_cnn", net, N_CLASSES,
+                                fused_infer=True)
+    assert isinstance(backbone, CNNBackbone) and backbone.arch == "resnet18"
+    assert backbone.trunk.stage0_block0.fused_infer
+    assert backbone.head.dropout == 0.25
     with pytest.raises(ValueError, match="input_dim"):
         build_classifier("hierarchical_cnn", net, N_CLASSES)
     with pytest.raises(ValueError):

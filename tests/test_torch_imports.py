@@ -72,8 +72,10 @@ print(" ".join(names))
 # modules that must be among those imported (the walk finds every module;
 # these pin that the newest ones are there and stand alone)
 REQUIRED = ("cli.train_hierarchical_cnn", "cli.finetune_hierarchical_cnn",
-            "ops.resnet_infer", "ops.kernels", "models.blocks",
-            "models.classifiers", "models.frontend", "training.engine")
+            "cli.train_backbone_cnn", "ops.resnet_infer",
+            "ops.backbone_infer", "ops.head_infer", "ops.kernels",
+            "models.backbone", "models.blocks", "models.classifiers",
+            "models.frontend", "training.engine")
 
 
 def test_every_port_module_imports_with_the_jax_stack_blocked():

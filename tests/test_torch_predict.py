@@ -222,7 +222,8 @@ def test_predict_cli_refuses_what_it_cannot_run(synth, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             predict_2d_cnn.main(base + ["--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a 2d experiment's folds are not a backbone's
+    with pytest.raises(ValueError, match="holds a 2d_cnn model"):
         predict_2d_cnn.main(base + ["--device", "cpu",
                                     "--model_kind", "backbone_cnn"])
     assert not (tmp_path / "p.csv").exists()
