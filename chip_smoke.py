@@ -22,6 +22,12 @@ The paths, each driven through the CLI a user would call:
   same inputs.
 - the fused options of the 5-fold ensembles: ``fused_infer`` (K4/K5, K6,
   K7) and the 2d CNN's ``fused_head`` (K8), against the unfused CLIs.
+- the probe (``probes/dft_context.py``): the bench's 5-fold bf16 ensemble
+  at B = 64 x 10 s behind the log-mel frontend (V1, K1) and behind the fast
+  featurization (V3: bf16 cat-DFT products, then K9).
+- the bench (``python -m freesound_classification_tpu_torch.bench``): 5-fold
+  inference over 1120 bucketed clips, and the B = 64 x 10 s train step
+  with and without augmentation.
 
 Phases, each of which raises on failure (none catches its own):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
@@ -37,6 +43,10 @@ Phases, each of which raises on failure (none catches its own):
      head): each against its plain version at the paths' shapes, and three
      wrong inputs failing by far (shifted frames, another fold's weights,
      and padding the wrong tensor: x instead of h1, or x before bn_in)
+  K9: the split mel kernel against its plain twin at the probe's shape
+     (64 x 431 frames of a bf16 [re | im] spectrum, F 1025, M 128), and
+     three wrong inputs failing by far (im_offset one bin off, frames
+     shifted by one, the magnitude as one float32 chain)
   6. predict path: the predict CLI with launch counts reset just before
      it; the CSV's schema and values; K1 launched; the predictions vary
      across clips by more than the bf16 tolerance, and the same ensemble
@@ -53,6 +63,12 @@ Phases, each of which raises on failure (none catches its own):
      unfused CSV and against the plain versions, and ms per batch in turns;
      the hierarchical train and finetune CLIs and the backbone train CLI
      (K1-K3 launched, losses finite, parameters moved, steps/s)
+  probe: V1 and V3 once each with the counts reset just before each; K1
+     launched once in V1, K9 once in V3; V3 within its tolerance of V1 while
+     neighbouring clips differ by more than twice it; ms per call in turns
+  bench: the bench as a subprocess; its last line parses and every number
+     in it is finite and positive; K1 launched in each workload, K2 and K3
+     in the augmented train step
   8. float32 step: one train step (no augmentation, TF32 off) on the card
      against the same step on the CPU: loss 1e-4, gradients over the
      model's largest gradient 1e-2
@@ -157,6 +173,21 @@ FUSED_BF16_TOL = 2e-2
 # block's outputs (the K phases), and a flip travels through the later bf16
 # layers as any rounding does; half the bf16 tolerance
 FUSED_PLAIN_TOL = 1e-2
+# K9 and the probe: the bench shape, 64 clips x 10 s (431 frames)
+K9_CLIPS = 64
+# K9: the kernel and its twin round |S| at the same points, so only the
+# float32 sums of 1025 non-negative products differ, in order: as K1
+K9_TOL = K1_TOL
+# V3 (fast featurization, K9) against V1 (float32 log-mel, K1), both 5-fold
+# bf16 ensembles: the single-pass bf16 DFT errs by ~2^-8 of each block's
+# level, so a quiet band's log-mel moves by up to ~0.5 (0.46 on 8 clips x 3 s
+# on the CPU, median 1.9e-3), and the bf16 model rounds its input at ~2^-8
+# relative; at full width on the CPU the probabilities moved by 1.0e-2
+PROBE_TOL = 5e-2
+BENCH_KEYS = ("value", "vs_baseline", "mfu", "train_step_ms_noaug",
+              "train_step_ms_aug", "train_mfu_noaug", "train_mfu_aug",
+              "train_mfu")
+BENCH_TIMEOUT = 600
 
 
 def log(msg: str) -> None:
@@ -672,6 +703,66 @@ def phase_k8() -> dict:
             "replaces": "freesound_classification_tpu/ops/pallas_head.py:135",
             **out, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None}
+
+
+def phase_k9() -> dict:
+    """K9 at the probe's shape (64 clips x 10 s: 431 frames, F 1025, M 128)
+    on the spectrum the fast featurization gives it from clip-like waves,
+    and three wrong inputs that must fail by far: im_offset one bin off,
+    frames shifted by one, and the magnitude as one float32 chain rounded to
+    bf16 once (swapping re and im would not show: |S| is symmetric in
+    them)."""
+    from freesound_classification_tpu_torch.ops import fast_featurize, kernels
+
+    front = fast_featurize.FastFrontend(FEATURES, sr=SR, device=DEVICE)
+    spec = fast_featurize.cat_dft_spectrum(
+        chain_wave(K9_CLIPS, 10 * SR, 9), front.basis)
+    fb_t = front.fb_t
+    n_freq = fb_t.shape[0]
+    got = kernels.mel_log_split(spec, fb_t, n_freq, n_freq)
+    want = kernels.mel_log_split_reference(spec, fb_t, n_freq, n_freq)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"K9: bad output {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+
+    def far(out):
+        return (out - want).abs().max().item()
+
+    wide = torch.nn.functional.pad(spec, (0, 1))  # room for im one bin on
+    off_by_one = far(kernels.mel_log_split(wide, fb_t, n_freq, n_freq + 1))
+    shifted = far(kernels.mel_log_split(torch.roll(spec, 1, dims=1), fb_t,
+                                        n_freq, n_freq))
+    re, im = spec[..., :n_freq].float(), spec[..., n_freq:].float()
+    mag = torch.sqrt(re * re + im * im).to(torch.bfloat16)
+    chain = far(torch.log(mag.float() @ fb_t.float() + kernels.LOG_EPS)
+                .transpose(-1, -2))
+    log(f"K9 {tuple(spec.shape)} -> {tuple(got.shape)}: max_abs_err "
+        f"{err:.3e} (tolerance {K9_TOL:g}); im_offset one bin off gives "
+        f"{off_by_one:.3e}, frames shifted by one {shifted:.3e}, the float32 "
+        f"chain magnitude {chain:.3e}")
+    if not err <= K9_TOL:
+        raise RuntimeError(f"K9 disagrees with its plain twin: {err}")
+    if not min(off_by_one, shifted, chain) > 10 * K9_TOL:
+        raise RuntimeError("K9's comparison cannot tell a wrong input")
+    ms, plain_ms, times = timed_in_turns(
+        lambda: kernels.mel_log_split(spec, fb_t, n_freq, n_freq),
+        lambda: kernels.mel_log_split_reference(spec, fb_t, n_freq, n_freq))
+    b, t, _ = spec.shape
+    m = fb_t.shape[1]
+    # |S| takes 4 operations a bin on the CUDA cores, far below the product
+    flops = 2.0 * b * t * n_freq * m
+    n_bytes = b * t * 2 * n_freq * 2 + fb_t.numel() * 2 + got.numel() * 4
+    bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
+    log(f"K9 time: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
+        f"(runs {times}); bound {bound:.4f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+    return {"name": "mel_log_split_kernel", "route": "cuda",
+            "source": "freesound_classification_tpu_torch/csrc/"
+                      "mel_log_split.cu",
+            "replaces": "scripts/probe_dft_context.py:95",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
 def synthetic_clip_lengths(n: int, seed: int = 0) -> np.ndarray:
@@ -1402,6 +1493,94 @@ def phase_backbone_train(root: str, inputs: dict, smi: str) -> dict:
     return launches
 
 
+def phase_probe(smi: str) -> int:
+    """The probe's two programs at the bench shape (64 clip-like waves x
+    10 s, the bench's 5 random bf16 folds): V1 (log-mel frontend, K1) and
+    V3 (fast featurization, K9) once each with the counts reset just
+    before, K1 and K9 launched once each where they belong, V3 within
+    ``PROBE_TOL`` of V1 while neighbouring clips differ by more than twice
+    that; then ms per call in turns. Returns K9's launches."""
+    from freesound_classification_tpu_torch import bench
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.probes import dft_context
+
+    preds = dft_context.predictors(
+        bench.fold_models(bench.random_fold_variables()), DEVICE)
+    rng = np.random.RandomState(13)
+    length = 10 * SR
+    wave = torch.from_numpy(np.stack([
+        synthetic_clip(length, rng) for _ in range(K9_CLIPS)]).astype(
+        np.float32)).to(DEVICE)
+    lengths = torch.full((K9_CLIPS,), length, dtype=torch.int32,
+                         device=DEVICE)
+    counted = {"K1": kernels.mel_project_log, "K9": kernels.mel_log_split}
+    probs, launches = {}, {}
+    for name in ("V1", "V3"):
+        for fn in counted.values():
+            fn.launches = 0
+        probs[name] = preds[name].predict_batch(wave, lengths)
+        torch.cuda.synchronize()
+        launches[name] = {k: fn.launches for k, fn in counted.items()}
+    diff, corr = dft_context.compare(probs["V1"], probs["V3"])
+    p1 = probs["V1"]
+    swapped = (p1 - torch.roll(p1, 1, dims=0)).abs().max().item()
+    log(f"probe (B={K9_CLIPS} x 10 s, 5-fold bf16): launches {launches}; "
+        f"V3 against V1 max |dp| {diff:.3e} (tolerance {PROBE_TOL:g}), corr "
+        f"{corr:.6f}; V1 probabilities in [{p1.min().item():.4g}, "
+        f"{p1.max().item():.4g}], neighbouring clips {swapped:.4g} apart")
+    if launches != {"V1": {"K1": 1, "K9": 0}, "V3": {"K1": 0, "K9": 1}}:
+        raise RuntimeError(f"the probe's programs missed a kernel: "
+                           f"{launches}")
+    for p in probs.values():
+        if (p.shape != (K9_CLIPS, N_CLASSES) or not torch.isfinite(p).all()
+                or p.min() < 0 or p.max() > 1):
+            raise RuntimeError(f"bad probe probabilities {tuple(p.shape)}")
+    if not diff <= PROBE_TOL:
+        raise RuntimeError(f"V3 disagrees with V1: {diff}")
+    if not swapped > 2 * PROBE_TOL:
+        raise RuntimeError(f"probe probabilities barely depend on the clip "
+                           f"({swapped:.3g})")
+    times = dft_context.ms_per_call(preds, wave, lengths)
+    log("probe ms per 5-fold call (CUDA events, runs in turns): "
+        + ", ".join(f"{k} {np.mean(v):.3f} (runs {v})"
+                    for k, v in times.items()) + f" on {smi}")
+    return launches["V3"]["K9"]
+
+
+def phase_bench(smi: str) -> dict:
+    """``python -m freesound_classification_tpu_torch.bench`` as its user
+    runs it: its last line parses, every key is finite and positive, and its
+    ``# kernel launches`` line shows K1 in each workload and K2 and K3 in
+    the augmented step. Returns the record."""
+    torch.cuda.empty_cache()  # leave the card's memory to the bench
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "freesound_classification_tpu_torch.bench"],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.time() - t0
+    lines = proc.stdout.strip().splitlines()
+    log("bench output:\n  " + "\n  ".join(lines[-6:]))
+    if proc.returncode != 0:
+        raise RuntimeError(f"the bench failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    record = json.loads(lines[-1])
+    bad = [k for k in BENCH_KEYS
+           if not (isinstance(record.get(k), (int, float))
+                   and np.isfinite(record[k]) and record[k] > 0)]
+    if bad or record.get("metric") != \
+            "5fold_melcnn_inference_clips_per_sec_per_chip":
+        raise RuntimeError(f"bench record lacks {bad}: {record}")
+    prefix = "# kernel launches "
+    launches = json.loads([ln for ln in lines
+                           if ln.startswith(prefix)][-1][len(prefix):])
+    if not (min(w["K1"] for w in launches.values()) > 0
+            and min(launches["train_aug"][k] for k in ("K2", "K3")) > 0):
+        raise RuntimeError(f"the bench missed a kernel: {launches}")
+    log(f"bench: {wall:.1f} s as a subprocess; launches {launches} on {smi}")
+    return record
+
+
 def phase_f32_step() -> None:
     """One float32 train step at the recipe's width (dropout 0, no
     augmentation, TF32 off) on the card and on the CPU from the same
@@ -1503,6 +1682,7 @@ def main() -> None:
     k45 = phase_k45()
     k7 = phase_k7()
     k8 = phase_k8()
+    k9 = phase_k9()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.time()
         inputs = write_inputs(root)
@@ -1526,8 +1706,10 @@ def main() -> None:
         phase_hier_finetune(root, train_inputs, pretrained, smi)
         phase_backbone_train(root, train_inputs, smi)
     k2["launches"], k3["launches"] = train["K2"], train["K3"]
+    k9["launches"] = phase_probe(smi)
+    phase_bench(smi)
     phase_f32_step()
-    log(json.dumps({"kernels": [k1, k2, k3, k45, k6, k7, k8]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k45, k6, k7, k8, k9]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

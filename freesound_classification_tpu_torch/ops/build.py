@@ -134,4 +134,9 @@ def load_library() -> ctypes.CDLL:
     lib.conv_head_launch.argtypes = ([ptr, i32] + [ptr] * 7 + [i32] * 5
                                      + [i64] * 8 + [ptr])
     lib.conv_head_launch.restype = i32
+    # int mel_log_split_launch(spec, stride_b, stride_t, im_offset, fb_t, out,
+    #                          B, F, T, M, stream) -> cudaError_t
+    lib.mel_log_split_launch.argtypes = [ptr, i64, i64, i32, ptr, ptr,
+                                         i32, i32, i32, i32, ptr]
+    lib.mel_log_split_launch.restype = i32
     return lib

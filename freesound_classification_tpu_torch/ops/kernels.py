@@ -24,6 +24,10 @@ Each replaces a TPU kernel of
 - K8, ``conv_head_fused`` (``csrc/conv_head.cu``, replaces ``_head_kernel``
   of ``ops/pallas_head.py``): the 2d CNN's eval-mode block0 head, bn_in ->
   conv3x3 -> 2x2 max-pool -> bn_out -> PReLU in one pass (``fused_head``).
+- K9, ``mel_log_split`` (``csrc/mel_log_split.cu``, replaces
+  ``_mel_log_split_kernel`` of ``scripts/probe_dft_context.py``): the log-mel
+  tail of the fast featurization (``ops/fast_featurize.py``), K1's function
+  on a bf16 [re | im] spectrum at the TPU kernel's bf16 rounding points.
 
 A wrapper runs its plain twin only for tensors on the CPU. A CUDA tensor
 launches the kernel, or the wrapper raises; nothing falls back. Each launch
@@ -834,3 +838,92 @@ def conv_head_fused(x: torch.Tensor, wts: HeadWeights) -> torch.Tensor:
 
 
 conv_head_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: the split mel kernel of the fast featurization
+# ---------------------------------------------------------------------------
+
+
+def split_magnitude(spec: torch.Tensor, n_freq: int,
+                    im_offset: int) -> torch.Tensor:
+    """|S| of a bf16 [re | im] spectrum (..., W) -> bf16 (..., n_freq),
+    rounded to bf16 after each of its four operations (re^2, im^2, the sum,
+    the sqrt), as the TPU kernel's bf16 arithmetic rounds."""
+    re = spec[..., :n_freq]
+    im = spec[..., im_offset:im_offset + n_freq]
+    return torch.sqrt(re * re + im * im)
+
+
+def mel_log_split_reference(spec: torch.Tensor, fb_t: torch.Tensor,
+                            n_freq: int, im_offset: int) -> torch.Tensor:
+    """Plain twin of K9: bf16 spectrum (B, T, W), re at [0, n_freq) and im
+    at [im_offset, im_offset + n_freq) of each row, x bf16 filterbank (F, M)
+    -> float32 log-mel (B, M, T); the products of bf16 values are exact in
+    float32 and summed in float32."""
+    mag = split_magnitude(spec, n_freq, im_offset)
+    mel = mag.float() @ fb_t.float()
+    return torch.log(mel + LOG_EPS).transpose(-1, -2)
+
+
+def _check_split_layout(spec: torch.Tensor, fb_t: torch.Tensor, n_freq: int,
+                        im_offset: int) -> None:
+    if spec.dtype != torch.bfloat16 or fb_t.dtype != torch.bfloat16:
+        raise ValueError(f"mel_log_split: spec and fb_t must be bfloat16, got "
+                         f"{spec.dtype} and {fb_t.dtype}")
+    if spec.dim() != 3 or fb_t.dim() != 2 or fb_t.shape[0] != n_freq:
+        raise ValueError(f"mel_log_split: spec {tuple(spec.shape)} must be "
+                         f"(B, T, W) and fb_t {tuple(fb_t.shape)} (F={n_freq}"
+                         ", M)")
+    if not 0 < n_freq <= im_offset or im_offset + n_freq > spec.shape[-1]:
+        raise ValueError(f"mel_log_split: re [0, {n_freq}) and im "
+                         f"[{im_offset}, {im_offset + n_freq}) do not fit a "
+                         f"row of {spec.shape[-1]}")
+
+
+def mel_log_split(spec: torch.Tensor, fb_t: torch.Tensor, n_freq: int,
+                  im_offset: int) -> torch.Tensor:
+    """K9: bf16 [re | im] spectrum (B, T, W) with a contiguous last axis x
+    contiguous bf16 filterbank (F, M), M a multiple of 8 on the card ->
+    contiguous float32 log-mel (B, M, T).
+
+    CPU tensors take ``mel_log_split_reference``; CUDA tensors launch
+    ``mel_log_split_kernel`` (``csrc/mel_log_split.cu``).
+    """
+    _check_split_layout(spec, fb_t, n_freq, im_offset)
+    if spec.device.type == "cpu" and fb_t.device.type == "cpu":
+        return mel_log_split_reference(spec, fb_t, n_freq, im_offset)
+    if spec.device.type != "cuda" or fb_t.device != spec.device:
+        raise ValueError(
+            "mel_log_split: spec and fb_t must both be on the CPU or both on "
+            f"one CUDA device, got {spec.device} and {fb_t.device}")
+    n_batch, n_frames, _ = spec.shape
+    n_mel = fb_t.shape[1]
+    if spec.stride(-1) != 1 or not fb_t.is_contiguous():
+        raise ValueError("mel_log_split: spec's last axis and fb_t must be "
+                         "contiguous")
+    if n_mel % 8 or fb_t.data_ptr() % 16:  # fb_t rows load 8 bands at once
+        raise ValueError(f"mel_log_split: fb_t must be 16-byte aligned with "
+                         f"M a multiple of 8, got M={n_mel}")
+    if not 0 < n_batch <= _MAX_GRID_YZ or min(n_frames, n_mel) <= 0:
+        raise ValueError(f"mel_log_split: unsupported shape B={n_batch} "
+                         f"T={n_frames} M={n_mel}")
+
+    from freesound_classification_tpu_torch.ops import build
+
+    lib = build.load_library()
+    out = torch.empty((n_batch, n_mel, n_frames), dtype=torch.float32,
+                      device=spec.device)
+    with torch.cuda.device(spec.device):
+        err = lib.mel_log_split_launch(
+            spec.data_ptr(), spec.stride(0), spec.stride(1), im_offset,
+            fb_t.data_ptr(), out.data_ptr(), n_batch, n_freq, n_frames,
+            n_mel, torch.cuda.current_stream(spec.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mel_log_split_kernel launch failed: cudaError "
+                           f"{err}")
+    mel_log_split.launches += 1
+    return out
+
+
+mel_log_split.launches = 0

@@ -75,7 +75,8 @@ REQUIRED = ("cli.train_hierarchical_cnn", "cli.finetune_hierarchical_cnn",
             "cli.train_backbone_cnn", "ops.resnet_infer",
             "ops.backbone_infer", "ops.head_infer", "ops.kernels",
             "models.backbone", "models.blocks", "models.classifiers",
-            "models.frontend", "training.engine")
+            "models.frontend", "training.engine", "bench",
+            "ops.fast_featurize", "probes.dft_context")
 
 
 def test_every_port_module_imports_with_the_jax_stack_blocked():
