@@ -58,9 +58,11 @@ Phases, each of which raises on failure (none catches its own):
      predicts finite probabilities through the predict CLI; steps/s
   then: the 2d ensemble fused (K4/K5, then K8 with ``fused_head``), the
      hierarchical predict CLI and its fused ensemble (K6), the backbone
-     predict CLI and its fused ensemble (K7: 13 launches per fold and
-     batch), each with its launch count, its probabilities against the
-     unfused CSV and against the plain versions, and ms per batch in turns;
+     predict CLI and its fused ensemble (K7), each with its launch count
+     (equal to the blocks that the routing rule, the JAX package's VMEM
+     fit check, sends to the kernel at each batch's shapes), its
+     probabilities against the unfused CSV and against the plain versions,
+     and ms per batch in turns;
      the hierarchical train and finetune CLIs and the backbone train CLI
      (K1-K3 launched, losses finite, parameters moved, steps/s)
   probe: V1 and V3 once each with the counts reset just before each; K1
@@ -209,14 +211,15 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timed_in_turns(kernel, plain) -> tuple:
-    """Mean ms of ``kernel`` and ``plain`` over runs in turns (kernel,
-    plain, plain, kernel)."""
-    times = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        times[name].append(cuda_ms(kernel if name == "kernel" else plain))
-    return (float(np.mean(times["kernel"])), float(np.mean(times["plain"])),
-            times)
+def timed_in_turns(kernel, plain, *others) -> tuple:
+    """Mean ms of ``kernel``, ``plain`` and any ``others`` over runs in
+    turns (kernel, plain, others..., then back: ..., plain, kernel), and
+    each one's runs."""
+    fns = (kernel, plain, *others)
+    runs = [[] for _ in fns]
+    for i in (*range(len(fns)), *reversed(range(len(fns)))):
+        runs[i].append(cuda_ms(fns[i]))
+    return (*(float(np.mean(r)) for r in runs), runs)
 
 
 def bound_ms(n_bytes: float, flops: float, peak: float) -> tuple:
@@ -441,13 +444,15 @@ def random_resnet_block(model_kind: str, channels: int, seed: int):
 
 
 def check_kernel(label: str, kernel, plain, x, wts, other, raised,
-                 wrong_halo) -> dict:
+                 wrong_halo, folded=None) -> dict:
     """``kernel`` against ``plain`` on the same inputs, within one bf16 step
     of the largest output, and three wrong inputs that must fail by far:
     frames (the last dim) shifted by one, another fold's weights ``other``,
     and ``wrong_halo`` (a plain variant that pads the wrong tensor) against
     the kernel with the weights ``raised``, under which the wrong padding
-    shows. Returns the error and the times."""
+    shows. Returns the error and the times, with ``folded()`` (the bf16
+    folded twin on cuDNN, a yardstick the kernel path never calls) timed in
+    the same turns where it is given."""
     got = kernel(x, wts)
     want = plain(x, wts)
     torch.cuda.synchronize()
@@ -479,10 +484,21 @@ def check_kernel(label: str, kernel, plain, x, wts, other, raised,
                            f"{err_raised}")
     if not min(shifted, wrong_fold) > 10 * tol or not halo > 10 * tol_raised:
         raise RuntimeError(f"{label}'s comparison cannot tell a wrong input")
-    ms, plain_ms, times = timed_in_turns(lambda: kernel(x, wts),
-                                         lambda: plain(x, wts))
+    if folded is None:
+        ms, plain_ms, times = timed_in_turns(lambda: kernel(x, wts),
+                                             lambda: plain(x, wts))
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "times": times}
+    ms, plain_ms, folded_ms, times = timed_in_turns(
+        lambda: kernel(x, wts), lambda: plain(x, wts), folded)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "times": times}
+            "folded_ms": folded_ms, "times": times}
+
+
+def bf16_folded(fold_params: dict) -> dict:
+    """A block's float32 fold cast to bf16 once, so that the folded twin
+    runs in bf16 with no casts of its own."""
+    return {k: v.to(torch.bfloat16) for k, v in fold_params.items()}
 
 
 def check_fused_block(label: str, model_kind: str, shape: tuple,
@@ -502,8 +518,11 @@ def check_fused_block(label: str, model_kind: str, shape: tuple,
     fold = (resnet_infer.fold_block_params_1d if one_d
             else resnet_infer.fold_block_params)
     channels = shape[1]
-    wts = resnet_infer.fused_weights(
-        random_resnet_block(model_kind, channels, seed), fold)
+    block = random_resnet_block(model_kind, channels, seed)
+    wts = resnet_infer.fused_weights(block, fold)
+    folded_twin = (resnet_infer.resnet_block_1d_infer_folded if one_d
+                   else resnet_infer.resnet_block_2d_infer_folded)
+    fp = bf16_folded(fold(block))
     other = resnet_infer.fused_weights(
         random_resnet_block(model_kind, channels, seed + 1), fold)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -520,17 +539,22 @@ def check_fused_block(label: str, model_kind: str, shape: tuple,
         return plain(torch.nn.functional.pad(x_, pad), w_)[crop]
 
     out = check_kernel(label, kernel, plain, x, wts, other,
-                       wts._replace(bias=bias), padded_x)
+                       wts._replace(bias=bias), padded_x,
+                       folded=lambda: folded_twin(x, fp))
     positions = x[0, 0].numel() * shape[0]
     taps = 3 if one_d else 9
     flops = 2.0 * positions * channels * channels * (2 + taps)
-    n_bytes = (2 * x.numel() * 2 + (2 + taps) * channels * channels * 2
-               + 6 * channels * 4)
+    weight_bytes = (2 + taps) * channels * channels * 2 + 6 * channels * 4
+    n_bytes = 2 * x.numel() * 2 + weight_bytes
+    # K4/K5's design also writes h1 and reads it back (cp channels)
+    design = (n_bytes if one_d else
+              n_bytes + 2 * positions * kernels._round16(channels) * 2)
     bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
     log(f"{label} {tuple(shape)} time: kernel {out['ms']:.4f} ms, plain "
-        f"version {out['plain_ms']:.4f} ms (runs {out.pop('times')}); bound "
+        f"version {out['plain_ms']:.4f} ms, bf16 folded twin "
+        f"{out.pop('folded_ms'):.4f} ms (runs {out.pop('times')}); bound "
         f"{bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-        f"{n_bytes / 1e6:.1f} MB)")
+        f"{n_bytes / 1e6:.1f} MB; the design moves {design / 1e6:.1f} MB)")
     return dict(out, bound_ms=bound, bound_by=bound_by)
 
 
@@ -552,7 +576,7 @@ def phase_k45() -> dict:
     check_fused_block("K4/K5", "2d_cnn", K45_SHAPES[1], 32)
     return {"name": "resnet_block_2d_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/"
-                      "resnet_block.cu",
+                      "conv_blocks.cu",
             "replaces":
                 "freesound_classification_tpu/ops/pallas_resnet.py:111, "
                 "freesound_classification_tpu/ops/pallas_resnet.py:269",
@@ -604,6 +628,8 @@ def phase_k7() -> dict:
                 backbone_infer.fold_basic_params, kernels.pack_basic_block)
 
         wts, other = weights(40), weights(41)
+        fp = bf16_folded(backbone_infer.fold_basic_params(
+            random_basic_block(channels, 40)))
         bias = wts.bias.clone()
         bias[0, :channels] += 8.0
         gen = torch.Generator(device=DEVICE).manual_seed(channels)
@@ -615,24 +641,53 @@ def phase_k7() -> dict:
                 torch.nn.functional.pad(x_, (1, 1, 1, 1)), w_)[
                 ..., 1:-1, 1:-1]
 
-        out = check_kernel("K7", kernels.basic_block_fused,
-                           kernels.basic_block_fused_reference, x, wts,
-                           other, wts._replace(bias=bias), padded_x)
+        out = check_kernel(
+            "K7", kernels.basic_block_fused,
+            kernels.basic_block_fused_reference, x, wts, other,
+            wts._replace(bias=bias), padded_x,
+            folded=lambda: backbone_infer.basic_block_infer_folded(x, fp))
+        one = kernels.basic_block_fused(x, wts, one_launch=True).float()
+        want = kernels.basic_block_fused_reference(x, wts).float()
+        one_err = (one - want).abs().max().item()
+        want_raised = kernels.basic_block_fused_reference(
+            x, wts._replace(bias=bias)).float()
+        one_raised = (kernels.basic_block_fused(
+            x, wts._replace(bias=bias), one_launch=True).float()
+            - want_raised).abs().max().item()
+        two_ms, one_ms, runs = timed_in_turns(
+            lambda: kernels.basic_block_fused(x, wts),
+            lambda: kernels.basic_block_fused(x, wts, one_launch=True))
+        log(f"K7 {shape} in one launch (h1 in shared memory, "
+            f"rows, bn, grid, smem {kernels.basic_one_launch_plan(shape[0], *shape[2:], kernels._round16(channels))}): "
+            f"max_abs_err {one_err:.3e}, with b1 raised {one_raised:.3e}; "
+            f"two launches {two_ms:.4f} ms, one launch {one_ms:.4f} ms "
+            f"(runs {runs})")
+        if not (one_err <= 2.0 ** -7 * want.abs().max().item()
+                and one_raised <= 2.0 ** -7 * want_raised.abs().max().item()):
+            raise RuntimeError(f"K7 in one launch disagrees: {one_err}, "
+                               f"{one_raised}")
         positions = shape[0] * shape[2] * shape[3]
         flops = 2.0 * 2 * 9 * channels * channels * positions
         n_bytes = (2 * x.numel() * 2 + 2 * 9 * channels * channels * 2
                    + 2 * channels * 4)
+        # x is read twice (conv1, the residual); h1 written and read back
+        design = n_bytes + 3 * x.numel() * 2
         bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
+        plan = kernels.conv_plan(positions, channels, channels)
         log(f"K7 {shape} time: kernel {out['ms']:.4f} ms, plain version "
-            f"{out['plain_ms']:.4f} ms (runs {out.pop('times')}); bound "
-            f"{bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-            f"{n_bytes / 1e6:.1f} MB) on tile "
-            f"{kernels.basic_block_tiles(channels, *shape[2:])[:2]}")
+            f"{out['plain_ms']:.4f} ms, bf16 folded twin "
+            f"{out.pop('folded_ms'):.4f} ms (runs {out.pop('times')}); "
+            f"bound {bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+            f"{n_bytes / 1e6:.1f} MB; the design moves {design / 1e6:.1f} "
+            f"MB) on {plan}; the JAX router sends it to "
+            + ("the kernel" if backbone_infer.vmem_estimate_basic(
+                *shape[2:], channels) <= resnet_infer.VMEM_CAP
+               else "the folded twin"))
         if first is None:
             first = dict(out, bound_ms=bound, bound_by=bound_by)
     return {"name": "basic_block_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/"
-                      "resnet_block.cu",
+                      "conv_blocks.cu",
             "replaces":
                 "freesound_classification_tpu/ops/pallas_backbone.py:101",
             **first, "library_ms": None}
@@ -1291,18 +1346,77 @@ def ensemble_ms_per_batch(predictors: dict, host: list) -> dict:
     return times
 
 
+class routed_blocks:
+    """Within the block, counts the calls of the models' fused blocks whose
+    input shape the routing rule sends to the kernel: the JAX package's
+    VMEM estimates against its cap (``ops/*_infer.py``), the kernels'
+    shape conditions, and the block's width. ``calls`` counts them all."""
+
+    def __init__(self, models, option: str):
+        from freesound_classification_tpu_torch.models import (
+            backbone,
+            blocks,
+        )
+        from freesound_classification_tpu_torch.ops import (
+            backbone_infer,
+            head_infer,
+            resnet_infer,
+        )
+
+        cap = resnet_infer.VMEM_CAP
+
+        def k45(m, shape):
+            _, c, h, w = shape
+            return (c == m.conv1.out_channels
+                    and resnet_infer.vmem_estimate_t(h, w, c) <= cap)
+
+        def k6(m, shape):
+            _, c, t = shape
+            return (c == m.conv1.out_channels
+                    and resnet_infer.vmem_estimate_1d(t, c) <= cap)
+
+        def k7(m, shape):
+            _, c, h, w = shape
+            return (m.strides == 1 and m.downsample is None
+                    and c == m.conv1.out_channels
+                    and backbone_infer.vmem_estimate_basic(h, w, c) <= cap)
+
+        def k8(m, shape):
+            return head_infer.head_supported(shape, m.conv.out_channels)
+
+        rules = ({blocks.ConvBlock2d: k8} if option == "fused_head" else
+                 {blocks.ResnetBlock2d: k45, blocks.ResnetBlock1d: k6,
+                  backbone.BasicBlock: k7})
+        self.modules = [m for model in models for m in model.modules()
+                        if type(m) in rules]
+        self.rules = rules
+        self.count = self.calls = 0
+
+    def hook(self, module, args):
+        self.calls += 1
+        self.count += bool(self.rules[type(module)](module,
+                                                     tuple(args[0].shape)))
+
+    def __enter__(self):
+        self.handles = [m.register_forward_pre_hook(self.hook)
+                        for m in self.modules]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
 def fused_ensemble(label: str, model_kind: str, experiment: str,
                    csv_probs: np.ndarray, host: list, counter, smi: str,
-                   per_model: int | None = None,
                    option: str = "fused_infer") -> int:
     """The 5-fold bf16 ensemble of ``experiment`` through
     ``build_predictor(..., option=True)`` (``fused_infer`` or
-    ``fused_head``) over the decoded batches: the kernel's launches
-    (``per_model`` per fold and batch, by default one per block of
-    ``NETWORK``), the fused probabilities against the
-    unfused CLI's CSV and against the fused path through the plain
-    versions, and the fused and unfused ensembles' ms per batch. Returns
-    the launches."""
+    ``fused_head``) over the decoded batches: the kernel's launches, which
+    must equal the count the routing rule gives at each batch's shapes
+    (``routed_blocks``), the fused probabilities against the unfused CLI's
+    CSV and against the fused path through the plain versions, and the
+    fused and unfused ensembles' ms per batch. Returns the launches."""
     from freesound_classification_tpu_torch.cli import predict_2d_cnn
 
     def predictor(fused):
@@ -1312,12 +1426,16 @@ def fused_ensemble(label: str, model_kind: str, experiment: str,
 
     unfused, fused = predictor(False), predictor(True)
     counter.launches = 0
-    probs = fused.predict_loader(host)
+    with routed_blocks(fused.models, option) as routed:
+        probs = fused.predict_loader(host)
     torch.cuda.synchronize()
     launches = counter.launches
-    if per_model is None:
-        per_model = NETWORK["num_conv_blocks"]
-    expected = per_model * N_FOLDS * len(host)
+    expected = routed.count
+    log(f"{label} fused ensemble: the routing rule sends {routed.count} of "
+        f"{routed.calls} block calls to the kernel, the rest to the "
+        f"unfused or folded path")
+    if expected <= 0:
+        raise RuntimeError(f"{label}: no block routes to the kernel")
     with plain_fused_blocks():
         plain = fused.predict_loader(host)
     vs_unfused = float(np.abs(probs - csv_probs).max())
@@ -1388,7 +1506,9 @@ def phase_backbone_predict(root: str, inputs: dict, host: list, smi: str
     """The predict CLI with ``--model_kind backbone_cnn`` (5 folds of
     ``BACKBONE`` in bf16) over the 200 test clips, a warm-up run and a
     timed one, then the same ensemble with ``fused_infer``; returns K7's
-    launches (13 identity blocks of resnet34 per fold and batch)."""
+    launches (of resnet34's 13 identity blocks per fold and batch, those
+    that the routing rule sends to the kernel: never the two 512-channel
+    ones)."""
     from freesound_classification_tpu_torch.cli import predict_2d_cnn
     from freesound_classification_tpu_torch.models.backbone import (
         RESNET_STAGES,
@@ -1425,10 +1545,15 @@ def phase_backbone_predict(root: str, inputs: dict, host: list, smi: str
         raise RuntimeError("backbone predictions barely depend on the clip")
     identity = sum(n - (stage > 0)
                    for stage, n in enumerate(RESNET_STAGES[BACKBONE]))
-    return fused_ensemble("backbone", "backbone_cnn",
-                          inputs["backbone_experiment"], probs, host,
-                          kernels.basic_block_fused, smi,
-                          per_model=identity)
+    launches = fused_ensemble("backbone", "backbone_cnn",
+                              inputs["backbone_experiment"], probs, host,
+                              kernels.basic_block_fused, smi)
+    # every 512-channel identity block (stage 3) exceeds the JAX cap
+    deep = (RESNET_STAGES[BACKBONE][3] - 1) * N_FOLDS * len(host)
+    if identity * N_FOLDS * len(host) - launches < deep:
+        raise RuntimeError("backbone: the 512-channel blocks did not run "
+                           "the folded twin")
+    return launches
 
 
 def phase_backbone_train(root: str, inputs: dict, smi: str) -> dict:
@@ -1698,7 +1823,7 @@ def main() -> None:
             kernels.resnet_block_2d_fused, smi)
         k8["launches"] = fused_ensemble(
             "2d head", "2d_cnn", inputs["experiment"], probs_2d, host,
-            kernels.conv_head_fused, smi, per_model=1, option="fused_head")
+            kernels.conv_head_fused, smi, option="fused_head")
         k6["launches"] = phase_hier_predict(root, inputs, host, smi)
         k7["launches"] = phase_backbone_predict(root, inputs, host, smi)
         train = phase_train(root, train_inputs, smi)

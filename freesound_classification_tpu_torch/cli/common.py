@@ -7,7 +7,9 @@ The train loop reads the manifests with the ``csv`` module, splits folds
 with the port's own numpy stratification, trains each requested fold with
 the ``Engine``, and writes ``checkpoints/fold_k/{best,final}_model.npz`` and
 ``predictions/val_preds_fold_k.csv``. Test predictions, ``submission.csv``,
-the holdout split and the noisy set wait (ROADMAP M2.3).
+the holdout split and the noisy set wait (ROADMAP M2.3), and periodic
+checkpoints (M2.2): ``refuse_unported`` raises on their flags, and warns on
+the flags that are accepted and have no effect yet.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -82,9 +85,10 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
     add("--resume", action="store_true", default=False,
         help="not ported yet (ROADMAP M2.2)")
     add("--test_data_dir", type=str,
-        help="accepted; test predictions wait (ROADMAP M2.3)")
+        help="accepted with a warning; test predictions wait (ROADMAP "
+             "M2.3)")
     add("--sample_submission", type=str,
-        help="accepted; test predictions wait (ROADMAP M2.3)")
+        help="not ported yet (ROADMAP M2.3)")
     add("--classmap", required=True, type=str)
     add("--log_interval", default=10, type=int)
     add("--batch_size", type=int, default=64)
@@ -98,8 +102,10 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
     add("--scheduler", type=str, default="steplr_1_0.5")
     add("--accumulation_steps", type=int, default=1)
     add("--save_every", type=int, default=1,
-        help="periodic checkpoints wait (ROADMAP M2.2)")
-    add("--keep_checkpoints", type=int, default=0)
+        help="accepted; away from 1 it warns: periodic checkpoints wait "
+             "(ROADMAP M2.2)")
+    add("--keep_checkpoints", type=int, default=0,
+        help="accepted; away from 0 it warns (ROADMAP M2.2)")
     add("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     add("--aggregation_type", type=str, required=True, choices=("max", "rnn"))
     add("--num_conv_blocks", type=int, default=5)
@@ -136,8 +142,13 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 def refuse_unported(args) -> None:
-    """Raise on a flag whose part of the train driver is not ported yet."""
+    """Raise on a flag whose part of the train driver is not ported yet;
+    warn on one that is accepted and has no effect yet (``--test_data_dir``
+    alone, which the JAX CLI needs only with ``--sample_submission``, and
+    ``--save_every`` or ``--keep_checkpoints`` away from their defaults)."""
     waits = [
+        (args.sample_submission is not None, "--sample_submission",
+         "M2.3: test predictions and submission.csv"),
         (args.noisy_train_df is not None, "--noisy_train_df", "M2.3"),
         (bool(args.holdout_size), "--holdout_size", "M2.3"),
         (args.max_samples is not None, "--max_samples", "M2.3"),
@@ -151,6 +162,18 @@ def refuse_unported(args) -> None:
         if given:
             raise NotImplementedError(
                 f"{flag}: not ported yet (ROADMAP {item})")
+    ignored = [
+        (args.test_data_dir is not None, "--test_data_dir",
+         "no test predictions are written (ROADMAP M2.3)"),
+        (args.save_every != 1, "--save_every",
+         "no periodic checkpoints are written (ROADMAP M2.2)"),
+        (args.keep_checkpoints != 0, "--keep_checkpoints",
+         "no periodic checkpoints are written (ROADMAP M2.2)"),
+    ]
+    for given, flag, effect in ignored:
+        if given:
+            warnings.warn(f"{flag} is accepted and has no effect yet: "
+                          f"{effect}", UserWarning, stacklevel=2)
 
 
 def experiment_config(args, n_classes: int, input_dim: int,

@@ -218,19 +218,46 @@ def _flatten(tree: Mapping, prefix: str, out: dict) -> None:
             out[f"{prefix}{name}"] = np.asarray(value)
 
 
+def _fsync_dir(directory: str) -> None:
+    fd = os.open(directory, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 def save_fold_npz(path: str, params: Mapping, batch_stats: Mapping) -> None:
-    """Write one fold's variables as a flat ``.npz`` at exactly ``path``
-    (through a temporary file, so a reader never sees half a file)."""
+    """Write one fold's variables as a flat ``.npz`` at ``path``, durably.
+
+    The arrays go to a temporary file, which is fsynced; then the swap of
+    the JAX package's checkpoints (``training/checkpoints.py``): the
+    current file is renamed to ``<path>.old``, the new one to ``path``, and
+    the ``.old`` removed, with the directory fsynced after each rename. A
+    kill at any point leaves a complete copy at ``path`` or ``<path>.old``,
+    and ``load_fold_npz`` falls back to the ``.old``."""
     flat: dict = {}
     _flatten({"params": params, "batch_stats": batch_stats}, "", flat)
-    tmp = f"{path}.tmp-{os.getpid()}"
+    directory = os.path.dirname(os.path.abspath(path))
+    tmp, old = f"{path}.tmp-{os.getpid()}", f"{path}.old"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(path):
+        os.replace(path, old)  # replaces a stale .old in one step
+        _fsync_dir(directory)
     os.replace(tmp, path)
+    _fsync_dir(directory)
+    if os.path.exists(old):
+        os.remove(old)
 
 
 def load_fold_npz(path: str) -> Tuple[dict, dict]:
-    """Read a ``save_fold_npz`` file back into (params, batch_stats)."""
+    """Read a ``save_fold_npz`` file back into (params, batch_stats); where
+    ``path`` is missing, from the ``<path>.old`` that a save killed
+    mid-swap left."""
+    if not os.path.exists(path) and os.path.exists(f"{path}.old"):
+        path = f"{path}.old"
     trees: dict = {c: {} for c in _COLLECTIONS}
     with np.load(path) as data:
         for key in data.files:

@@ -12,12 +12,13 @@ Each replaces a TPU kernel of
 - K3, ``pv_resynth`` (``csrc/pv_resynth.cu``, replaces
   ``_pv_resynth_kernel``): phase-vocoder resynthesis with overlap-add, the
   output half of the chain's PV stretch.
-- K4/K5 and K6, ``resnet_block_2d_fused`` and ``resnet_block_1d_fused``
-  (``csrc/resnet_block.cu``, replace ``_fused_kernel`` and
-  ``_fused_t_kernel`` of ``ops/pallas_resnet.py`` and ``_fused_1d_kernel``
-  of ``ops/pallas_resnet1d.py``): the eval-mode resnet block with
-  BatchNorm folded, the ``fused_infer`` option of the models.
-- K7, ``basic_block_fused`` (``csrc/resnet_block.cu``, replaces
+- K4/K5, ``resnet_block_2d_fused`` (``csrc/conv_blocks.cu``, replaces
+  ``_fused_kernel`` and ``_fused_t_kernel`` of ``ops/pallas_resnet.py``),
+  and K6, ``resnet_block_1d_fused`` (``csrc/resnet_block.cu``, replaces
+  ``_fused_1d_kernel`` of ``ops/pallas_resnet1d.py``): the eval-mode resnet
+  block with BatchNorm folded, the ``fused_infer`` option of the models.
+- K7, ``basic_block_fused`` (``csrc/conv_blocks.cu``, on K4/K5's
+  convolution core; replaces
   ``_basic_t_kernel`` of ``ops/pallas_backbone.py``): the eval-mode
   stride-1 identity BasicBlock of the backbone, BatchNorm folded
   (``fused_infer``).
@@ -351,11 +352,11 @@ pv_resynth.launches = 0
 # ---------------------------------------------------------------------------
 
 _MAX_SHARED_BYTES = 232448  # dynamic shared memory a Hopper block may use
-_RESNET_WARPS = 8  # the kernel's warps, each with a 16 x 16 float32 stage
+_RESNET_WARPS = 8  # K6's warps, each with a 16 x 16 float32 stage
 
 
 class FusedBlockWeights(NamedTuple):
-    """A folded resnet block as the kernel reads it: w1, w3 (cp, cp) and w2
+    """A folded resnet block as the kernels read it: w1, w3 (cp, cp) and w2
     (taps, cp, cp) bf16 with input channels on rows (the JAX package's
     (C, K) layout), bias and slope (3, cp) float32 (b1, b2, b3 and the three
     PReLU slopes); zero past ``channels``, cp = channels rounded up to 16."""
@@ -442,8 +443,33 @@ def resnet_block_2d_fused_reference(x: torch.Tensor,
     return _fused_block_reference(x, wts, conv2)
 
 
+def _check_weights(name: str, x: torch.Tensor, wts,
+                   want: dict) -> None:
+    """Each ``want[key] = (shape, dtype)``: the weight tensor ``key`` of
+    ``wts`` is contiguous, 16-byte aligned, of that shape and dtype, on x's
+    device."""
+    for key, (shape, dtype) in want.items():
+        t = getattr(wts, key)
+        if (t.shape != shape or t.dtype != dtype or t.device != x.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {key} must be contiguous aligned "
+                             f"{dtype} {shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_block_input(name: str, x: torch.Tensor, channels: int,
+                       spatial: int) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x must be on the CPU or a CUDA device, "
+                         f"got {x.device}")
+    if (x.dim() != 2 + spatial or x.shape[1] != channels
+            or min(x.shape) <= 0):
+        raise ValueError(f"{name}: x {tuple(x.shape)} for a {channels}-"
+                         f"channel {spatial}d block")
+
+
 def _resnet_shared_bytes(r1: int, m_rows: int, cp: int) -> int:
-    """x and h1 (r1 rows), h2 (m_rows rows) in bf16, the warps' float32
+    """K6: x and h1 (r1 rows), h2 (m_rows rows) in bf16, the warps' float32
     stages, six float32 vectors, and an int64 offset per row."""
     return ((2 * r1 + m_rows) * (cp + 16) * 2
             + (_RESNET_WARPS * 256 + 6 * cp) * 4 + (r1 + m_rows) * 8)
@@ -453,87 +479,21 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def resnet_block_tiles(taps: int, cp: int, height: int, width: int) -> tuple:
-    """The kernel's tile: (tile_h, tile_w, m_rows, r1). A 1d tile is up to
-    64 frames; a 2d tile up to 14 pixels wide and as many rows as keep its
-    flat band (tile_h rows of tile_w + 2) within 64. m_rows is the band
-    rounded to 16; r1, the shared rows of x and h1, covers the halo and
-    every row the taps read. Tiles shrink until shared memory fits."""
-    if taps == 3:
-        tile_h, tile_w = 1, min(width, 64)
-    else:
-        tile_w = min(width, 14)
-        tile_h = min(height, max(1, 64 // (tile_w + 2)))
+def resnet_block_1d_tiles(cp: int, length: int) -> tuple:
+    """K6's tile: (tile, m_rows, r1). A tile is up to 64 frames; m_rows is
+    the tile rounded to 16; r1, the shared rows of x and h1, covers the
+    one-frame halo and every row the taps read. Tiles shrink by 16 frames
+    until shared memory fits."""
+    tile = min(length, 64)
     while True:
-        wp = tile_w + 2
-        if taps == 3:
-            m_rows = _round16(tile_w)
-            r1 = _round16(max(wp, m_rows + 2))
-        else:
-            m_rows = _round16(tile_h * wp)
-            r1 = _round16(max((tile_h + 2) * wp, m_rows + 2 * wp + 2))
+        m_rows = _round16(tile)
+        r1 = _round16(max(tile + 2, m_rows + 2))
         if _resnet_shared_bytes(r1, m_rows, cp) <= _MAX_SHARED_BYTES:
-            return tile_h, tile_w, m_rows, r1
-        if tile_h > 1:
-            tile_h -= 1
-        elif tile_w > 1:
-            tile_w = max(1, tile_w - (16 if taps == 3 else 1))
-        else:
+            return tile, m_rows, r1
+        if tile == 1:
             raise ValueError(f"resnet block: {cp} channels do not fit "
                              "shared memory")
-
-
-def _resnet_block_launch(name: str, x: torch.Tensor, wts: FusedBlockWeights,
-                         taps: int) -> torch.Tensor:
-    spatial = 1 if taps == 3 else 2
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: x must be on the CPU or a CUDA device, "
-                         f"got {x.device}")
-    if x.dim() != 2 + spatial or x.shape[1] != wts.channels:
-        raise ValueError(f"{name}: x {tuple(x.shape)} for a "
-                         f"{wts.channels}-channel {spatial}d block")
-    cp = wts.w1.shape[0]
-    want = {"w1": ((cp, cp), torch.bfloat16), "w3": ((cp, cp), torch.bfloat16),
-            "w2": ((taps, cp, cp), torch.bfloat16),
-            "bias": ((3, cp), torch.float32),
-            "slope": ((3, cp), torch.float32)}
-    for key, (shape, dtype) in want.items():
-        t = getattr(wts, key)
-        if (t.shape != shape or t.dtype != dtype or t.device != x.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {key} must be contiguous {dtype} "
-                             f"{shape} on {x.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if cp % 16 or not 0 < wts.channels <= cp or min(x.shape) <= 0:
-        raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}, "
-                         f"cp {cp}")
-    xb = x.to(torch.bfloat16)
-    out = torch.empty_like(xb)
-    if out.stride() != xb.stride():  # not dense: the kernel reads out's
-        xb = torch.empty_like(xb).copy_(xb)
-    n_batch = x.shape[0]
-    height, width = (1, x.shape[2]) if spatial == 1 else x.shape[2:]
-    sb, sc, *rest = xb.stride()
-    sh, sw = (0, rest[0]) if spatial == 1 else rest
-    tile_h, tile_w, m_rows, r1 = resnet_block_tiles(taps, cp, height, width)
-    tiles = n_batch * -(-height // tile_h) * -(-width // tile_w)
-    if tiles >= 2**31:
-        raise ValueError(f"{name}: {tiles} tiles exceed the grid")
-
-    from freesound_classification_tpu_torch.ops import build
-
-    lib = build.load_library()
-    with torch.cuda.device(x.device):
-        err = lib.resnet_block_launch(
-            xb.data_ptr(), wts.w1.data_ptr(), wts.w2.data_ptr(),
-            wts.w3.data_ptr(), wts.bias.data_ptr(), wts.slope.data_ptr(),
-            out.data_ptr(), taps, n_batch, wts.channels, cp, height, width,
-            sb, sc, sh, sw, tile_h, tile_w, m_rows, r1,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"resnet_block_kernel launch failed: cudaError "
-                           f"{err}")
-    return out.to(x.dtype)
+        tile = max(1, tile - 16)
 
 
 def resnet_block_1d_fused(x: torch.Tensor,
@@ -541,29 +501,187 @@ def resnet_block_1d_fused(x: torch.Tensor,
     """K6: the folded ResnetBlock1d on a (B, C, T) map, any strides, any
     float dtype (rounded to bf16 on the way in, bf16 values out in x's
     dtype). CPU tensors take ``resnet_block_1d_fused_reference``; CUDA
-    tensors launch ``resnet_block_kernel<3>``."""
+    tensors launch ``resnet_block_1d_kernel`` (``csrc/resnet_block.cu``)."""
     if x.device.type == "cpu":
         return resnet_block_1d_fused_reference(x, wts)
-    out = _resnet_block_launch("resnet_block_1d_fused", x, wts, 3)
+    name = "resnet_block_1d_fused"
+    _check_block_input(name, x, wts.channels, 1)
+    cp = wts.w1.shape[0]
+    _check_weights(name, x, wts, {
+        "w1": ((cp, cp), torch.bfloat16), "w3": ((cp, cp), torch.bfloat16),
+        "w2": ((3, cp, cp), torch.bfloat16),
+        "bias": ((3, cp), torch.float32), "slope": ((3, cp), torch.float32)})
+    if cp % 16 or not 0 < wts.channels <= cp:
+        raise ValueError(f"{name}: {wts.channels} channels padded to {cp}")
+    xb = x.to(torch.bfloat16)
+    out = torch.empty_like(xb)
+    if out.stride() != xb.stride():  # not dense: the kernel reads out's
+        xb = torch.empty_like(xb).copy_(xb)
+    n_batch, _, length = x.shape
+    tile, m_rows, r1 = resnet_block_1d_tiles(cp, length)
+    if n_batch * -(-length // tile) >= 2**31:
+        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the grid")
+
+    from freesound_classification_tpu_torch.ops import build
+
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.resnet_block_1d_launch(
+            xb.data_ptr(), wts.w1.data_ptr(), wts.w2.data_ptr(),
+            wts.w3.data_ptr(), wts.bias.data_ptr(), wts.slope.data_ptr(),
+            out.data_ptr(), n_batch, wts.channels, cp, length, *xb.stride(),
+            tile, m_rows, r1, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"resnet_block_1d_kernel launch failed: cudaError "
+                           f"{err}")
     resnet_block_1d_fused.launches += 1
-    return out
+    return out.to(x.dtype)
 
 
 resnet_block_1d_fused.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# The 2d blocks' convolution core (csrc/conv_blocks.cu): K4/K5 and K7
+# ---------------------------------------------------------------------------
+
+CONV_BM = 128  # positions per tile of a convolution launch
+CONV_BK = 32  # channels of one tap per K chunk
+CONV_STAGES = 3  # K chunks in the ring
+H100_SMS = 132
+
+
+class ConvPlan(NamedTuple):
+    """One launch of the core: tiles of ``bm`` positions x ``bn`` channels
+    on a ``grid_m`` x ``grid_n`` grid, ``smem`` bytes of shared memory."""
+
+    bm: int
+    bn: int
+    grid_m: int
+    grid_n: int
+    smem: int
+
+
+def _ring_bytes(bm: int, bn: int) -> int:
+    """The ring: per stage an A chunk (bm rows of CONV_BK + 8 channels) and
+    a B chunk (CONV_BK rows of bn + 8 columns), bf16."""
+    return CONV_STAGES * (bm * (CONV_BK + 8) + CONV_BK * (bn + 8)) * 2
+
+
+def _tile_columns(cp: int) -> int:
+    return 64 if cp <= 64 else 128
+
+
+def conv_plan(m_total: int, n_write: int, cp: int) -> ConvPlan:
+    """A convolution launch (``conv_kernel``: K7's two, K4/K5's h1) over
+    ``m_total`` positions writing ``n_write`` columns of weights cp wide:
+    CONV_BM positions a tile, 64 columns for cp <= 64, else 128."""
+    bn = _tile_columns(cp)
+    return ConvPlan(CONV_BM, bn, -(-m_total // CONV_BM), -(-n_write // bn),
+                    _ring_bytes(CONV_BM, bn))
+
+
+def tail_plan(m_total: int, cp: int) -> ConvPlan:
+    """K4/K5's tail (``resnet_tail_kernel``): 128 positions a tile, or 64
+    where 128 would give fewer than two tiles an SM (the deepest blocks'
+    small maps); the ring, then h2 (bm rows of the channels rounded to
+    CONV_BK, + 8) in shared memory."""
+    bn = _tile_columns(cp)
+    bm = 128 if -(-m_total // 128) >= 2 * H100_SMS else 64
+    kpad = -(-cp // CONV_BK) * CONV_BK
+    return ConvPlan(bm, bn, -(-m_total // bm), 1,
+                    _ring_bytes(bm, bn) + bm * (kpad + 8) * 2)
+
+
+def gather_sources(m0: int, bm: int, tap: int, taps: int, n_batch: int,
+                   height: int, width: int) -> np.ndarray:
+    """The positions (b H W + h W + w) that the core's A loads read for the
+    rows m0 .. m0 + bm - 1 of a tile at ``tap`` (taps 9: 3 dh + dw; 1: the
+    centre), -1 where they load zeros (off the map, past the batch): the
+    arithmetic of ``Gather`` in ``csrc/conv_blocks.cu``."""
+    m = m0 + np.arange(bm, dtype=np.int64)
+    hw = height * width
+    b, r = m // hw, m % hw
+    h, w = r // width, r % width
+    dh, dw = (0, 0) if taps == 1 else (tap // 3 - 1, tap % 3 - 1)
+    hh, ww = h + dh, w + dw
+    ok = ((m < n_batch * hw) & (hh >= 0) & (hh < height) & (ww >= 0)
+          & (ww < width))
+    return np.where(ok, b * hw + hh * width + ww, -1)
+
+
+def _channel_rows(x: torch.Tensor, cp: int) -> tuple:
+    """x (B, C, H, W) as the core's map of channel rows: (tensor, its
+    element strides (sb, sh, sw), the channels it reads). In place where
+    the channels are contiguous and C, every stride and the base give
+    16-byte aligned rows (the model's channels_last maps at C % 8 == 0);
+    else a zero-padded (B, H, W, cp) copy."""
+    xb = x.to(torch.bfloat16)
+    c = xb.shape[1]
+    sb, sc, sh, sw = xb.stride()
+    if (sc == 1 and c % 8 == 0 and sb % 8 == 0 and sh % 8 == 0
+            and sw % 8 == 0 and xb.data_ptr() % 16 == 0):
+        return xb, (sb, sh, sw), c
+    rows = F.pad(xb.permute(0, 2, 3, 1), (0, cp - c)).contiguous()
+    return rows, rows.stride()[:3], cp
+
+
+def _block_buffers(name: str, x: torch.Tensor, cp: int) -> tuple:
+    """The rows of x, the h1 scratch (B, H, W, cp) and the channels_last
+    output of a 2d block launch, and the number of positions."""
+    n_batch, c, height, width = x.shape
+    m_total = n_batch * height * width
+    if m_total >= 2**31:
+        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the grid")
+    rows = _channel_rows(x, cp)
+    h1 = torch.empty((n_batch, height, width, cp), dtype=torch.bfloat16,
+                     device=x.device)
+    out = torch.empty(tuple(x.shape), dtype=torch.bfloat16, device=x.device,
+                      memory_format=torch.channels_last)
+    return rows, h1, out, m_total
+
+
 def resnet_block_2d_fused(x: torch.Tensor,
                           wts: FusedBlockWeights) -> torch.Tensor:
-    """K4/K5: the folded ResnetBlock2d on an NCHW map in any memory format
-    (read in place: channels_last is the model's), as
-    ``resnet_block_1d_fused``. CPU tensors take
-    ``resnet_block_2d_fused_reference``; CUDA tensors launch
-    ``resnet_block_kernel<9>``."""
+    """K4/K5: the folded ResnetBlock2d on an NCHW map (read in place when
+    channels_last with C % 8 == 0, the model's; other layouts through a
+    padded copy), any float dtype (rounded to bf16 on the way in) -> bf16
+    values in x's dtype, channels_last. CPU tensors take
+    ``resnet_block_2d_fused_reference``; CUDA tensors launch the h1
+    convolution and the tail of ``csrc/conv_blocks.cu``."""
     if x.device.type == "cpu":
         return resnet_block_2d_fused_reference(x, wts)
-    out = _resnet_block_launch("resnet_block_2d_fused", x, wts, 9)
+    name = "resnet_block_2d_fused"
+    _check_block_input(name, x, wts.channels, 2)
+    cp = wts.w1.shape[0]
+    _check_weights(name, x, wts, {
+        "w1": ((cp, cp), torch.bfloat16), "w3": ((cp, cp), torch.bfloat16),
+        "w2": ((9, cp, cp), torch.bfloat16),
+        "bias": ((3, cp), torch.float32), "slope": ((3, cp), torch.float32)})
+    if cp % 16 or not 0 < wts.channels <= cp:
+        raise ValueError(f"{name}: {wts.channels} channels padded to {cp}")
+    (rows, (sb, sh, sw), readable), h1, out, m_total = _block_buffers(
+        name, x, cp)
+    n_batch, c, height, width = x.shape
+    first, tail = conv_plan(m_total, cp, cp), tail_plan(m_total, cp)
+
+    from freesound_classification_tpu_torch.ops import build
+
+    lib = build.load_library()
+    osb, _, osh, osw = out.stride()
+    with torch.cuda.device(x.device):
+        err = lib.resnet_block_2d_launch(
+            rows.data_ptr(), sb, sh, sw, readable, wts.w1.data_ptr(),
+            wts.w2.data_ptr(), wts.w3.data_ptr(), wts.bias.data_ptr(),
+            wts.slope.data_ptr(), h1.data_ptr(), out.data_ptr(), osb, osh,
+            osw, int(c % 2 == 0), n_batch, c, cp, height, width, first.bn,
+            first.smem, tail.bm, tail.bn, tail.smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"resnet_block_2d kernels launch failed: cudaError "
+                           f"{err}")
     resnet_block_2d_fused.launches += 1
-    return out
+    return out.to(x.dtype)
 
 
 resnet_block_2d_fused.launches = 0
@@ -576,11 +694,9 @@ resnet_block_2d_fused.launches = 0
 
 class BasicBlockWeights(NamedTuple):
     """A folded stride-1 identity BasicBlock as K7 reads it: w1, w2 bf16
-    (9, cp, cp) matrices (tap 3 dh + dw, input channels on rows) stored
-    tiled, (9 cp / 16, cp / 16, 16, 16): 16 x 16 fragment (step, strip) is
-    rows 16 step.., columns 16 strip.. (``tile_fragments``); bias (2, cp)
-    float32 (b1, b2); zero past ``channels``, cp = channels rounded up to
-    16."""
+    (9, cp, cp) matrices (tap 3 dh + dw, input channels on rows), bias
+    (2, cp) float32 (b1, b2); zero past ``channels``, cp = channels rounded
+    up to 16."""
 
     w1: torch.Tensor
     w2: torch.Tensor
@@ -588,30 +704,16 @@ class BasicBlockWeights(NamedTuple):
     channels: int
 
 
-def tile_fragments(w: torch.Tensor) -> torch.Tensor:
-    """(taps, cp, cp) -> (taps cp / 16, cp / 16, 16, 16), each 16 x 16
-    fragment contiguous (K7's weight layout)."""
-    cp = w.shape[-1]
-    return w.reshape(-1, 16, cp // 16, 16).permute(0, 2, 1, 3).contiguous()
-
-
-def untile_fragments(w: torch.Tensor) -> torch.Tensor:
-    """The inverse of ``tile_fragments``: -> (9, cp, cp)."""
-    cp = w.shape[1] * 16
-    return w.permute(0, 2, 1, 3).reshape(9, cp, cp)
-
-
 def pack_basic_block(fp: dict) -> BasicBlockWeights:
     """A folded block (``ops/backbone_infer.fold_basic_params``: float32
     w1, w2 (3, 3, C, C), b1, b2) -> its kernel weights: the float32 fold
-    rounded once to bf16, zero padding, fragments tiled."""
+    rounded once to bf16, and zero padding."""
     c = fp["w1"].shape[2]
     cp = _round16(c)
 
     def mat(w):
-        return tile_fragments(F.pad(w.reshape(9, c, c),
-                                    (0, cp - c, 0, cp - c))
-                              .to(torch.bfloat16))
+        return F.pad(w.reshape(9, c, c), (0, cp - c, 0, cp - c)) \
+            .to(torch.bfloat16).contiguous()
 
     bias = F.pad(torch.stack([fp["b1"], fp["b2"]]).float(), (0, cp - c))
     return BasicBlockWeights(mat(fp["w1"]), mat(fp["w2"]), bias.contiguous(),
@@ -619,9 +721,7 @@ def pack_basic_block(fp: dict) -> BasicBlockWeights:
 
 
 def _conv3x3(h: torch.Tensor, w: torch.Tensor, c: int) -> torch.Tensor:
-    """An NCHW map times tiled (9, cp, cp) tap-major weights, SAME
-    padding."""
-    w = untile_fragments(w)
+    """An NCHW map times (9, cp, cp) tap-major weights, SAME padding."""
     k = w[:, :c, :c].float().reshape(3, 3, c, c).permute(3, 2, 0, 1)
     return F.conv2d(h, k, padding=1)
 
@@ -641,88 +741,79 @@ def basic_block_fused_reference(x: torch.Tensor,
     return y.to(torch.bfloat16).to(x.dtype)
 
 
-def _basic_shared_bytes(r1: int, m_h1: int, m_out: int, cp: int) -> int:
-    """x (r1 rows) and h1 (m_h1 rows) in bf16, the warps' float32 stages,
-    b1 and b2, and an int64 offset per x row and per output row."""
-    return ((r1 + m_h1) * (cp + 16) * 2 + (_RESNET_WARPS * 256 + 2 * cp) * 4
-            + (r1 + m_out) * 8)
+def basic_one_launch_plan(n_batch: int, height: int, width: int,
+                          cp: int) -> tuple:
+    """K7 in one launch: (rows, bn, grid, smem). A CTA takes ``rows`` whole
+    map rows (whole clips where a clip fits), as many as leave the ring and
+    the h1 window ((rows + 2) map rows of width + 2, and a zero row) within
+    shared memory."""
+    bn = _tile_columns(cp)
+    ldh = -(-cp // CONV_BK) * CONV_BK + 8
+    ring = _ring_bytes(CONV_BM, bn)
+    row_bytes = (width + 2) * ldh * 2
+    rows = (_MAX_SHARED_BYTES - ring - ldh * 2) // row_bytes - 2
+    if rows < 1:
+        raise ValueError(f"basic block: a {width}-wide map of {cp} channels "
+                         "does not fit shared memory")
+    if rows >= height:
+        rows -= rows % height
+    rows = min(rows, n_batch * height)
+    smem = ring + ((rows + 2) * (width + 2) + 1) * ldh * 2
+    return rows, bn, -(-n_batch * height // rows), smem
 
 
-def basic_block_tiles(cp: int, height: int, width: int) -> tuple:
-    """K7's tile: (tile_h, tile_w, m_h1, m_out, r1). x is held over the
-    tile plus a halo of 2 as flat rows tile_w + 4 wide; h1 over a band of
-    m_h1 rows that covers the tile plus a halo of 1, y over a band of m_out
-    rows that covers the tile; r1 covers every x row the taps read. A tile
-    is up to 28 pixels wide and as many rows as keep 128 flat rows; it
-    shrinks until shared memory fits."""
-    tile_w = min(width, 28)
-    tile_h = min(height, max(1, 128 // (tile_w + 4)))
-    while True:
-        wp = tile_w + 4
-        m_out = _round16((tile_h - 1) * wp + tile_w)
-        m_h1 = _round16(max((tile_h + 2) * wp - 2, m_out + 2 * wp + 2))
-        r1 = _round16(m_h1 + 2 * wp + 2)
-        if _basic_shared_bytes(r1, m_h1, m_out, cp) <= _MAX_SHARED_BYTES:
-            return tile_h, tile_w, m_h1, m_out, r1
-        if tile_h > 1:
-            tile_h -= 1
-        elif tile_w > 1:
-            tile_w -= 1
-        else:
-            raise ValueError(f"basic block: {cp} channels do not fit "
-                             "shared memory")
-
-
-def basic_block_fused(x: torch.Tensor,
-                      wts: BasicBlockWeights) -> torch.Tensor:
-    """K7: the folded stride-1 identity BasicBlock on an NCHW map in any
-    memory format (read in place), any float dtype (rounded to bf16 on the
-    way in, bf16 values out in x's dtype). CPU tensors take
-    ``basic_block_fused_reference``; CUDA tensors launch
-    ``basic_block_kernel`` (``csrc/resnet_block.cu``)."""
+def basic_block_fused(x: torch.Tensor, wts: BasicBlockWeights,
+                      one_launch: bool = False) -> torch.Tensor:
+    """K7: the folded stride-1 identity BasicBlock on an NCHW map (read in
+    place when channels_last with C % 8 == 0, the model's; other layouts
+    through a padded copy), any float dtype (rounded to bf16 on the way
+    in) -> bf16 values in x's dtype, channels_last. CPU tensors take
+    ``basic_block_fused_reference``; CUDA tensors launch the two
+    convolutions of ``csrc/conv_blocks.cu`` (h1 through device memory)."""
     if x.device.type == "cpu":
         return basic_block_fused_reference(x, wts)
     name = "basic_block_fused"
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: x must be on the CPU or a CUDA device, "
-                         f"got {x.device}")
-    if x.dim() != 4 or x.shape[1] != wts.channels or min(x.shape) <= 0:
-        raise ValueError(f"{name}: x {tuple(x.shape)} for a "
-                         f"{wts.channels}-channel block")
+    _check_block_input(name, x, wts.channels, 2)
     cp = wts.bias.shape[1]
-    tiled = (9 * cp // 16, cp // 16, 16, 16)
-    want = {"w1": (tiled, torch.bfloat16), "w2": (tiled, torch.bfloat16),
-            "bias": ((2, cp), torch.float32)}
-    for key, (shape, dtype) in want.items():
-        t = getattr(wts, key)
-        if (t.shape != shape or t.dtype != dtype or t.device != x.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {key} must be contiguous {dtype} "
-                             f"{shape} on {x.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+    _check_weights(name, x, wts, {
+        "w1": ((9, cp, cp), torch.bfloat16),
+        "w2": ((9, cp, cp), torch.bfloat16),
+        "bias": ((2, cp), torch.float32)})
     if cp % 16 or not 0 < wts.channels <= cp:
         raise ValueError(f"{name}: {wts.channels} channels padded to {cp}")
-    xb = x.to(torch.bfloat16)
-    out = torch.empty_like(xb)
-    if out.stride() != xb.stride():  # not dense: the kernel reads out's
-        xb = torch.empty_like(xb).copy_(xb)
-    n_batch, _, height, width = x.shape
-    tile_h, tile_w, m_h1, m_out, r1 = basic_block_tiles(cp, height, width)
-    tiles = n_batch * -(-height // tile_h) * -(-width // tile_w)
-    if tiles >= 2**31:
-        raise ValueError(f"{name}: {tiles} tiles exceed the grid")
+    (rows, (sb, sh, sw), readable), h1, out, m_total = _block_buffers(
+        name, x, cp)
+    n_batch, c, height, width = x.shape
+    plan = conv_plan(m_total, cp, cp)
 
     from freesound_classification_tpu_torch.ops import build
 
     lib = build.load_library()
+    osb, _, osh, osw = out.stride()
+    if one_launch:
+        tile_rows, bn, _, smem = basic_one_launch_plan(n_batch, height, width,
+                                                       cp)
+        with torch.cuda.device(x.device):
+            err = lib.basic_block_one_launch(
+                rows.data_ptr(), sb, sh, sw, readable, wts.w1.data_ptr(),
+                wts.w2.data_ptr(), wts.bias.data_ptr(), out.data_ptr(), osb,
+                osh, osw, int(c % 2 == 0), n_batch, c, cp, height, width, bn,
+                tile_rows, smem,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"basic_one_launch_kernel launch failed: "
+                               f"cudaError {err}")
+        basic_block_fused.launches += 1
+        return out.to(x.dtype)
     with torch.cuda.device(x.device):
         err = lib.basic_block_launch(
-            xb.data_ptr(), wts.w1.data_ptr(), wts.w2.data_ptr(),
-            wts.bias.data_ptr(), out.data_ptr(), n_batch, wts.channels, cp,
-            height, width, *xb.stride(), tile_h, tile_w, m_h1, m_out, r1,
+            rows.data_ptr(), sb, sh, sw, readable, wts.w1.data_ptr(),
+            wts.w2.data_ptr(), wts.bias.data_ptr(), h1.data_ptr(),
+            out.data_ptr(), osb, osh, osw, int(c % 2 == 0), n_batch, c, cp,
+            height, width, plan.bn, plan.smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"basic_block_kernel launch failed: cudaError "
+        raise RuntimeError(f"basic_block kernels launch failed: cudaError "
                            f"{err}")
     basic_block_fused.launches += 1
     return out.to(x.dtype)

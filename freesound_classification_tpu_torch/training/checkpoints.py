@@ -4,8 +4,9 @@ The JAX package keeps orbax train states; the port saves a model's weights
 and BatchNorm statistics in the JAX package's variable layout
 (``interop.to_jax_variables``) as the flat ``.npz`` that the predict CLI and
 ``scripts/export_fold_weights.py`` already share, for either classifier
-family. Each file is written to a temporary name and renamed into place, so
-a reader never sees half a file. ``load_model`` serves reloading a fold's
+family. Each file is written durably (``interop.save_fold_npz``: fsynced,
+swapped in through ``<path>.old``), so a reader never sees half a file and a
+kill leaves a complete copy that ``load_model`` finds. ``load_model`` serves reloading a fold's
 best model and the finetune CLI's warm start from another experiment.
 Optimizer state is not saved: resuming waits (ROADMAP).
 """
@@ -20,7 +21,7 @@ from freesound_classification_tpu_torch import interop
 
 
 def save_model(path: str, model: nn.Module) -> None:
-    """Write ``model``'s variables to ``path`` atomically."""
+    """Write ``model``'s variables to ``path`` durably."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     params, stats = interop.to_jax_variables(model.state_dict())
     interop.save_fold_npz(path, params, stats)

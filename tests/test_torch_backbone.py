@@ -2,8 +2,8 @@
 ``CNNBackbone`` in eval and train mode for both archs, the trunk's valid
 frames, the weight map, the BasicBlock fold, K7's plain version against the
 JAX Pallas kernel in interpret mode, the folded twin, ``fused_infer`` at
-model level, K7's tiles and wrapper, and the train -> predict CLIs end to
-end.
+model level, K7's wrapper, and the train -> predict CLIs end to end
+(K7's tile plans: ``tests/test_torch_conv_core.py``).
 
 Inputs and weights are made with numpy from seeds and handed to both
 sides (``interop.random_jax_variables``: BatchNorm statistics and PReLU
@@ -419,26 +419,15 @@ def test_train_mode_ignores_fused_infer():
 
 
 # ---------------------------------------------------------------------------
-# K7's wrapper and tiles
+# K7's wrapper
 # ---------------------------------------------------------------------------
-
-
-def test_weight_fragments_tile_and_untile():
-    """K7's weights: fragment (step, strip) is the matrix's rows 16 step..
-    and columns 16 strip.., 512 contiguous bytes."""
-    w = torch.arange(9 * 32 * 32, dtype=torch.float32).reshape(9, 32, 32)
-    tiled = kernels.tile_fragments(w)
-    assert tiled.shape == (18, 2, 16, 16) and tiled.is_contiguous()
-    flat = w.reshape(288, 32)
-    torch.testing.assert_close(tiled[5, 1], flat[80:96, 16:32])
-    torch.testing.assert_close(kernels.untile_fragments(tiled), w)
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_only():
     _, block = _block(16, 16, 1, seed=24)
     wts = resnet_infer.fused_weights(block, backbone_infer.fold_basic_params,
                                      kernels.pack_basic_block)
-    assert wts.w1.shape == (9, 1, 16, 16) and wts.bias.shape == (2, 16)
+    assert wts.w1.shape == (9, 16, 16) and wts.bias.shape == (2, 16)
     x = torch.from_numpy(_bf16_values((2, 16, 3, 5), seed=25))
     before = kernels.basic_block_fused.launches
     got = kernels.basic_block_fused(x, wts)
@@ -448,32 +437,6 @@ def test_wrapper_takes_the_plain_version_on_cpu_only():
     assert got.dtype == torch.float32 and got.shape == x.shape
     with pytest.raises(ValueError, match="CUDA device"):
         kernels.basic_block_fused(x.to("meta"), wts)
-
-
-@pytest.mark.parametrize("c", [24, 64, 128, 256, 512])
-@pytest.mark.parametrize("hw", [(1, 1), (1, 3), (2, 2), (4, 14), (8, 27),
-                                (16, 54), (32, 108), (128, 431)])
-def test_basic_tiles_cover_every_tap_and_fit_shared_memory(c, hw):
-    """K7's tile (ops/kernels.basic_block_tiles): h1's band covers the
-    tile plus a one-position halo, y's band the tile, every row the taps
-    read lies inside the shared rows, and shared memory fits a Hopper
-    block."""
-    cp = -(-c // 16) * 16
-    tile_h, tile_w, m_h1, m_out, r1 = kernels.basic_block_tiles(cp, *hw)
-    assert all(n % 16 == 0 for n in (m_h1, m_out, r1))
-    assert 1 <= tile_h <= hw[0] and 1 <= tile_w <= hw[1]
-    wp = tile_w + 4
-    # y: x rows 2 wp + 2 on; its last output at (tile_h + 1, tile_w + 1)
-    assert m_out >= (tile_h - 1) * wp + tile_w
-    # h1: x rows wp + 1 on, over rows and columns 1 .. tile + 2
-    assert m_h1 >= (tile_h + 2) * wp - 2
-    # conv2 reads h1 rows up to wp + 1 + m_out - 1 + wp + 1
-    assert m_h1 >= m_out + 2 * wp + 2
-    # conv1 reads x rows up to wp + 1 + m_h1 - 1 + wp + 1; x has
-    # (tile_h + 4) wp positions
-    assert r1 >= max(m_h1 + 2 * wp + 2, (tile_h + 4) * wp)
-    assert (kernels._basic_shared_bytes(r1, m_h1, m_out, cp)
-            <= kernels._MAX_SHARED_BYTES)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's fused eval resnet blocks against the JAX package, on the CPU:
 the BatchNorm fold, the plain versions of K6 (1d) and K4/K5 (2d) against the
 JAX Pallas kernels in interpret mode and against the unfused flax blocks,
-``fused_infer`` at model level, and the wrappers' routing and tiles.
+``fused_infer`` at model level, and the wrappers' routing and K6's tiles.
 
 Block weights are made with numpy from a seed in the JAX package's layout
 (``interop.random_jax_variables``: BatchNorm statistics and PReLU slopes
@@ -321,26 +321,21 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
             torch.empty(1, 12, 2, 2, device="meta"), wts)
 
 
-@pytest.mark.parametrize("taps", [3, 9])
 @pytest.mark.parametrize("c", [64, 96, 144, 216, 324, 486])
 @pytest.mark.parametrize("hw", [(1, 1), (1, 6), (2, 6), (4, 13),
                                 (64, 215), (128, 431)])
-def test_tiles_cover_every_tap_and_fit_shared_memory(taps, c, hw):
-    """The kernel's tile (ops/kernels.resnet_block_tiles): every row the
-    taps read lies inside the shared rows, the band holds every output
-    position of the tile, and shared memory fits a Hopper block."""
+def test_tiles_cover_every_tap_and_fit_shared_memory(c, hw):
+    """K6's tile (ops/kernels.resnet_block_1d_tiles) over hw[1] frames:
+    every row the taps read lies inside the shared rows, the band holds
+    every output frame of the tile, and shared memory fits a Hopper block
+    (K4/K5's tile plans: ``tests/test_torch_conv_core.py``)."""
     cp = -(-c // 16) * 16
-    height, width = (1, hw[1]) if taps == 3 else hw
-    tile_h, tile_w, m_rows, r1 = kernels.resnet_block_tiles(
-        taps, cp, height, width)
+    length = hw[1]
+    tile, m_rows, r1 = kernels.resnet_block_1d_tiles(cp, length)
     assert m_rows % 16 == 0 and r1 % 16 == 0
-    assert 1 <= tile_h <= height and 1 <= tile_w <= width
-    wp = tile_w + 2
-    if taps == 3:
-        assert tile_h == 1 and m_rows >= tile_w
-        assert r1 >= max(wp, 1 + m_rows - 1 + 1 + 1)
-    else:
-        assert m_rows >= (tile_h - 1) * wp + tile_w
-        assert r1 >= max((tile_h + 2) * wp, wp + 1 + m_rows - 1 + wp + 1 + 1)
+    assert 1 <= tile <= length and m_rows >= tile
+    # x and h1 rows: the tile plus a one-frame halo; conv2 reads rows up to
+    # 1 + m_rows - 1 + 1
+    assert r1 >= max(tile + 2, 1 + m_rows - 1 + 1 + 1)
     assert (kernels._resnet_shared_bytes(r1, m_rows, cp)
             <= kernels._MAX_SHARED_BYTES)
