@@ -222,6 +222,29 @@ def timed_in_turns(kernel, plain, *others) -> tuple:
     return (*(float(np.mean(r)) for r in runs), runs)
 
 
+def kernel_split(fn, calls: int = 5) -> str:
+    """The device kernels under ``fn`` by ``torch.profiler``: each one's
+    mean ms and launches per call of ``fn``, or "not measured" where the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        if us > 0 and e.count >= calls:
+            name = e.key.replace("void ", "").replace(
+                "(anonymous namespace)::", "")
+            parts.append(f"{name[:60]} {us / calls / 1e3:.4f} ms "
+                         f"x{e.count // calls}")
+    return "; ".join(parts) or "not measured"
+
+
 def bound_ms(n_bytes: float, flops: float, peak: float) -> tuple:
     """The least time for the work: bytes over the HBM rate or operations
     over their peak rate, whichever is larger."""
@@ -555,6 +578,8 @@ def check_fused_block(label: str, model_kind: str, shape: tuple,
         f"{out.pop('folded_ms'):.4f} ms (runs {out.pop('times')}); bound "
         f"{bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
         f"{n_bytes / 1e6:.1f} MB; the design moves {design / 1e6:.1f} MB)")
+    log(f"{label} {tuple(shape)} by launch (torch.profiler): "
+        f"{kernel_split(lambda: kernel(x, wts))}")
     return dict(out, bound_ms=bound, bound_by=bound_by)
 
 
@@ -646,26 +671,6 @@ def phase_k7() -> dict:
             kernels.basic_block_fused_reference, x, wts, other,
             wts._replace(bias=bias), padded_x,
             folded=lambda: backbone_infer.basic_block_infer_folded(x, fp))
-        one = kernels.basic_block_fused(x, wts, one_launch=True).float()
-        want = kernels.basic_block_fused_reference(x, wts).float()
-        one_err = (one - want).abs().max().item()
-        want_raised = kernels.basic_block_fused_reference(
-            x, wts._replace(bias=bias)).float()
-        one_raised = (kernels.basic_block_fused(
-            x, wts._replace(bias=bias), one_launch=True).float()
-            - want_raised).abs().max().item()
-        two_ms, one_ms, runs = timed_in_turns(
-            lambda: kernels.basic_block_fused(x, wts),
-            lambda: kernels.basic_block_fused(x, wts, one_launch=True))
-        log(f"K7 {shape} in one launch (h1 in shared memory, "
-            f"rows, bn, grid, smem {kernels.basic_one_launch_plan(shape[0], *shape[2:], kernels._round16(channels))}): "
-            f"max_abs_err {one_err:.3e}, with b1 raised {one_raised:.3e}; "
-            f"two launches {two_ms:.4f} ms, one launch {one_ms:.4f} ms "
-            f"(runs {runs})")
-        if not (one_err <= 2.0 ** -7 * want.abs().max().item()
-                and one_raised <= 2.0 ** -7 * want_raised.abs().max().item()):
-            raise RuntimeError(f"K7 in one launch disagrees: {one_err}, "
-                               f"{one_raised}")
         positions = shape[0] * shape[2] * shape[3]
         flops = 2.0 * 2 * 9 * channels * channels * positions
         n_bytes = (2 * x.numel() * 2 + 2 * 9 * channels * channels * 2
@@ -683,6 +688,8 @@ def phase_k7() -> dict:
             + ("the kernel" if backbone_infer.vmem_estimate_basic(
                 *shape[2:], channels) <= resnet_infer.VMEM_CAP
                else "the folded twin"))
+        log(f"K7 {shape} by launch (torch.profiler): "
+            f"{kernel_split(lambda: kernels.basic_block_fused(x, wts))}")
         if first is None:
             first = dict(out, bound_ms=bound, bound_by=bound_by)
     return {"name": "basic_block_kernel", "route": "cuda",

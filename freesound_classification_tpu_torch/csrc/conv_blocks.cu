@@ -25,8 +25,9 @@
 // of M run over all clips of the batch, so a tile of positions spans clips
 // where the map is small; each row's tap reads its own clip or a zero (the
 // row's (h, w) plus the tap is checked against the map). One CTA of eight
-// warps computes a BM x BN tile (BM 128 positions, or 64 for the K4/K5
-// tail at small maps; BN 64 or 128 channels). K runs in chunks of one tap
+// warps computes a BM x BN tile: 256 x 64 where the block has 64 channels
+// or fewer, else 128 x 128 (the K4/K5 tail takes 64 positions at small
+// maps). K runs in chunks of one tap
 // x 32 channels through a ring of three stages in shared memory: cp.async
 // (16 bytes a thread, zero-filled off the map, past the channels and past
 // the weights' rows) brings the A chunk (gathered rows of the map, read in
@@ -34,7 +35,11 @@
 // two chunks ahead of the tensor cores. Every staged weight chunk serves all
 // BM rows of the tile. The warps read the stage through ldmatrix (B
 // transposed) into mma.sync m16n8k16 bf16 with float32 accumulators; each
-// warp holds a 32 x BN / (8 / (BM / 32)) block of the tile.
+// warp holds a 32-row block of the tile, BN / (8 / (BM / 32)) wide. The
+// core streams 2.7-3.2 TB/s from L2 at every stage of K7 (A gathered nine
+// times, once a tap; B once per tile): 256-row tiles at 64 channels halve
+// B's part, which made K7's stage 0 12% faster; caching A in L1
+// (cp.async.ca) did not help.
 //
 // No halo is recomputed. K7 is two launches in one wrapper call: conv1 +
 // b1 + relu written as bf16 h1 (B, H, W, cp) to device memory, then conv2
@@ -93,14 +98,16 @@ struct Epilogue {
   int pairs;
 };
 
-template <int BM, int BN>
+// kRingA false: A is not staged in the ring (a window or h2 in shared
+// memory holds it)
+template <int BM, int BN, bool kRingA = true>
 struct Tile {
   static constexpr int kWarpsM = BM / 32;
   static constexpr int kWarpsN = 8 / kWarpsM;
   static constexpr int kWN = BN / kWarpsN;  // a warp's columns
   static constexpr int kNT = kWN / 8;       // its n8 tiles
   static constexpr int kLdB = BN + 8;       // B rows of the ring
-  static constexpr int kStageA = BM * kLdA;
+  static constexpr int kStageA = kRingA ? BM * kLdA : 0;
   static constexpr int kStageB = kBK * kLdB;
   static constexpr int kStage = kStageA + kStageB;  // elements
   static constexpr int kARows = BM * (kBK / 8) / kThreads;
@@ -185,26 +192,6 @@ struct Gather {
     }
   }
 
-  // rows of a K7 one-launch tile: position p of the window rows r_lo ..
-  // (map rows g0 - 1 + r, g = b H + h, each W wide), from p0 on, m1 of them
-  __device__ __forceinline__ void init_window(const Map& x, const Shape& s,
-                                              int n_rows, int g0, int r_lo,
-                                              int p0, int m1) {
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int p = p0 + threadIdx.x / 4 + i * (kThreads / 4);
-      const int g = g0 - 1 + r_lo + p / s.width;
-      at[i] = -1;
-      h[i] = w[i] = 0;
-      if (p < m1 && g >= 0 && g < n_rows) {
-        const int b = g / s.height;
-        h[i] = g - b * s.height;
-        w[i] = p % s.width;
-        at[i] = b * x.sb + h[i] * x.sh + w[i] * x.sw;
-      }
-    }
-  }
-
   // the chunk (tap, channels c0 .. c0 + 31) into the A stage
   template <int kTaps>
   __device__ __forceinline__ void load(bf16* sa, const Map& x, const Shape& s,
@@ -244,15 +231,75 @@ __device__ __forceinline__ void load_b(bf16* sb, const bf16* w, int cp,
   }
 }
 
+// The A operand of a 3x3 convolution at cp <= 64, loaded once per tile of
+// BM positions m0 ..: the positions m0 - W - 1 .. m0 + BM + W (every row a
+// tap of the tile reaches), all channels, rows of kLd, and one zero row
+// after them. A tap of a row reads the window at a constant offset, dh W +
+// dw, or the zero row where it leaves the map (and so its clip).
+struct Window {
+  static constexpr int kLd = 72;  // 64 channels + 8: no bank conflicts
+  int rows;                       // BM + 2 W + 2; the zero row's index
+  int h[2], w[2];  // this lane's ldmatrix rows (m tiles 0, 1): (h, w)
+
+  __device__ __forceinline__ Window(const Shape& s, int bm) :
+      rows(bm + 2 * s.width + 2) {}
+
+  // copies into win (cp.async, not committed)
+  __device__ __forceinline__ void load(bf16* win, const Map& x,
+                                       const Shape& s, int m0) const {
+    const int hw = s.height * s.width;
+    for (int j = threadIdx.x; j < (rows + 1) * 8; j += kThreads) {
+      const int r = j / 8, c = (j % 8) * 8;
+      const int m = m0 - s.width - 1 + r;
+      const bool ok = r < rows && m >= 0 && m < s.m_total && c < x.channels;
+      long long at = 0;
+      if (ok) {
+        const int b = m / hw, q = m - b * hw, hh = q / s.width;
+        at = b * x.sb + hh * x.sh + (q - hh * s.width) * x.sw + c;
+      }
+      cp_async16(win + r * kLd + c, x.ptr + at, ok);
+    }
+  }
+
+  // this lane's rows: 32 wm + 16 mt + lane % 16 of the tile
+  __device__ __forceinline__ void init_lane(const Shape& s, int m0, int wm) {
+    const int hw = s.height * s.width;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int m = m0 + wm * 32 + mt * 16 + threadIdx.x % 16;
+      h[mt] = -2;  // past M: every tap reads the zero row
+      w[mt] = 0;
+      if (m < s.m_total) {
+        const int q = m % hw;
+        h[mt] = q / s.width;
+        w[mt] = q % s.width;
+      }
+    }
+  }
+
+  // this lane's ldmatrix address for m tile mt at tap, channels c ..
+  __device__ __forceinline__ const bf16* frag(const bf16* win, const Shape& s,
+                                              int wm, int mt, int tap,
+                                              int c) const {
+    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+    const int hh = h[mt] + dh, ww = w[mt] + dw;
+    const int row = wm * 32 + mt * 16 + threadIdx.x % 16;
+    const int r = hh >= 0 && hh < s.height && ww >= 0 && ww < s.width
+                      ? row + s.width + 1 + dh * s.width + dw
+                      : rows;
+    return win + r * kLd + c + (threadIdx.x % 32 >> 4) * 8;
+  }
+};
+
 // acc += the product over n_chunks K chunks: load(stage, kc) issues chunk
 // kc's copies into a ring stage (and commits nothing), a_frag(stage, kc, kk,
 // mt) is this lane's ldmatrix row address of the A fragment (m tile mt of
 // the warp, k16 step kk of the chunk). The ring is free again on return.
-template <int BM, int BN, class Load, class AFrag>
+template <int BM, int BN, bool kRingA = true, class Load, class AFrag>
 __device__ __forceinline__ void gemm(float (&acc)[2][Tile<BM, BN>::kNT][4],
                                      int n_chunks, bf16* ring, Load load,
                                      AFrag a_frag) {
-  using T = Tile<BM, BN>;
+  using T = Tile<BM, BN, kRingA>;
   const int lane = threadIdx.x % 32;
   const int wn = (threadIdx.x / 32) % T::kWarpsN;
 #pragma unroll
@@ -357,66 +404,108 @@ __device__ __forceinline__ void store_tile(
 // One convolution (kTaps 9: 3x3 SAME; 1: 1x1) of the map x by w (kTaps x
 // cp x cp) through the epilogue: CTA (blockIdx.x, blockIdx.y) computes
 // positions BM blockIdx.x .. and columns BN blockIdx.y ..
-template <int BM, int BN, int kTaps>
+template <int BM, int BN, int kTaps, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 2)
     conv_kernel(Map x, const bf16* __restrict__ w, Shape s, Epilogue e) {
-  using T = Tile<BM, BN>;
+  using T = Tile<BM, BN, !kWindow>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int lane = threadIdx.x % 32, wm = threadIdx.x / 32 / T::kWarpsN;
   const int kct = (s.cp + kBK - 1) / kBK;  // K chunks per tap
-  Gather<BM> g;
-  g.init(x, s, m0);
   float acc[2][T::kNT][4] = {};
-  gemm<BM, BN>(
-      acc, kTaps * kct, ring,
-      [&](bf16* stage, int kc) {
-        const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-        g.template load<kTaps>(stage, x, s, tap, c0);
-        load_b<BN>(stage + T::kStageA, w, s.cp, tap, c0, n0);
-      },
-      [&](const bf16* stage, int, int kk, int mt) {
-        return stage + (wm * 32 + mt * 16 + (lane & 15)) * kLdA + kk +
-               (lane >> 4) * 8;
-      });
+  if constexpr (kWindow) {
+    bf16* win = ring + kStages * T::kStage;
+    Window a(s, BM);
+    a.load(win, x, s, m0);
+    cp_async_commit();
+    a.init_lane(s, m0, wm);
+    gemm<BM, BN, false>(
+        acc, 9 * kct, ring,
+        [&](bf16* stage, int kc) {
+          const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
+          load_b<BN>(stage, w, s.cp, tap, c0, n0);
+        },
+        [&](const bf16*, int kc, int kk, int mt) {
+          const int tap = kc / kct;
+          return a.frag(win, s, wm, mt, tap, (kc - tap * kct) * kBK + kk);
+        });
+  } else {
+    Gather<BM> g;
+    g.init(x, s, m0);
+    gemm<BM, BN>(
+        acc, kTaps * kct, ring,
+        [&](bf16* stage, int kc) {
+          const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
+          g.template load<kTaps>(stage, x, s, tap, c0);
+          load_b<BN>(stage + T::kStageA, w, s.cp, tap, c0, n0);
+        },
+        [&](const bf16* stage, int, int kk, int mt) {
+          return stage + (wm * 32 + mt * 16 + (lane & 15)) * kLdA + kk +
+                 (lane >> 4) * 8;
+        });
+  }
   store_tile<BM, BN>(acc, s, e, m0, n0);
 }
 
 // K4/K5's tail over BM positions: h2 = prelu(conv3x3(h1, w2) + b2, a2) for
 // every column into shared memory (zero past cp), then y = prelu((h2 w3 +
 // b3) + x, a3) through the epilogue e (bias b3, slope a3, res x).
-template <int BM, int BN>
+template <int BM, int BN, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 2)
     resnet_tail_kernel(Map h1, const bf16* __restrict__ w2,
                        const bf16* __restrict__ w3,
                        const float* __restrict__ b2,
                        const float* __restrict__ a2, Shape s, Epilogue e) {
   using T = Tile<BM, BN>;
+  using TB = Tile<BM, BN, false>;  // the ring of the B-only products
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* h2 = ring + kStages * T::kStage;
   const int kct = (s.cp + kBK - 1) / kBK;
   const int kpad = kct * kBK, ldh = kpad + 8;  // h2's columns and row
   const int m0 = blockIdx.x * BM;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
+  // the window after the B ring (kWindow), else h2 after the full ring
+  bf16* win = ring + kStages * TB::kStage;
+  Window a(s, BM);
+  bf16* h2 = kWindow ? win + (a.rows + 1) * Window::kLd
+                     : ring + kStages * T::kStage;
   Gather<BM> g;
-  g.init(h1, s, m0);
+  if constexpr (kWindow) {
+    a.load(win, h1, s, m0);
+    cp_async_commit();
+    a.init_lane(s, m0, wm);
+  } else {
+    g.init(h1, s, m0);
+  }
 #pragma unroll 1
   for (int n0 = 0; n0 < kpad; n0 += BN) {
     float acc[2][T::kNT][4] = {};
-    gemm<BM, BN>(
-        acc, 9 * kct, ring,
-        [&](bf16* stage, int kc) {
-          const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-          g.template load<9>(stage, h1, s, tap, c0);
-          load_b<BN>(stage + T::kStageA, w2, s.cp, tap, c0, n0);
-        },
-        [&](const bf16* stage, int, int kk, int mt) {
-          return stage + (wm * 32 + mt * 16 + (lane & 15)) * kLdA + kk +
-                 (lane >> 4) * 8;
-        });
+    if constexpr (kWindow) {
+      gemm<BM, BN, false>(
+          acc, 9 * kct, ring,
+          [&](bf16* stage, int kc) {
+            const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
+            load_b<BN>(stage, w2, s.cp, tap, c0, n0);
+          },
+          [&](const bf16*, int kc, int kk, int mt) {
+            const int tap = kc / kct;
+            return a.frag(win, s, wm, mt, tap, (kc - tap * kct) * kBK + kk);
+          });
+    } else {
+      gemm<BM, BN>(
+          acc, 9 * kct, ring,
+          [&](bf16* stage, int kc) {
+            const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
+            g.template load<9>(stage, h1, s, tap, c0);
+            load_b<BN>(stage + T::kStageA, w2, s.cp, tap, c0, n0);
+          },
+          [&](const bf16* stage, int, int kk, int mt) {
+            return stage + (wm * 32 + mt * 16 + (lane & 15)) * kLdA + kk +
+                   (lane >> 4) * 8;
+          });
+    }
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -442,10 +531,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll 1
   for (int n0 = 0; n0 < e.n_write; n0 += BN) {
     float acc[2][T::kNT][4] = {};
-    gemm<BM, BN>(
+    gemm<BM, BN, false>(
         acc, kct, ring,
         [&](bf16* stage, int kc) {
-          load_b<BN>(stage + T::kStageA, w3, s.cp, 0, kc * kBK, n0);
+          load_b<BN>(stage, w3, s.cp, 0, kc * kBK, n0);
         },
         [&](const bf16*, int kc, int kk, int mt) {
           return h2 + (wm * 32 + mt * 16 + (lane & 15)) * ldh + kc * kBK + kk +
@@ -455,180 +544,69 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// K7 in one launch (shape (ii), measured against the two launches): a CTA
-// takes `rows` whole map rows g0 .. (g = b H + h, so a tile holds several
-// clips where a map is small). h1 over those rows and the halo rows a cut
-// clip needs (g0 - 1, g0 + rows) goes to shared memory as a window of
-// rows + 2 map rows, each W + 2 wide with zero halo columns, plus one zero
-// row; then y over the tile's rows reads h1 there, each tap at a constant
-// offset, and the zero row where the tap leaves the clip.
-template <int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-    basic_one_launch_kernel(Map x, const bf16* __restrict__ w1,
-                            const bf16* __restrict__ w2,
-                            const float* __restrict__ b1, Shape s,
-                            int n_rows, int rows, Epilogue e) {
-  using T = Tile<128, BN>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* win = ring + kStages * T::kStage;
-  const int kct = (s.cp + kBK - 1) / kBK;
-  const int kpad = kct * kBK, ldh = kpad + 8;
-  const int wp = s.width + 2;
-  const int zero_row = (rows + 2) * wp;
-  const int g0 = blockIdx.x * rows;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
-  // the halo rows a cut clip needs; the others are never read
-  const int r_lo = g0 % s.height != 0 ? 0 : 1;
-  const int g_end = min(g0 + rows, n_rows);
-  const int r_hi = (g_end < n_rows && g_end % s.height != 0) ? g_end - g0 + 1
-                                                             : g_end - g0;
-  const int m1 = (r_hi - r_lo + 1) * s.width;
-  // zero halo columns and the zero row
-  for (int i = threadIdx.x; i < (2 * (rows + 2) + 1) * kpad; i += kThreads) {
-    const int q = i / kpad, c = i % kpad;
-    const int f =
-        q == 2 * (rows + 2) ? zero_row : (q / 2) * wp + (q % 2) * (wp - 1);
-    win[f * ldh + c] = __float2bfloat16_rn(0.f);
-  }
-  Gather<128> g;
-#pragma unroll 1
-  for (int p0 = 0; p0 < m1; p0 += 128) {
-    g.init_window(x, s, n_rows, g0, r_lo, p0, m1);
-#pragma unroll 1
-    for (int n0 = 0; n0 < kpad; n0 += BN) {
-      float acc[2][T::kNT][4] = {};
-      gemm<128, BN>(
-          acc, 9 * kct, ring,
-          [&](bf16* stage, int kc) {
-            const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-            g.template load<9>(stage, x, s, tap, c0);
-            load_b<BN>(stage + T::kStageA, w1, s.cp, tap, c0, n0);
-          },
-          [&](const bf16* stage, int, int kk, int mt) {
-            return stage + (wm * 32 + mt * 16 + (lane & 15)) * kLdA + kk +
-                   (lane >> 4) * 8;
-          });
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int p = p0 + wm * 32 + mt * 16 + half * 8 + lane / 4;
-          if (p >= m1) continue;
-          const int f = (r_lo + p / s.width) * wp + p % s.width + 1;
-#pragma unroll
-          for (int nt = 0; nt < T::kNT; ++nt) {
-            const int n = n0 + wn * T::kWN + nt * 8 + 2 * (lane % 4);
-            if (n >= kpad) continue;
-            float y[2];
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              y[j] = n + j < s.cp
-                         ? fmaxf(__fadd_rn(acc[mt][nt][2 * half + j],
-                                           b1[n + j]), 0.f)
-                         : 0.f;
-            *reinterpret_cast<__nv_bfloat162*>(win + f * ldh + n) =
-                __floats2bfloat162_rn(y[0], y[1]);
-          }
-        }
-    }
-  }
-  __syncthreads();  // h1 complete
-  const int m2 = (g_end - g0) * s.width;
-  Shape tile = s;  // the epilogue writes this tile's rows only
-  tile.m_total = g_end * s.width;
-#pragma unroll 1
-  for (int q0 = 0; q0 < m2; q0 += 128) {
-    // this lane's ldmatrix rows: window offset and map row of each m tile
-    int base[2], hrow[2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int q = q0 + wm * 32 + mt * 16 + (lane & 15);
-      const int r = q / s.width;
-      base[mt] = q < m2 ? (r + 1) * wp + q % s.width + 1 : -1;
-      hrow[mt] = (g0 + r) % s.height;
-    }
-#pragma unroll 1
-    for (int n0 = 0; n0 < e.n_write; n0 += BN) {
-      float acc[2][T::kNT][4] = {};
-      gemm<128, BN>(
-          acc, 9 * kct, ring,
-          [&](bf16* stage, int kc) {
-            const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-            load_b<BN>(stage + T::kStageA, w2, s.cp, tap, c0, n0);
-          },
-          [&](const bf16*, int kc, int kk, int mt) {
-            const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-            const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-            const int hh = hrow[mt] + dh;
-            const int f = base[mt] >= 0 && hh >= 0 && hh < s.height
-                              ? base[mt] + dh * wp + dw
-                              : zero_row;
-            return win + f * ldh + c0 + kk + (lane >> 4) * 8;
-          });
-      store_tile<128, BN>(acc, tile, e, g0 * s.width + q0, n0);
-    }
-  }
-}
-
-template <int BM, int BN>
+template <int BM, int BN, bool kRingA = true>
 constexpr int ring_bytes() {
-  return kStages * Tile<BM, BN>::kStage * 2;
+  return kStages * Tile<BM, BN, kRingA>::kStage * 2;
 }
 
-template <int BN, int kTaps>
+int window_bytes(const Shape& s, int bm) {
+  return (bm + 2 * s.width + 3) * Window::kLd * 2;
+}
+
+template <int BM, int BN, int kTaps, bool kWindow>
 cudaError_t launch_conv(const Map& x, const bf16* w, const Shape& s,
                         const Epilogue& e, int smem, cudaStream_t stream) {
-  if (smem < ring_bytes<128, BN>()) return cudaErrorInvalidValue;
-  auto kernel = conv_kernel<128, BN, kTaps>;
+  const int need = ring_bytes<BM, BN, !kWindow>() +
+                   (kWindow ? window_bytes(s, BM) : 0);
+  if (smem < need) return cudaErrorInvalidValue;
+  auto kernel = conv_kernel<BM, BN, kTaps, kWindow>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s.m_total + 127) / 128, (e.n_write + BN - 1) / BN);
+  const dim3 grid((s.m_total + BM - 1) / BM, (e.n_write + BN - 1) / BN);
   kernel<<<grid, kThreads, smem, stream>>>(x, w, s, e);
   return cudaGetLastError();
 }
 
+// the plan's tiles (ops/kernels.conv_plan): gathered A at 256 x 64 (cp <=
+// 64) or 128 x 128; a window of A at 256 x 64 or 128 x 64 (3x3, cp <= 64)
 template <int kTaps>
-cudaError_t launch_conv_bn(int bn, const Map& x, const bf16* w,
-                           const Shape& s, const Epilogue& e, int smem,
-                           cudaStream_t stream) {
-  if (bn == 64) return launch_conv<64, kTaps>(x, w, s, e, smem, stream);
-  if (bn == 128) return launch_conv<128, kTaps>(x, w, s, e, smem, stream);
+cudaError_t launch_conv_plan(int bm, int bn, int window, const Map& x,
+                             const bf16* w, const Shape& s,
+                             const Epilogue& e, int smem,
+                             cudaStream_t stream) {
+  if (window) {
+    if constexpr (kTaps == 9) {
+      if (bm == 256 && bn == 64)
+        return launch_conv<256, 64, 9, true>(x, w, s, e, smem, stream);
+      if (bm == 128 && bn == 64)
+        return launch_conv<128, 64, 9, true>(x, w, s, e, smem, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (bm == 256 && bn == 64)
+    return launch_conv<256, 64, kTaps, false>(x, w, s, e, smem, stream);
+  if (bm == 128 && bn == 128)
+    return launch_conv<128, 128, kTaps, false>(x, w, s, e, smem, stream);
   return cudaErrorInvalidValue;
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool kWindow>
 cudaError_t launch_tail(const Map& h1, const bf16* w2, const bf16* w3,
                         const float* b2, const float* a2, const Shape& s,
                         const Epilogue& e, int smem, cudaStream_t stream) {
   const int kpad = (s.cp + kBK - 1) / kBK * kBK;
-  if (smem < ring_bytes<BM, BN>() + BM * (kpad + 8) * 2)
-    return cudaErrorInvalidValue;
-  auto kernel = resnet_tail_kernel<BM, BN>;
+  const int need = (kWindow ? ring_bytes<BM, BN, false>() +
+                                  window_bytes(s, BM)
+                            : ring_bytes<BM, BN>()) +
+                   BM * (kpad + 8) * 2;
+  if (smem < need) return cudaErrorInvalidValue;
+  auto kernel = resnet_tail_kernel<BM, BN, kWindow>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<(s.m_total + BM - 1) / BM, kThreads, smem, stream>>>(
       h1, w2, w3, b2, a2, s, e);
-  return cudaGetLastError();
-}
-
-template <int BN>
-cudaError_t launch_one(const Map& x, const bf16* w1, const bf16* w2,
-                       const float* b1, const Shape& s, int n_rows, int rows,
-                       const Epilogue& e, int smem, cudaStream_t stream) {
-  const int kpad = (s.cp + kBK - 1) / kBK * kBK;
-  if (smem < ring_bytes<128, BN>() +
-                 ((rows + 2) * (s.width + 2) + 1) * (kpad + 8) * 2)
-    return cudaErrorInvalidValue;
-  auto kernel = basic_one_launch_kernel<BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(n_rows + rows - 1) / rows, kThreads, smem, stream>>>(
-      x, w1, w2, b1, s, n_rows, rows, e);
   return cudaGetLastError();
 }
 
@@ -645,16 +623,16 @@ Map rows_of(const void* p, long long sb, long long sh, long long sw,
 // channels on rows, zero past C; bias: float32 (2, cp), b1 then b2, zero
 // past C. h1: scratch bf16 (B, H, W, cp), contiguous. out: (B, C, H, W)
 // bf16 with element strides osb, osh, osw and contiguous channels. pairs:
-// x and out rows take aligned 4-byte column pairs. bn: the tiles' columns
-// (64 or 128); smem: the ring's bytes (ops/kernels.conv_plan). stream: a
-// cudaStream_t. Returns the first cudaError_t of the two launches (0 on
-// success).
+// x and out rows take aligned 4-byte column pairs. bm, bn, window, smem:
+// the tiles' positions and columns, whether A is a window, and the shared
+// memory bytes (ops/kernels.conv_plan). stream: a cudaStream_t. Returns the
+// first cudaError_t of the two launches (0 on success).
 extern "C" int basic_block_launch(
     const void* x, long long sb, long long sh, long long sw, int x_channels,
     const void* w1, const void* w2, const void* bias, void* h1, void* out,
     long long osb, long long osh, long long osw, int pairs, int n_batch,
-    int channels, int cp, int height, int width, int bn, int smem,
-    void* stream) {
+    int channels, int cp, int height, int width, int bm, int bn, int window,
+    int smem, void* stream) {
   const Shape s{height, width, n_batch * height * width, cp};
   const long long hsw = cp, hsh = hsw * width, hsb = hsh * height;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -663,29 +641,29 @@ extern "C" int basic_block_launch(
   const Map xm = rows_of(x, sb, sh, sw, x_channels);
   const Epilogue e1{b, nullptr, nullptr, 0, 0, 0, h, hsb, hsh, hsw,
                     cp, cp, 1};
-  cudaError_t err = launch_conv_bn<9>(
-      bn, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
+  cudaError_t err = launch_conv_plan<9>(
+      bm, bn, window, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
   if (err != cudaSuccess) return err;
   const Epilogue e2{b + cp, nullptr, xm.ptr, sb, sh, sw,
                     static_cast<bf16*>(out), osb, osh, osw,
                     channels, channels, pairs};
-  return launch_conv_bn<9>(bn, rows_of(h1, hsb, hsh, hsw, cp),
-                               static_cast<const bf16*>(w2), s, e2, smem, st);
+  return launch_conv_plan<9>(bm, bn, window, rows_of(h1, hsb, hsh, hsw, cp),
+                             static_cast<const bf16*>(w2), s, e2, smem, st);
 }
 
 // K4/K5. x, h1, out, pairs: as basic_block_launch. w1, w3: bf16 (cp, cp);
 // w2: bf16 (9, cp, cp), tap 3 dh + dw; input channels on rows, zero past C.
 // bias, slope: float32 (3, cp), (b1, b2, b3) and (a1, a2, a3), zero past C.
-// bn, smem: the h1 launch's tile columns and ring bytes; tail_bm, tail_bn,
-// tail_smem: the tail's (ops/kernels.tail_plan). Returns the first
-// cudaError_t of the two launches.
+// bm, bn, smem: the h1 launch's tiles and ring bytes; tail_bm, tail_bn,
+// tail_window, tail_smem: the tail's (ops/kernels.tail_plan). Returns the
+// first cudaError_t of the two launches.
 extern "C" int resnet_block_2d_launch(
     const void* x, long long sb, long long sh, long long sw, int x_channels,
     const void* w1, const void* w2, const void* w3, const void* bias,
     const void* slope, void* h1, void* out, long long osb, long long osh,
     long long osw, int pairs, int n_batch, int channels, int cp, int height,
-    int width, int bn, int smem, int tail_bm, int tail_bn, int tail_smem,
-    void* stream) {
+    int width, int bm, int bn, int smem, int tail_bm, int tail_bn,
+    int tail_window, int tail_smem, void* stream) {
   const Shape s{height, width, n_batch * height * width, cp};
   const long long hsw = cp, hsh = hsw * width, hsb = hsh * height;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -694,8 +672,8 @@ extern "C" int resnet_block_2d_launch(
   const Map xm = rows_of(x, sb, sh, sw, x_channels);
   const Epilogue e1{b, a, nullptr, 0, 0, 0, static_cast<bf16*>(h1),
                     hsb, hsh, hsw, cp, cp, 1};
-  cudaError_t err = launch_conv_bn<1>(
-      bn, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
+  cudaError_t err = launch_conv_plan<1>(
+      bm, bn, 0, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
   if (err != cudaSuccess) return err;
   const Map hm = rows_of(h1, hsb, hsh, hsw, cp);
   const Epilogue e3{b + 2 * cp, a + 2 * cp, xm.ptr, sb, sh, sw,
@@ -703,44 +681,23 @@ extern "C" int resnet_block_2d_launch(
                     channels, channels, pairs};
   const bf16* w2b = static_cast<const bf16*>(w2);
   const bf16* w3b = static_cast<const bf16*>(w3);
-  if (tail_bm == 128 && tail_bn == 64)
-    return launch_tail<128, 64>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                tail_smem, st);
+  if (tail_window)
+    return tail_bm == 128 && tail_bn == 64
+               ? launch_tail<128, 64, true>(hm, w2b, w3b, b + cp, a + cp, s,
+                                            e3, tail_smem, st)
+               : cudaErrorInvalidValue;
+  if (tail_bm == 256 && tail_bn == 64)
+    return launch_tail<256, 64, false>(hm, w2b, w3b, b + cp, a + cp, s, e3,
+                                       tail_smem, st);
   if (tail_bm == 128 && tail_bn == 128)
-    return launch_tail<128, 128>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                 tail_smem, st);
+    return launch_tail<128, 128, false>(hm, w2b, w3b, b + cp, a + cp, s, e3,
+                                        tail_smem, st);
   if (tail_bm == 64 && tail_bn == 64)
-    return launch_tail<64, 64>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                               tail_smem, st);
+    return launch_tail<64, 64, false>(hm, w2b, w3b, b + cp, a + cp, s, e3,
+                                      tail_smem, st);
   if (tail_bm == 64 && tail_bn == 128)
-    return launch_tail<64, 128>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                tail_smem, st);
+    return launch_tail<64, 128, false>(hm, w2b, w3b, b + cp, a + cp, s, e3,
+                                       tail_smem, st);
   return cudaErrorInvalidValue;
 }
 
-// K7 in one launch (ops/kernels.basic_one_launch_plan): as
-// basic_block_launch, with no h1 scratch; rows: the map rows of a tile,
-// smem: the ring's and the h1 window's bytes.
-extern "C" int basic_block_one_launch(
-    const void* x, long long sb, long long sh, long long sw, int x_channels,
-    const void* w1, const void* w2, const void* bias, void* out,
-    long long osb, long long osh, long long osw, int pairs, int n_batch,
-    int channels, int cp, int height, int width, int bn, int rows, int smem,
-    void* stream) {
-  const Shape s{height, width, n_batch * height * width, cp};
-  const float* b = static_cast<const float*>(bias);
-  const Map xm = rows_of(x, sb, sh, sw, x_channels);
-  const Epilogue e{b + cp, nullptr, xm.ptr, sb, sh, sw,
-                   static_cast<bf16*>(out), osb, osh, osw,
-                   channels, channels, pairs};
-  const bf16* w1b = static_cast<const bf16*>(w1);
-  const bf16* w2b = static_cast<const bf16*>(w2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 64)
-    return launch_one<64>(xm, w1b, w2b, b, s, n_batch * height, rows, e,
-                          smem, st);
-  if (bn == 128)
-    return launch_one<128>(xm, w1b, w2b, b, s, n_batch * height, rows, e,
-                           smem, st);
-  return cudaErrorInvalidValue;
-}

@@ -545,7 +545,6 @@ resnet_block_1d_fused.launches = 0
 # The 2d blocks' convolution core (csrc/conv_blocks.cu): K4/K5 and K7
 # ---------------------------------------------------------------------------
 
-CONV_BM = 128  # positions per tile of a convolution launch
 CONV_BK = 32  # channels of one tap per K chunk
 CONV_STAGES = 3  # K chunks in the ring
 H100_SMS = 132
@@ -553,44 +552,100 @@ H100_SMS = 132
 
 class ConvPlan(NamedTuple):
     """One launch of the core: tiles of ``bm`` positions x ``bn`` channels
-    on a ``grid_m`` x ``grid_n`` grid, ``smem`` bytes of shared memory."""
+    on a ``grid_m`` x ``grid_n`` grid, ``smem`` bytes of shared memory;
+    ``window``: A is each tile's window of positions (``window_sources``),
+    loaded once, not a gather per chunk."""
 
     bm: int
     bn: int
     grid_m: int
     grid_n: int
     smem: int
+    window: bool = False
 
 
-def _ring_bytes(bm: int, bn: int) -> int:
-    """The ring: per stage an A chunk (bm rows of CONV_BK + 8 channels) and
-    a B chunk (CONV_BK rows of bn + 8 columns), bf16."""
-    return CONV_STAGES * (bm * (CONV_BK + 8) + CONV_BK * (bn + 8)) * 2
+# a block's shared memory that leaves room for two blocks an SM (228 KB,
+# 1 KB of it reserved per block)
+_TWO_PER_SM = 233472 // 2 - 1024
+_WINDOW_LD = 72  # a window row: 64 channels + 8
 
 
-def _tile_columns(cp: int) -> int:
-    return 64 if cp <= 64 else 128
+def _ring_bytes(bm: int, bn: int, ring_a: bool = True) -> int:
+    """The ring: per stage an A chunk (bm rows of CONV_BK + 8 channels;
+    none where A is a window or in shared memory) and a B chunk (CONV_BK
+    rows of bn + 8 columns), bf16."""
+    a = bm * (CONV_BK + 8) if ring_a else 0
+    return CONV_STAGES * (a + CONV_BK * (bn + 8)) * 2
 
 
-def conv_plan(m_total: int, n_write: int, cp: int) -> ConvPlan:
-    """A convolution launch (``conv_kernel``: K7's two, K4/K5's h1) over
-    ``m_total`` positions writing ``n_write`` columns of weights cp wide:
-    CONV_BM positions a tile, 64 columns for cp <= 64, else 128."""
-    bn = _tile_columns(cp)
-    return ConvPlan(CONV_BM, bn, -(-m_total // CONV_BM), -(-n_write // bn),
-                    _ring_bytes(CONV_BM, bn))
+def _window_bytes(bm: int, width: int) -> int:
+    """A tile's window: bm + 2 width + 2 rows and a zero row, bf16."""
+    return (bm + 2 * width + 3) * _WINDOW_LD * 2
 
 
-def tail_plan(m_total: int, cp: int) -> ConvPlan:
-    """K4/K5's tail (``resnet_tail_kernel``): 128 positions a tile, or 64
-    where 128 would give fewer than two tiles an SM (the deepest blocks'
-    small maps); the ring, then h2 (bm rows of the channels rounded to
-    CONV_BK, + 8) in shared memory."""
-    bn = _tile_columns(cp)
-    bm = 128 if -(-m_total // 128) >= 2 * H100_SMS else 64
+def _tile(cp: int) -> tuple:
+    """(positions, columns) of a tile: 256 x 64 for cp <= 64 (one column
+    tile; the tall tile halves the weight traffic), else 128 x 128."""
+    return (256, 64) if cp <= 64 else (128, 128)
+
+
+def conv_plan(m_total: int, n_write: int, cp: int,
+              width: int = 0) -> ConvPlan:
+    """A convolution launch (``conv_kernel``: K7's two 3x3 over maps
+    ``width`` wide, K4/K5's 1x1 h1 with width 0) over ``m_total`` positions
+    writing ``n_write`` columns of weights cp wide. A 3x3 at cp <= 64 takes
+    A as a window where two blocks an SM still fit (256 positions a tile,
+    else 128); every other launch gathers A chunk by chunk."""
+    bm, bn = _tile(cp)
+    if width and cp <= 64:
+        for wm in (256, 128):
+            smem = _ring_bytes(wm, bn, False) + _window_bytes(wm, width)
+            if smem <= _TWO_PER_SM:
+                return ConvPlan(wm, bn, -(-m_total // wm),
+                                -(-n_write // bn), smem, True)
+    return ConvPlan(bm, bn, -(-m_total // bm), -(-n_write // bn),
+                    _ring_bytes(bm, bn))
+
+
+def tail_plan(m_total: int, cp: int, width: int) -> ConvPlan:
+    """K4/K5's tail (``resnet_tail_kernel``) over maps ``width`` wide:
+    ``_tile``'s positions, or 64 where those would give fewer than two
+    tiles an SM (the deepest blocks' small maps); the ring, then h2 (bm
+    rows of the channels rounded to CONV_BK, + 8) in shared memory. At cp
+    <= 64 with many tiles, 128 positions a tile and A as a window where two
+    blocks an SM still fit."""
+    bm, bn = _tile(cp)
     kpad = -(-cp // CONV_BK) * CONV_BK
+    if cp <= 64 and -(-m_total // 128) >= 2 * H100_SMS:
+        smem = (_ring_bytes(128, bn, False) + _window_bytes(128, width)
+                + 128 * (kpad + 8) * 2)
+        if smem <= _TWO_PER_SM:
+            return ConvPlan(128, bn, -(-m_total // 128), 1, smem, True)
+    if -(-m_total // bm) < 2 * H100_SMS:
+        bm = 64
     return ConvPlan(bm, bn, -(-m_total // bm), 1,
                     _ring_bytes(bm, bn) + bm * (kpad + 8) * 2)
+
+
+def window_sources(m0: int, bm: int, tap: int, n_batch: int, height: int,
+                   width: int) -> np.ndarray:
+    """The positions that a windowed tile's A fragments read for its rows
+    m0 .. m0 + bm - 1 at ``tap`` (3 dh + dw), -1 where they read the zero
+    row: the arithmetic of ``Window`` in ``csrc/conv_blocks.cu`` (window
+    row r holds position m0 - width - 1 + r, or zeros past the batch)."""
+    rows = np.arange(bm, dtype=np.int64)
+    m = m0 + rows
+    hw = height * width
+    inside = m < n_batch * hw
+    h = np.where(inside, m % hw // width, -2)
+    w = np.where(inside, m % width, 0)
+    dh, dw = tap // 3 - 1, tap % 3 - 1
+    ok = ((h + dh >= 0) & (h + dh < height) & (w + dw >= 0)
+          & (w + dw < width))
+    r = rows + width + 1 + dh * width + dw
+    pos = m0 - width - 1 + r
+    ok &= (pos >= 0) & (pos < n_batch * hw)
+    return np.where(ok, pos, -1)
 
 
 def gather_sources(m0: int, bm: int, tap: int, taps: int, n_batch: int,
@@ -663,7 +718,7 @@ def resnet_block_2d_fused(x: torch.Tensor,
     (rows, (sb, sh, sw), readable), h1, out, m_total = _block_buffers(
         name, x, cp)
     n_batch, c, height, width = x.shape
-    first, tail = conv_plan(m_total, cp, cp), tail_plan(m_total, cp)
+    first, tail = conv_plan(m_total, cp, cp), tail_plan(m_total, cp, width)
 
     from freesound_classification_tpu_torch.ops import build
 
@@ -674,8 +729,9 @@ def resnet_block_2d_fused(x: torch.Tensor,
             rows.data_ptr(), sb, sh, sw, readable, wts.w1.data_ptr(),
             wts.w2.data_ptr(), wts.w3.data_ptr(), wts.bias.data_ptr(),
             wts.slope.data_ptr(), h1.data_ptr(), out.data_ptr(), osb, osh,
-            osw, int(c % 2 == 0), n_batch, c, cp, height, width, first.bn,
-            first.smem, tail.bm, tail.bn, tail.smem,
+            osw, int(c % 2 == 0), n_batch, c, cp, height, width, first.bm,
+            first.bn, first.smem, tail.bm, tail.bn, int(tail.window),
+            tail.smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"resnet_block_2d kernels launch failed: cudaError "
@@ -741,29 +797,8 @@ def basic_block_fused_reference(x: torch.Tensor,
     return y.to(torch.bfloat16).to(x.dtype)
 
 
-def basic_one_launch_plan(n_batch: int, height: int, width: int,
-                          cp: int) -> tuple:
-    """K7 in one launch: (rows, bn, grid, smem). A CTA takes ``rows`` whole
-    map rows (whole clips where a clip fits), as many as leave the ring and
-    the h1 window ((rows + 2) map rows of width + 2, and a zero row) within
-    shared memory."""
-    bn = _tile_columns(cp)
-    ldh = -(-cp // CONV_BK) * CONV_BK + 8
-    ring = _ring_bytes(CONV_BM, bn)
-    row_bytes = (width + 2) * ldh * 2
-    rows = (_MAX_SHARED_BYTES - ring - ldh * 2) // row_bytes - 2
-    if rows < 1:
-        raise ValueError(f"basic block: a {width}-wide map of {cp} channels "
-                         "does not fit shared memory")
-    if rows >= height:
-        rows -= rows % height
-    rows = min(rows, n_batch * height)
-    smem = ring + ((rows + 2) * (width + 2) + 1) * ldh * 2
-    return rows, bn, -(-n_batch * height // rows), smem
-
-
-def basic_block_fused(x: torch.Tensor, wts: BasicBlockWeights,
-                      one_launch: bool = False) -> torch.Tensor:
+def basic_block_fused(x: torch.Tensor,
+                      wts: BasicBlockWeights) -> torch.Tensor:
     """K7: the folded stride-1 identity BasicBlock on an NCHW map (read in
     place when channels_last with C % 8 == 0, the model's; other layouts
     through a padded copy), any float dtype (rounded to bf16 on the way
@@ -784,33 +819,18 @@ def basic_block_fused(x: torch.Tensor, wts: BasicBlockWeights,
     (rows, (sb, sh, sw), readable), h1, out, m_total = _block_buffers(
         name, x, cp)
     n_batch, c, height, width = x.shape
-    plan = conv_plan(m_total, cp, cp)
+    plan = conv_plan(m_total, cp, cp, width)
 
     from freesound_classification_tpu_torch.ops import build
 
     lib = build.load_library()
     osb, _, osh, osw = out.stride()
-    if one_launch:
-        tile_rows, bn, _, smem = basic_one_launch_plan(n_batch, height, width,
-                                                       cp)
-        with torch.cuda.device(x.device):
-            err = lib.basic_block_one_launch(
-                rows.data_ptr(), sb, sh, sw, readable, wts.w1.data_ptr(),
-                wts.w2.data_ptr(), wts.bias.data_ptr(), out.data_ptr(), osb,
-                osh, osw, int(c % 2 == 0), n_batch, c, cp, height, width, bn,
-                tile_rows, smem,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"basic_one_launch_kernel launch failed: "
-                               f"cudaError {err}")
-        basic_block_fused.launches += 1
-        return out.to(x.dtype)
     with torch.cuda.device(x.device):
         err = lib.basic_block_launch(
             rows.data_ptr(), sb, sh, sw, readable, wts.w1.data_ptr(),
             wts.w2.data_ptr(), wts.bias.data_ptr(), h1.data_ptr(),
             out.data_ptr(), osb, osh, osw, int(c % 2 == 0), n_batch, c, cp,
-            height, width, plan.bn, plan.smem,
+            height, width, plan.bm, plan.bn, int(plan.window), plan.smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"basic_block kernels launch failed: cudaError "
