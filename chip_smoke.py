@@ -507,15 +507,14 @@ def check_kernel(label: str, kernel, plain, x, wts, other, raised,
                            f"{err_raised}")
     if not min(shifted, wrong_fold) > 10 * tol or not halo > 10 * tol_raised:
         raise RuntimeError(f"{label}'s comparison cannot tell a wrong input")
-    if folded is None:
-        ms, plain_ms, times = timed_in_turns(lambda: kernel(x, wts),
-                                             lambda: plain(x, wts))
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "times": times}
-    ms, plain_ms, folded_ms, times = timed_in_turns(
-        lambda: kernel(x, wts), lambda: plain(x, wts), folded)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "folded_ms": folded_ms, "times": times}
+    ms, plain_ms, *folded_ms, times = timed_in_turns(
+        lambda: kernel(x, wts), lambda: plain(x, wts),
+        *([folded] if folded else []))
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "times": times}
+    if folded_ms:
+        out["folded_ms"] = folded_ms[0]
+    return out
 
 
 def bf16_folded(fold_params: dict) -> dict:

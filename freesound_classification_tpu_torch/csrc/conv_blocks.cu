@@ -27,19 +27,23 @@
 // row's (h, w) plus the tap is checked against the map). One CTA of eight
 // warps computes a BM x BN tile: 256 x 64 where the block has 64 channels
 // or fewer, else 128 x 128 (the K4/K5 tail takes 64 positions at small
-// maps). K runs in chunks of one tap
-// x 32 channels through a ring of three stages in shared memory: cp.async
-// (16 bytes a thread, zero-filled off the map, past the channels and past
-// the weights' rows) brings the A chunk (gathered rows of the map, read in
-// place through its strides) and the B chunk (32 weight rows x BN columns)
-// two chunks ahead of the tensor cores. Every staged weight chunk serves all
-// BM rows of the tile. The warps read the stage through ldmatrix (B
-// transposed) into mma.sync m16n8k16 bf16 with float32 accumulators; each
-// warp holds a 32-row block of the tile, BN / (8 / (BM / 32)) wide. The
-// core streams 2.7-3.2 TB/s from L2 at every stage of K7 (A gathered nine
-// times, once a tap; B once per tile): 256-row tiles at 64 channels halve
-// B's part, which made K7's stage 0 12% faster; caching A in L1
-// (cp.async.ca) did not help.
+// maps). K runs in chunks of one tap x 32 channels through a ring of three
+// stages in shared memory (64 channels and two stages for the 128-column
+// tiles): cp.async (16 bytes a thread, zero-filled off the map, past the
+// channels and past the weights' rows) brings the A chunk (gathered rows
+// of the map, read in place through its strides) and the B chunk (the
+// chunk's weight rows x BN columns) ahead of the tensor cores. Every
+// staged weight chunk serves all BM rows of the tile. The warps read the
+// stage through ldmatrix (B transposed) into mma.sync m16n8k16 bf16 with
+// float32 accumulators; each warp holds a 32-row block of the tile, BN /
+// (8 / (BM / 32)) wide. The core streams 2.7-3.2 TB/s from L2 at every
+// stage of K7 (A gathered nine times, once a tap; B once per tile).
+// 256-row tiles at 64 channels halve B's part, which made K7's stage 0 12%
+// faster; 64-channel chunks made the 128-column tiles 4-21% faster (half
+// the barriers); caching A in L1 (cp.async.ca) did not help, nor did
+// loading each tile's A once as a window of every row its taps reach (4.9x
+// less A traffic): L2 does not bound the core; the issue of mma.sync and
+// its ldmatrix loads is the suspect (140 TFLOP/s at K7's stage 0).
 //
 // No halo is recomputed. K7 is two launches in one wrapper call: conv1 +
 // b1 + relu written as bf16 h1 (B, H, W, cp) to device memory, then conv2
@@ -64,10 +68,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;  // eight warps
-constexpr int kBK = 32;        // channels of one tap per K chunk
-constexpr int kStages = 3;     // K chunks in the ring
-constexpr int kLdA = kBK + 8;  // A rows of the ring: 80 bytes, which puts
-                               // ldmatrix's eight rows on distinct banks
 
 // A map of channel rows: position (b, h, w), channel c at
 // ptr[b sb + h sh + w sw + c]. Channels [0, channels) are read (a multiple
@@ -98,16 +98,22 @@ struct Epilogue {
   int pairs;
 };
 
-// kRingA false: A is not staged in the ring (a window or h2 in shared
-// memory holds it)
-template <int BM, int BN, bool kRingA = true>
+// A tile of BM positions x BN channels. K runs in chunks of kBK channels of
+// one tap through a ring of kStages: 32 x 3 for the 64-column tiles (cp <=
+// 64, where two blocks an SM must fit), 64 x 2 for the 128-column ones
+// (half the barriers). A rows of kBK + 8 and B rows of BN + 8 elements put
+// ldmatrix's eight rows on distinct banks.
+template <int BM, int BN>
 struct Tile {
+  static constexpr int kBK = BN == 64 ? 32 : 64;
+  static constexpr int kStages = BN == 64 ? 3 : 2;
+  static constexpr int kLdA = kBK + 8;
   static constexpr int kWarpsM = BM / 32;
   static constexpr int kWarpsN = 8 / kWarpsM;
   static constexpr int kWN = BN / kWarpsN;  // a warp's columns
   static constexpr int kNT = kWN / 8;       // its n8 tiles
   static constexpr int kLdB = BN + 8;       // B rows of the ring
-  static constexpr int kStageA = kRingA ? BM * kLdA : 0;
+  static constexpr int kStageA = BM * kLdA;
   static constexpr int kStageB = kBK * kLdB;
   static constexpr int kStage = kStageA + kStageB;  // elements
   static constexpr int kARows = BM * (kBK / 8) / kThreads;
@@ -166,13 +172,15 @@ __device__ __forceinline__ float prelu(float v, float a) {
   return v >= 0.f ? v : __fmul_rn(a, v);
 }
 
-// The A rows of a CTA's tile that this thread loads: rows t / 4 + 64 i of
-// the tile, the 8-channel segment t % 4 of every chunk. Each row keeps its
-// position's offset in the map (-1 past M) and its (h, w) for the taps'
-// bounds.
-template <int BM>
+// The A rows of a CTA's tile that this thread loads: rows t / kSegs + i
+// kThreads / kSegs of the tile, the 8-channel segment t % kSegs of every
+// chunk. Each row keeps its position's offset in the map (-1 past M) and
+// its (h, w) for the taps' bounds.
+template <int BM, int kBK>
 struct Gather {
-  static constexpr int kRows = BM * (kBK / 8) / kThreads;
+  static constexpr int kLdA = kBK + 8;
+  static constexpr int kSegs = kBK / 8;  // 16-byte segments of a chunk row
+  static constexpr int kRows = BM * kSegs / kThreads;
   long long at[kRows];
   int h[kRows], w[kRows];
 
@@ -180,7 +188,7 @@ struct Gather {
     const int hw = s.height * s.width;
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int m = m0 + threadIdx.x / 4 + i * (kThreads / 4);
+      const int m = m0 + threadIdx.x / kSegs + i * (kThreads / kSegs);
       at[i] = -1;
       h[i] = w[i] = 0;
       if (m < s.m_total) {
@@ -192,13 +200,13 @@ struct Gather {
     }
   }
 
-  // the chunk (tap, channels c0 .. c0 + 31) into the A stage
+  // the chunk (tap, channels c0 .. c0 + kBK - 1) into the A stage
   template <int kTaps>
   __device__ __forceinline__ void load(bf16* sa, const Map& x, const Shape& s,
                                        int tap, int c0) const {
     const int dh = kTaps == 1 ? 0 : tap / 3 - 1;
     const int dw = kTaps == 1 ? 0 : tap % 3 - 1;
-    const int seg = threadIdx.x % 4;
+    const int seg = threadIdx.x % kSegs;
     const int c = c0 + seg * 8;
     const long long shift = dh * x.sh + dw * x.sw + c;
 #pragma unroll
@@ -206,18 +214,20 @@ struct Gather {
       const int hh = h[i] + dh, ww = w[i] + dw;
       const bool ok = at[i] >= 0 && c < x.channels && hh >= 0 &&
                       hh < s.height && ww >= 0 && ww < s.width;
-      cp_async16(sa + (threadIdx.x / 4 + i * (kThreads / 4)) * kLdA + seg * 8,
-                 ok ? x.ptr + at[i] + shift : x.ptr, ok);
+      cp_async16(
+          sa + (threadIdx.x / kSegs + i * (kThreads / kSegs)) * kLdA + seg * 8,
+          ok ? x.ptr + at[i] + shift : x.ptr, ok);
     }
   }
 };
 
-// weight rows c0 .. c0 + 31 of tap `tap` of w (taps x cp x cp, input
+// weight rows c0 .. c0 + kBK - 1 of tap `tap` of w (taps x cp x cp, input
 // channels on rows), columns n0 .. n0 + BN - 1, into the B stage; zeros past
 // cp
 template <int BN>
 __device__ __forceinline__ void load_b(bf16* sb, const bf16* w, int cp,
                                        int tap, int c0, int n0) {
+  constexpr int kBK = Tile<64, BN>::kBK;
   constexpr int kSegs = BN / 8;  // 16-byte segments of a row
 #pragma unroll
   for (int j = 0; j < kBK * kSegs / kThreads; ++j) {
@@ -231,93 +241,33 @@ __device__ __forceinline__ void load_b(bf16* sb, const bf16* w, int cp,
   }
 }
 
-// The A operand of a 3x3 convolution at cp <= 64, loaded once per tile of
-// BM positions m0 ..: the positions m0 - W - 1 .. m0 + BM + W (every row a
-// tap of the tile reaches), all channels, rows of kLd, and one zero row
-// after them. A tap of a row reads the window at a constant offset, dh W +
-// dw, or the zero row where it leaves the map (and so its clip).
-struct Window {
-  static constexpr int kLd = 72;  // 64 channels + 8: no bank conflicts
-  int rows;                       // BM + 2 W + 2; the zero row's index
-  int h[2], w[2];  // this lane's ldmatrix rows (m tiles 0, 1): (h, w)
-
-  __device__ __forceinline__ Window(const Shape& s, int bm) :
-      rows(bm + 2 * s.width + 2) {}
-
-  // copies into win (cp.async, not committed)
-  __device__ __forceinline__ void load(bf16* win, const Map& x,
-                                       const Shape& s, int m0) const {
-    const int hw = s.height * s.width;
-    for (int j = threadIdx.x; j < (rows + 1) * 8; j += kThreads) {
-      const int r = j / 8, c = (j % 8) * 8;
-      const int m = m0 - s.width - 1 + r;
-      const bool ok = r < rows && m >= 0 && m < s.m_total && c < x.channels;
-      long long at = 0;
-      if (ok) {
-        const int b = m / hw, q = m - b * hw, hh = q / s.width;
-        at = b * x.sb + hh * x.sh + (q - hh * s.width) * x.sw + c;
-      }
-      cp_async16(win + r * kLd + c, x.ptr + at, ok);
-    }
-  }
-
-  // this lane's rows: 32 wm + 16 mt + lane % 16 of the tile
-  __device__ __forceinline__ void init_lane(const Shape& s, int m0, int wm) {
-    const int hw = s.height * s.width;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int m = m0 + wm * 32 + mt * 16 + threadIdx.x % 16;
-      h[mt] = -2;  // past M: every tap reads the zero row
-      w[mt] = 0;
-      if (m < s.m_total) {
-        const int q = m % hw;
-        h[mt] = q / s.width;
-        w[mt] = q % s.width;
-      }
-    }
-  }
-
-  // this lane's ldmatrix address for m tile mt at tap, channels c ..
-  __device__ __forceinline__ const bf16* frag(const bf16* win, const Shape& s,
-                                              int wm, int mt, int tap,
-                                              int c) const {
-    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-    const int hh = h[mt] + dh, ww = w[mt] + dw;
-    const int row = wm * 32 + mt * 16 + threadIdx.x % 16;
-    const int r = hh >= 0 && hh < s.height && ww >= 0 && ww < s.width
-                      ? row + s.width + 1 + dh * s.width + dw
-                      : rows;
-    return win + r * kLd + c + (threadIdx.x % 32 >> 4) * 8;
-  }
-};
-
 // acc += the product over n_chunks K chunks: load(stage, kc) issues chunk
 // kc's copies into a ring stage (and commits nothing), a_frag(stage, kc, kk,
 // mt) is this lane's ldmatrix row address of the A fragment (m tile mt of
 // the warp, k16 step kk of the chunk). The ring is free again on return.
-template <int BM, int BN, bool kRingA = true, class Load, class AFrag>
+template <int BM, int BN, class Load, class AFrag>
 __device__ __forceinline__ void gemm(float (&acc)[2][Tile<BM, BN>::kNT][4],
                                      int n_chunks, bf16* ring, Load load,
                                      AFrag a_frag) {
-  using T = Tile<BM, BN, kRingA>;
+  using T = Tile<BM, BN>;
   const int lane = threadIdx.x % 32;
   const int wn = (threadIdx.x / 32) % T::kWarpsN;
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < T::kStages - 1; ++s) {
     if (s < n_chunks) load(ring + s * T::kStage, s);
     cp_async_commit();
   }
 #pragma unroll 1
   for (int kc = 0; kc < n_chunks; ++kc) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<T::kStages - 2>();
     __syncthreads();  // chunk kc is in; every warp is done with kc - 1
-    const int next = kc + kStages - 1;
-    if (next < n_chunks) load(ring + (next % kStages) * T::kStage, next);
+    const int next = kc + T::kStages - 1;
+    if (next < n_chunks) load(ring + (next % T::kStages) * T::kStage, next);
     cp_async_commit();
-    const bf16* stage = ring + (kc % kStages) * T::kStage;
+    const bf16* stage = ring + (kc % T::kStages) * T::kStage;
     const bf16* sb = stage + T::kStageA;
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
+    for (int kk = 0; kk < T::kBK; kk += 16) {
       unsigned a[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(a[mt], a_frag(stage, kc, kk, mt));
@@ -404,108 +354,68 @@ __device__ __forceinline__ void store_tile(
 // One convolution (kTaps 9: 3x3 SAME; 1: 1x1) of the map x by w (kTaps x
 // cp x cp) through the epilogue: CTA (blockIdx.x, blockIdx.y) computes
 // positions BM blockIdx.x .. and columns BN blockIdx.y ..
-template <int BM, int BN, int kTaps, bool kWindow>
+template <int BM, int BN, int kTaps>
 __global__ void __launch_bounds__(kThreads, 2)
     conv_kernel(Map x, const bf16* __restrict__ w, Shape s, Epilogue e) {
-  using T = Tile<BM, BN, !kWindow>;
+  using T = Tile<BM, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int lane = threadIdx.x % 32, wm = threadIdx.x / 32 / T::kWarpsN;
+  constexpr int kBK = T::kBK;
   const int kct = (s.cp + kBK - 1) / kBK;  // K chunks per tap
+  Gather<BM, kBK> g;
+  g.init(x, s, m0);
   float acc[2][T::kNT][4] = {};
-  if constexpr (kWindow) {
-    bf16* win = ring + kStages * T::kStage;
-    Window a(s, BM);
-    a.load(win, x, s, m0);
-    cp_async_commit();
-    a.init_lane(s, m0, wm);
-    gemm<BM, BN, false>(
-        acc, 9 * kct, ring,
-        [&](bf16* stage, int kc) {
-          const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-          load_b<BN>(stage, w, s.cp, tap, c0, n0);
-        },
-        [&](const bf16*, int kc, int kk, int mt) {
-          const int tap = kc / kct;
-          return a.frag(win, s, wm, mt, tap, (kc - tap * kct) * kBK + kk);
-        });
-  } else {
-    Gather<BM> g;
-    g.init(x, s, m0);
-    gemm<BM, BN>(
-        acc, kTaps * kct, ring,
-        [&](bf16* stage, int kc) {
-          const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-          g.template load<kTaps>(stage, x, s, tap, c0);
-          load_b<BN>(stage + T::kStageA, w, s.cp, tap, c0, n0);
-        },
-        [&](const bf16* stage, int, int kk, int mt) {
-          return stage + (wm * 32 + mt * 16 + (lane & 15)) * kLdA + kk +
-                 (lane >> 4) * 8;
-        });
-  }
+  gemm<BM, BN>(
+      acc, kTaps * kct, ring,
+      [&](bf16* stage, int kc) {
+        const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
+        g.template load<kTaps>(stage, x, s, tap, c0);
+        load_b<BN>(stage + T::kStageA, w, s.cp, tap, c0, n0);
+      },
+      [&](const bf16* stage, int, int kk, int mt) {
+        return stage + (wm * 32 + mt * 16 + (lane & 15)) * T::kLdA + kk +
+               (lane >> 4) * 8;
+      });
   store_tile<BM, BN>(acc, s, e, m0, n0);
 }
 
 // K4/K5's tail over BM positions: h2 = prelu(conv3x3(h1, w2) + b2, a2) for
 // every column into shared memory (zero past cp), then y = prelu((h2 w3 +
 // b3) + x, a3) through the epilogue e (bias b3, slope a3, res x).
-template <int BM, int BN, bool kWindow>
+template <int BM, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
     resnet_tail_kernel(Map h1, const bf16* __restrict__ w2,
                        const bf16* __restrict__ w3,
                        const float* __restrict__ b2,
                        const float* __restrict__ a2, Shape s, Epilogue e) {
   using T = Tile<BM, BN>;
-  using TB = Tile<BM, BN, false>;  // the ring of the B-only products
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* h2 = ring + T::kStages * T::kStage;
+  constexpr int kBK = T::kBK;
   const int kct = (s.cp + kBK - 1) / kBK;
   const int kpad = kct * kBK, ldh = kpad + 8;  // h2's columns and row
   const int m0 = blockIdx.x * BM;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
-  // the window after the B ring (kWindow), else h2 after the full ring
-  bf16* win = ring + kStages * TB::kStage;
-  Window a(s, BM);
-  bf16* h2 = kWindow ? win + (a.rows + 1) * Window::kLd
-                     : ring + kStages * T::kStage;
-  Gather<BM> g;
-  if constexpr (kWindow) {
-    a.load(win, h1, s, m0);
-    cp_async_commit();
-    a.init_lane(s, m0, wm);
-  } else {
-    g.init(h1, s, m0);
-  }
+  Gather<BM, kBK> g;
+  g.init(h1, s, m0);
 #pragma unroll 1
   for (int n0 = 0; n0 < kpad; n0 += BN) {
     float acc[2][T::kNT][4] = {};
-    if constexpr (kWindow) {
-      gemm<BM, BN, false>(
-          acc, 9 * kct, ring,
-          [&](bf16* stage, int kc) {
-            const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-            load_b<BN>(stage, w2, s.cp, tap, c0, n0);
-          },
-          [&](const bf16*, int kc, int kk, int mt) {
-            const int tap = kc / kct;
-            return a.frag(win, s, wm, mt, tap, (kc - tap * kct) * kBK + kk);
-          });
-    } else {
-      gemm<BM, BN>(
-          acc, 9 * kct, ring,
-          [&](bf16* stage, int kc) {
-            const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-            g.template load<9>(stage, h1, s, tap, c0);
-            load_b<BN>(stage + T::kStageA, w2, s.cp, tap, c0, n0);
-          },
-          [&](const bf16* stage, int, int kk, int mt) {
-            return stage + (wm * 32 + mt * 16 + (lane & 15)) * kLdA + kk +
-                   (lane >> 4) * 8;
-          });
-    }
+    gemm<BM, BN>(
+        acc, 9 * kct, ring,
+        [&](bf16* stage, int kc) {
+          const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
+          g.template load<9>(stage, h1, s, tap, c0);
+          load_b<BN>(stage + T::kStageA, w2, s.cp, tap, c0, n0);
+        },
+        [&](const bf16* stage, int, int kk, int mt) {
+          return stage + (wm * 32 + mt * 16 + (lane & 15)) * T::kLdA + kk +
+                 (lane >> 4) * 8;
+        });
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -531,10 +441,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll 1
   for (int n0 = 0; n0 < e.n_write; n0 += BN) {
     float acc[2][T::kNT][4] = {};
-    gemm<BM, BN, false>(
+    gemm<BM, BN>(
         acc, kct, ring,
         [&](bf16* stage, int kc) {
-          load_b<BN>(stage, w3, s.cp, 0, kc * kBK, n0);
+          load_b<BN>(stage + T::kStageA, w3, s.cp, 0, kc * kBK, n0);
         },
         [&](const bf16*, int kc, int kk, int mt) {
           return h2 + (wm * 32 + mt * 16 + (lane & 15)) * ldh + kc * kBK + kk +
@@ -544,22 +454,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int BM, int BN, bool kRingA = true>
+template <int BM, int BN>
 constexpr int ring_bytes() {
-  return kStages * Tile<BM, BN, kRingA>::kStage * 2;
+  return Tile<BM, BN>::kStages * Tile<BM, BN>::kStage * 2;
 }
 
-int window_bytes(const Shape& s, int bm) {
-  return (bm + 2 * s.width + 3) * Window::kLd * 2;
-}
-
-template <int BM, int BN, int kTaps, bool kWindow>
+template <int BM, int BN, int kTaps>
 cudaError_t launch_conv(const Map& x, const bf16* w, const Shape& s,
                         const Epilogue& e, int smem, cudaStream_t stream) {
-  const int need = ring_bytes<BM, BN, !kWindow>() +
-                   (kWindow ? window_bytes(s, BM) : 0);
-  if (smem < need) return cudaErrorInvalidValue;
-  auto kernel = conv_kernel<BM, BN, kTaps, kWindow>;
+  if (smem < ring_bytes<BM, BN>()) return cudaErrorInvalidValue;
+  auto kernel = conv_kernel<BM, BN, kTaps>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -568,40 +472,27 @@ cudaError_t launch_conv(const Map& x, const bf16* w, const Shape& s,
   return cudaGetLastError();
 }
 
-// the plan's tiles (ops/kernels.conv_plan): gathered A at 256 x 64 (cp <=
-// 64) or 128 x 128; a window of A at 256 x 64 or 128 x 64 (3x3, cp <= 64)
+// the plan's tiles: 256 x 64 for cp <= 64, else 128 x 128
 template <int kTaps>
-cudaError_t launch_conv_plan(int bm, int bn, int window, const Map& x,
-                             const bf16* w, const Shape& s,
-                             const Epilogue& e, int smem,
+cudaError_t launch_conv_plan(int bm, int bn, const Map& x, const bf16* w,
+                             const Shape& s, const Epilogue& e, int smem,
                              cudaStream_t stream) {
-  if (window) {
-    if constexpr (kTaps == 9) {
-      if (bm == 256 && bn == 64)
-        return launch_conv<256, 64, 9, true>(x, w, s, e, smem, stream);
-      if (bm == 128 && bn == 64)
-        return launch_conv<128, 64, 9, true>(x, w, s, e, smem, stream);
-    }
-    return cudaErrorInvalidValue;
-  }
   if (bm == 256 && bn == 64)
-    return launch_conv<256, 64, kTaps, false>(x, w, s, e, smem, stream);
+    return launch_conv<256, 64, kTaps>(x, w, s, e, smem, stream);
   if (bm == 128 && bn == 128)
-    return launch_conv<128, 128, kTaps, false>(x, w, s, e, smem, stream);
+    return launch_conv<128, 128, kTaps>(x, w, s, e, smem, stream);
   return cudaErrorInvalidValue;
 }
 
-template <int BM, int BN, bool kWindow>
+template <int BM, int BN>
 cudaError_t launch_tail(const Map& h1, const bf16* w2, const bf16* w3,
                         const float* b2, const float* a2, const Shape& s,
                         const Epilogue& e, int smem, cudaStream_t stream) {
+  constexpr int kBK = Tile<BM, BN>::kBK;
   const int kpad = (s.cp + kBK - 1) / kBK * kBK;
-  const int need = (kWindow ? ring_bytes<BM, BN, false>() +
-                                  window_bytes(s, BM)
-                            : ring_bytes<BM, BN>()) +
-                   BM * (kpad + 8) * 2;
-  if (smem < need) return cudaErrorInvalidValue;
-  auto kernel = resnet_tail_kernel<BM, BN, kWindow>;
+  if (smem < ring_bytes<BM, BN>() + BM * (kpad + 8) * 2)
+    return cudaErrorInvalidValue;
+  auto kernel = resnet_tail_kernel<BM, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -623,16 +514,16 @@ Map rows_of(const void* p, long long sb, long long sh, long long sw,
 // channels on rows, zero past C; bias: float32 (2, cp), b1 then b2, zero
 // past C. h1: scratch bf16 (B, H, W, cp), contiguous. out: (B, C, H, W)
 // bf16 with element strides osb, osh, osw and contiguous channels. pairs:
-// x and out rows take aligned 4-byte column pairs. bm, bn, window, smem:
-// the tiles' positions and columns, whether A is a window, and the shared
-// memory bytes (ops/kernels.conv_plan). stream: a cudaStream_t. Returns the
-// first cudaError_t of the two launches (0 on success).
+// x and out rows take aligned 4-byte column pairs. bm, bn: the tiles'
+// positions and columns (256 x 64 or 128 x 128); smem: the ring's bytes
+// (ops/kernels.conv_plan). stream: a cudaStream_t. Returns the first
+// cudaError_t of the two launches (0 on success).
 extern "C" int basic_block_launch(
     const void* x, long long sb, long long sh, long long sw, int x_channels,
     const void* w1, const void* w2, const void* bias, void* h1, void* out,
     long long osb, long long osh, long long osw, int pairs, int n_batch,
-    int channels, int cp, int height, int width, int bm, int bn, int window,
-    int smem, void* stream) {
+    int channels, int cp, int height, int width, int bm, int bn, int smem,
+    void* stream) {
   const Shape s{height, width, n_batch * height * width, cp};
   const long long hsw = cp, hsh = hsw * width, hsb = hsh * height;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -642,12 +533,12 @@ extern "C" int basic_block_launch(
   const Epilogue e1{b, nullptr, nullptr, 0, 0, 0, h, hsb, hsh, hsw,
                     cp, cp, 1};
   cudaError_t err = launch_conv_plan<9>(
-      bm, bn, window, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
+      bm, bn, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
   if (err != cudaSuccess) return err;
   const Epilogue e2{b + cp, nullptr, xm.ptr, sb, sh, sw,
                     static_cast<bf16*>(out), osb, osh, osw,
                     channels, channels, pairs};
-  return launch_conv_plan<9>(bm, bn, window, rows_of(h1, hsb, hsh, hsw, cp),
+  return launch_conv_plan<9>(bm, bn, rows_of(h1, hsb, hsh, hsw, cp),
                              static_cast<const bf16*>(w2), s, e2, smem, st);
 }
 
@@ -655,15 +546,15 @@ extern "C" int basic_block_launch(
 // w2: bf16 (9, cp, cp), tap 3 dh + dw; input channels on rows, zero past C.
 // bias, slope: float32 (3, cp), (b1, b2, b3) and (a1, a2, a3), zero past C.
 // bm, bn, smem: the h1 launch's tiles and ring bytes; tail_bm, tail_bn,
-// tail_window, tail_smem: the tail's (ops/kernels.tail_plan). Returns the
-// first cudaError_t of the two launches.
+// tail_smem: the tail's (ops/kernels.tail_plan). Returns the first
+// cudaError_t of the two launches.
 extern "C" int resnet_block_2d_launch(
     const void* x, long long sb, long long sh, long long sw, int x_channels,
     const void* w1, const void* w2, const void* w3, const void* bias,
     const void* slope, void* h1, void* out, long long osb, long long osh,
     long long osw, int pairs, int n_batch, int channels, int cp, int height,
     int width, int bm, int bn, int smem, int tail_bm, int tail_bn,
-    int tail_window, int tail_smem, void* stream) {
+    int tail_smem, void* stream) {
   const Shape s{height, width, n_batch * height * width, cp};
   const long long hsw = cp, hsh = hsw * width, hsb = hsh * height;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -673,7 +564,7 @@ extern "C" int resnet_block_2d_launch(
   const Epilogue e1{b, a, nullptr, 0, 0, 0, static_cast<bf16*>(h1),
                     hsb, hsh, hsw, cp, cp, 1};
   cudaError_t err = launch_conv_plan<1>(
-      bm, bn, 0, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
+      bm, bn, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
   if (err != cudaSuccess) return err;
   const Map hm = rows_of(h1, hsb, hsh, hsw, cp);
   const Epilogue e3{b + 2 * cp, a + 2 * cp, xm.ptr, sb, sh, sw,
@@ -681,23 +572,18 @@ extern "C" int resnet_block_2d_launch(
                     channels, channels, pairs};
   const bf16* w2b = static_cast<const bf16*>(w2);
   const bf16* w3b = static_cast<const bf16*>(w3);
-  if (tail_window)
-    return tail_bm == 128 && tail_bn == 64
-               ? launch_tail<128, 64, true>(hm, w2b, w3b, b + cp, a + cp, s,
-                                            e3, tail_smem, st)
-               : cudaErrorInvalidValue;
   if (tail_bm == 256 && tail_bn == 64)
-    return launch_tail<256, 64, false>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                       tail_smem, st);
+    return launch_tail<256, 64>(hm, w2b, w3b, b + cp, a + cp, s, e3,
+                                tail_smem, st);
   if (tail_bm == 128 && tail_bn == 128)
-    return launch_tail<128, 128, false>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                        tail_smem, st);
+    return launch_tail<128, 128>(hm, w2b, w3b, b + cp, a + cp, s, e3,
+                                 tail_smem, st);
   if (tail_bm == 64 && tail_bn == 64)
-    return launch_tail<64, 64, false>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                      tail_smem, st);
+    return launch_tail<64, 64>(hm, w2b, w3b, b + cp, a + cp, s, e3,
+                               tail_smem, st);
   if (tail_bm == 64 && tail_bn == 128)
-    return launch_tail<64, 128, false>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                       tail_smem, st);
+    return launch_tail<64, 128>(hm, w2b, w3b, b + cp, a + cp, s, e3,
+                                tail_smem, st);
   return cudaErrorInvalidValue;
 }
 

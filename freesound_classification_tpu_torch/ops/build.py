@@ -124,19 +124,18 @@ def load_library() -> ctypes.CDLL:
     lib.resnet_block_1d_launch.restype = i32
     # int basic_block_launch(x, sb, sh, sw, x_channels, w1, w2, bias, h1,
     #                        out, osb, osh, osw, pairs, B, C, cp, H, W, bm,
-    #                        bn, window, smem, stream) -> cudaError_t
+    #                        bn, smem, stream) -> cudaError_t
     lib.basic_block_launch.argtypes = ([ptr] + [i64] * 3 + [i32]
-                                       + [ptr] * 5 + [i64] * 3 + [i32] * 10
+                                       + [ptr] * 5 + [i64] * 3 + [i32] * 9
                                        + [ptr])
     lib.basic_block_launch.restype = i32
     # int resnet_block_2d_launch(x, sb, sh, sw, x_channels, w1, w2, w3, bias,
     #                            slope, h1, out, osb, osh, osw, pairs, B, C,
     #                            cp, H, W, bm, bn, smem, tail_bm,
-    #                            tail_bn, tail_window, tail_smem, stream)
-    #     -> cudaError_t
+    #                            tail_bn, tail_smem, stream) -> cudaError_t
     lib.resnet_block_2d_launch.argtypes = ([ptr] + [i64] * 3 + [i32]
                                            + [ptr] * 7 + [i64] * 3
-                                           + [i32] * 13 + [ptr])
+                                           + [i32] * 12 + [ptr])
     lib.resnet_block_2d_launch.restype = i32
     # int conv_head_launch(x, x_bf16, s_in, t_in, w, scale, shift, alpha,
     #                      out, B, C_in, H, W, depth, sb, sc, sh, sw, osb,

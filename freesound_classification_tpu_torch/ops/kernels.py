@@ -38,6 +38,7 @@ path went through the kernel.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -443,18 +444,21 @@ def resnet_block_2d_fused_reference(x: torch.Tensor,
     return _fused_block_reference(x, wts, conv2)
 
 
-def _check_weights(name: str, x: torch.Tensor, wts,
-                   want: dict) -> None:
+def _check_weights(name: str, x: torch.Tensor, wts, want: dict,
+                   aligned: bool = False) -> None:
     """Each ``want[key] = (shape, dtype)``: the weight tensor ``key`` of
-    ``wts`` is contiguous, 16-byte aligned, of that shape and dtype, on x's
-    device."""
+    ``wts`` is contiguous, of that shape and dtype, on x's device, and
+    16-byte aligned where ``aligned`` (the cp.async loads of
+    ``conv_blocks.cu``)."""
     for key, (shape, dtype) in want.items():
         t = getattr(wts, key)
         if (t.shape != shape or t.dtype != dtype or t.device != x.device
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"{name}: {key} must be contiguous aligned "
-                             f"{dtype} {shape} on {x.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+                or not t.is_contiguous()
+                or (aligned and t.data_ptr() % 16)):
+            raise ValueError(f"{name}: {key} must be contiguous "
+                             f"{'aligned ' * aligned}{dtype} {shape} on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
 
 
 def _check_block_input(name: str, x: torch.Tensor, channels: int,
@@ -479,6 +483,7 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+@functools.lru_cache(maxsize=256)
 def resnet_block_1d_tiles(cp: int, length: int) -> tuple:
     """K6's tile: (tile, m_rows, r1). A tile is up to 64 frames; m_rows is
     the tile rounded to 16; r1, the shared rows of x and h1, covers the
@@ -545,42 +550,34 @@ resnet_block_1d_fused.launches = 0
 # The 2d blocks' convolution core (csrc/conv_blocks.cu): K4/K5 and K7
 # ---------------------------------------------------------------------------
 
-CONV_BK = 32  # channels of one tap per K chunk
-CONV_STAGES = 3  # K chunks in the ring
 H100_SMS = 132
 
 
 class ConvPlan(NamedTuple):
     """One launch of the core: tiles of ``bm`` positions x ``bn`` channels
-    on a ``grid_m`` x ``grid_n`` grid, ``smem`` bytes of shared memory;
-    ``window``: A is each tile's window of positions (``window_sources``),
-    loaded once, not a gather per chunk."""
+    on a ``grid_m`` x ``grid_n`` grid, ``smem`` bytes of shared memory; K
+    in chunks of ``bk`` channels of one tap."""
 
     bm: int
     bn: int
     grid_m: int
     grid_n: int
     smem: int
-    window: bool = False
+    bk: int
 
 
-# a block's shared memory that leaves room for two blocks an SM (228 KB,
-# 1 KB of it reserved per block)
-_TWO_PER_SM = 233472 // 2 - 1024
-_WINDOW_LD = 72  # a window row: 64 channels + 8
+def _chunking(bn: int) -> tuple:
+    """(channels a K chunk, stages of the ring) of a tile bn columns wide
+    (``Tile`` in ``csrc/conv_blocks.cu``): 32 x 3 at 64 columns, where two
+    blocks an SM must fit, else 64 x 2 (half the barriers)."""
+    return (32, 3) if bn == 64 else (64, 2)
 
 
-def _ring_bytes(bm: int, bn: int, ring_a: bool = True) -> int:
-    """The ring: per stage an A chunk (bm rows of CONV_BK + 8 channels;
-    none where A is a window or in shared memory) and a B chunk (CONV_BK
-    rows of bn + 8 columns), bf16."""
-    a = bm * (CONV_BK + 8) if ring_a else 0
-    return CONV_STAGES * (a + CONV_BK * (bn + 8)) * 2
-
-
-def _window_bytes(bm: int, width: int) -> int:
-    """A tile's window: bm + 2 width + 2 rows and a zero row, bf16."""
-    return (bm + 2 * width + 3) * _WINDOW_LD * 2
+def _ring_bytes(bm: int, bn: int) -> int:
+    """The ring: per stage an A chunk (bm rows of bk + 8 channels) and a B
+    chunk (bk rows of bn + 8 columns), bf16."""
+    bk, stages = _chunking(bn)
+    return stages * (bm * (bk + 8) + bk * (bn + 8)) * 2
 
 
 def _tile(cp: int) -> tuple:
@@ -589,63 +586,29 @@ def _tile(cp: int) -> tuple:
     return (256, 64) if cp <= 64 else (128, 128)
 
 
-def conv_plan(m_total: int, n_write: int, cp: int,
-              width: int = 0) -> ConvPlan:
-    """A convolution launch (``conv_kernel``: K7's two 3x3 over maps
-    ``width`` wide, K4/K5's 1x1 h1 with width 0) over ``m_total`` positions
-    writing ``n_write`` columns of weights cp wide. A 3x3 at cp <= 64 takes
-    A as a window where two blocks an SM still fit (256 positions a tile,
-    else 128); every other launch gathers A chunk by chunk."""
+@functools.lru_cache(maxsize=256)
+def conv_plan(m_total: int, n_write: int, cp: int) -> ConvPlan:
+    """A convolution launch (``conv_kernel``: K7's two, K4/K5's h1) over
+    ``m_total`` positions writing ``n_write`` columns of weights cp
+    wide."""
     bm, bn = _tile(cp)
-    if width and cp <= 64:
-        for wm in (256, 128):
-            smem = _ring_bytes(wm, bn, False) + _window_bytes(wm, width)
-            if smem <= _TWO_PER_SM:
-                return ConvPlan(wm, bn, -(-m_total // wm),
-                                -(-n_write // bn), smem, True)
     return ConvPlan(bm, bn, -(-m_total // bm), -(-n_write // bn),
-                    _ring_bytes(bm, bn))
+                    _ring_bytes(bm, bn), _chunking(bn)[0])
 
 
-def tail_plan(m_total: int, cp: int, width: int) -> ConvPlan:
-    """K4/K5's tail (``resnet_tail_kernel``) over maps ``width`` wide:
-    ``_tile``'s positions, or 64 where those would give fewer than two
-    tiles an SM (the deepest blocks' small maps); the ring, then h2 (bm
-    rows of the channels rounded to CONV_BK, + 8) in shared memory. At cp
-    <= 64 with many tiles, 128 positions a tile and A as a window where two
-    blocks an SM still fit."""
+@functools.lru_cache(maxsize=256)
+def tail_plan(m_total: int, cp: int) -> ConvPlan:
+    """K4/K5's tail (``resnet_tail_kernel``): ``_tile``'s positions, or 64
+    where those would give fewer than two tiles an SM (the deepest blocks'
+    small maps); the ring, then h2 (bm rows of the channels rounded to the
+    chunk, + 8) in shared memory."""
     bm, bn = _tile(cp)
-    kpad = -(-cp // CONV_BK) * CONV_BK
-    if cp <= 64 and -(-m_total // 128) >= 2 * H100_SMS:
-        smem = (_ring_bytes(128, bn, False) + _window_bytes(128, width)
-                + 128 * (kpad + 8) * 2)
-        if smem <= _TWO_PER_SM:
-            return ConvPlan(128, bn, -(-m_total // 128), 1, smem, True)
     if -(-m_total // bm) < 2 * H100_SMS:
         bm = 64
+    bk = _chunking(bn)[0]
+    kpad = -(-cp // bk) * bk
     return ConvPlan(bm, bn, -(-m_total // bm), 1,
-                    _ring_bytes(bm, bn) + bm * (kpad + 8) * 2)
-
-
-def window_sources(m0: int, bm: int, tap: int, n_batch: int, height: int,
-                   width: int) -> np.ndarray:
-    """The positions that a windowed tile's A fragments read for its rows
-    m0 .. m0 + bm - 1 at ``tap`` (3 dh + dw), -1 where they read the zero
-    row: the arithmetic of ``Window`` in ``csrc/conv_blocks.cu`` (window
-    row r holds position m0 - width - 1 + r, or zeros past the batch)."""
-    rows = np.arange(bm, dtype=np.int64)
-    m = m0 + rows
-    hw = height * width
-    inside = m < n_batch * hw
-    h = np.where(inside, m % hw // width, -2)
-    w = np.where(inside, m % width, 0)
-    dh, dw = tap // 3 - 1, tap % 3 - 1
-    ok = ((h + dh >= 0) & (h + dh < height) & (w + dw >= 0)
-          & (w + dw < width))
-    r = rows + width + 1 + dh * width + dw
-    pos = m0 - width - 1 + r
-    ok &= (pos >= 0) & (pos < n_batch * hw)
-    return np.where(ok, pos, -1)
+                    _ring_bytes(bm, bn) + bm * (kpad + 8) * 2, bk)
 
 
 def gather_sources(m0: int, bm: int, tap: int, taps: int, n_batch: int,
@@ -712,13 +675,14 @@ def resnet_block_2d_fused(x: torch.Tensor,
     _check_weights(name, x, wts, {
         "w1": ((cp, cp), torch.bfloat16), "w3": ((cp, cp), torch.bfloat16),
         "w2": ((9, cp, cp), torch.bfloat16),
-        "bias": ((3, cp), torch.float32), "slope": ((3, cp), torch.float32)})
+        "bias": ((3, cp), torch.float32), "slope": ((3, cp), torch.float32)},
+        aligned=True)
     if cp % 16 or not 0 < wts.channels <= cp:
         raise ValueError(f"{name}: {wts.channels} channels padded to {cp}")
     (rows, (sb, sh, sw), readable), h1, out, m_total = _block_buffers(
         name, x, cp)
     n_batch, c, height, width = x.shape
-    first, tail = conv_plan(m_total, cp, cp), tail_plan(m_total, cp, width)
+    first, tail = conv_plan(m_total, cp, cp), tail_plan(m_total, cp)
 
     from freesound_classification_tpu_torch.ops import build
 
@@ -730,8 +694,7 @@ def resnet_block_2d_fused(x: torch.Tensor,
             wts.w2.data_ptr(), wts.w3.data_ptr(), wts.bias.data_ptr(),
             wts.slope.data_ptr(), h1.data_ptr(), out.data_ptr(), osb, osh,
             osw, int(c % 2 == 0), n_batch, c, cp, height, width, first.bm,
-            first.bn, first.smem, tail.bm, tail.bn, int(tail.window),
-            tail.smem,
+            first.bn, first.smem, tail.bm, tail.bn, tail.smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"resnet_block_2d kernels launch failed: cudaError "
@@ -813,13 +776,13 @@ def basic_block_fused(x: torch.Tensor,
     _check_weights(name, x, wts, {
         "w1": ((9, cp, cp), torch.bfloat16),
         "w2": ((9, cp, cp), torch.bfloat16),
-        "bias": ((2, cp), torch.float32)})
+        "bias": ((2, cp), torch.float32)}, aligned=True)
     if cp % 16 or not 0 < wts.channels <= cp:
         raise ValueError(f"{name}: {wts.channels} channels padded to {cp}")
     (rows, (sb, sh, sw), readable), h1, out, m_total = _block_buffers(
         name, x, cp)
     n_batch, c, height, width = x.shape
-    plan = conv_plan(m_total, cp, cp, width)
+    plan = conv_plan(m_total, cp, cp)
 
     from freesound_classification_tpu_torch.ops import build
 
@@ -830,7 +793,7 @@ def basic_block_fused(x: torch.Tensor,
             rows.data_ptr(), sb, sh, sw, readable, wts.w1.data_ptr(),
             wts.w2.data_ptr(), wts.bias.data_ptr(), h1.data_ptr(),
             out.data_ptr(), osb, osh, osw, int(c % 2 == 0), n_batch, c, cp,
-            height, width, plan.bm, plan.bn, int(plan.window), plan.smem,
+            height, width, plan.bm, plan.bn, plan.smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"basic_block kernels launch failed: cudaError "

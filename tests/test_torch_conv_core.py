@@ -1,10 +1,9 @@
 """The 2d blocks' convolution core (``csrc/conv_blocks.cu``) as far as the CPU
 can check it: the tile plans the wrappers pass to the kernels
-(``kernels.conv_plan``, ``kernels.tail_plan``) and the rows the A operands
-read (``kernels.gather_sources`` and ``kernels.window_sources``, the
-kernel's ``Gather`` and ``Window`` arithmetic), at K7's stage shapes and
-K4/K5's block shapes; and the two launches' plain decomposition against the
-blocks' plain twins, bit for bit.
+(``kernels.conv_plan``, ``kernels.tail_plan``) and the rows the A loads
+gather (``kernels.gather_sources``, the kernel's ``Gather`` arithmetic), at
+K7's stage shapes and K4/K5's block shapes; and the two launches' plain
+decomposition against the blocks' plain twins, bit for bit.
 
 Each plan case checks that every row a tap reads is the position it must
 read (or a zero off the map), that no row of one clip reads another clip,
@@ -46,26 +45,13 @@ def _true_sources(n_batch, height, width, tap, taps, rows):
     return np.where(inside, b * hw + (h + dh) * width + (w + dw), -1)
 
 
-def _sources(plan, i, tap, taps, n_batch, height, width):
-    """Tile i's A rows at tap, as its plan reads them."""
-    m0 = i * plan.bm
-    if not plan.window:
-        return kernels.gather_sources(m0, plan.bm, tap, taps, n_batch,
-                                      height, width)
-    got = kernels.window_sources(m0, plan.bm, tap, n_batch, height, width)
-    # every row read lies in the window: rows 0 .. bm + 2 W + 1 from
-    # position m0 - W - 1
-    r = got[got >= 0] - (m0 - width - 1)
-    assert ((r >= 0) & (r < plan.bm + 2 * width + 2)).all()
-    return got
-
-
 def _check_gathers(plan, taps, n_batch, height, width):
     hw = height * width
     rows = np.arange(plan.grid_m * plan.bm)
     for tap in range(taps):
         got = np.concatenate([
-            _sources(plan, i, tap, taps, n_batch, height, width)
+            kernels.gather_sources(i * plan.bm, plan.bm, tap, taps, n_batch,
+                                   height, width)
             for i in range(plan.grid_m)])
         np.testing.assert_array_equal(
             got, _true_sources(n_batch, height, width, tap, taps, rows))
@@ -75,12 +61,12 @@ def _check_gathers(plan, taps, n_batch, height, width):
         assert not read[rows >= n_batch * hw].any()
 
 
-def _check_chunks(cp):
+def _check_chunks(cp, bk):
     """The K chunks of one tap cover each of its cp channels once."""
-    chunks = -(-cp // kernels.CONV_BK)
-    hit = np.zeros(chunks * kernels.CONV_BK, int)
+    chunks = -(-cp // bk)
+    hit = np.zeros(chunks * bk, int)
     for kc in range(chunks):
-        hit[kc * kernels.CONV_BK:(kc + 1) * kernels.CONV_BK] += 1
+        hit[kc * bk:(kc + 1) * bk] += 1
     assert (hit[:cp] == 1).all()
 
 
@@ -113,16 +99,13 @@ def test_k7_plans_cover_every_tap_and_fit_shared_memory(c, hw):
     n_batch = _batch(height, width)
     cp = -(-c // 16) * 16
     m_total = n_batch * height * width
-    plan = kernels.conv_plan(m_total, cp, cp, width)
+    plan = kernels.conv_plan(m_total, cp, cp)
     assert plan.bm >= 128  # a staged weight chunk serves 128 rows or more
-    assert plan.window == (cp <= 64 and width <= 108)
-    if plan.window:
-        assert plan.smem == (kernels._ring_bytes(plan.bm, plan.bn, False)
-                             + kernels._window_bytes(plan.bm, width))
     _check_launch(plan, m_total, cp)
-    _check_launch(kernels.conv_plan(m_total, c, cp, width), m_total, c)
-    assert kernels.conv_plan(m_total, c, cp, width) == plan
-    _check_chunks(cp)
+    _check_launch(kernels.conv_plan(m_total, c, cp), m_total, c)
+    assert kernels.conv_plan(m_total, c, cp) == plan
+    assert (plan.bk, plan.bn) in ((32, 64), (64, 128))
+    _check_chunks(cp, plan.bk)
     _check_gathers(plan, 9, n_batch, height, width)
 
 
@@ -131,29 +114,24 @@ def test_k7_plans_cover_every_tap_and_fit_shared_memory(c, hw):
 def test_k45_plans_cover_every_tap_and_fit_shared_memory(c, hw):
     """K4/K5's h1 launch (1x1, positions read in place) and its tail (3x3
     on h1 into h2 in shared memory over every column chunk, then h2 w3 to
-    the C columns of y), one CTA per row tile. Eight clips of the large
-    maps, enough tiles for the tail's window at block0's 64 x 215."""
+    the C columns of y), one CTA per row tile."""
     height, width = hw
-    n_batch = 8 if height * width >= 64 * 215 else _batch(height, width)
+    n_batch = _batch(height, width)
     cp = -(-c // 16) * 16
     m_total = n_batch * height * width
     first = kernels.conv_plan(m_total, cp, cp)
-    assert not first.window
     _check_launch(first, m_total, cp)
     _check_gathers(first, 1, n_batch, height, width)
-    tail = kernels.tail_plan(m_total, cp, width)
+    tail = kernels.tail_plan(m_total, cp)
     assert tail.grid_n == 1 and tail.bm in (64, 128, 256)
-    assert tail.window == (cp <= 64 and hw == (64, 215))
     _check_launch(tail._replace(bn=max(tail.bn, c)), m_total, c)
-    kpad = -(-cp // kernels.CONV_BK) * kernels.CONV_BK
+    kpad = -(-cp // tail.bk) * tail.bk
     # the tail's column loops: h2 over [0, kpad), y over [0, C)
     assert _covered_once(list(range(0, kpad, tail.bn)), tail.bn, kpad)
     assert _covered_once(list(range(0, c, tail.bn)), tail.bn, c)
-    ring = (kernels._ring_bytes(tail.bm, tail.bn, False)
-            + kernels._window_bytes(tail.bm, width) if tail.window
-            else kernels._ring_bytes(tail.bm, tail.bn))
-    assert tail.smem == ring + tail.bm * (kpad + 8) * 2
-    _check_chunks(cp)
+    assert tail.smem == (kernels._ring_bytes(tail.bm, tail.bn)
+                         + tail.bm * (kpad + 8) * 2)
+    _check_chunks(cp, tail.bk)
     _check_gathers(tail, 9, n_batch, height, width)
 
 
