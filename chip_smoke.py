@@ -58,11 +58,9 @@ Phases, each of which raises on failure (none catches its own):
      predicts finite probabilities through the predict CLI; steps/s
   then: the 2d ensemble fused (K4/K5, then K8 with ``fused_head``), the
      hierarchical predict CLI and its fused ensemble (K6), the backbone
-     predict CLI and its fused ensemble (K7), each with its launch count
-     (equal to the blocks that the routing rule, the JAX package's VMEM
-     fit check, sends to the kernel at each batch's shapes), its
-     probabilities against the unfused CSV and against the plain versions,
-     and ms per batch in turns;
+     predict CLI and its fused ensemble (K7: 13 launches per fold and
+     batch), each with its launch count, its probabilities against the
+     unfused CSV and against the plain versions, and ms per batch in turns;
      the hierarchical train and finetune CLIs and the backbone train CLI
      (K1-K3 launched, losses finite, parameters moved, steps/s)
   probe: V1 and V3 once each with the counts reset just before each; K1
@@ -683,10 +681,7 @@ def phase_k7() -> dict:
             f"{out.pop('folded_ms'):.4f} ms (runs {out.pop('times')}); "
             f"bound {bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
             f"{n_bytes / 1e6:.1f} MB; the design moves {design / 1e6:.1f} "
-            f"MB) on {plan}; the JAX router sends it to "
-            + ("the kernel" if backbone_infer.vmem_estimate_basic(
-                *shape[2:], channels) <= resnet_infer.VMEM_CAP
-               else "the folded twin"))
+            f"MB) on {plan}")
         log(f"K7 {shape} by launch (torch.profiler): "
             f"{kernel_split(lambda: kernels.basic_block_fused(x, wts))}")
         if first is None:
@@ -1352,77 +1347,18 @@ def ensemble_ms_per_batch(predictors: dict, host: list) -> dict:
     return times
 
 
-class routed_blocks:
-    """Within the block, counts the calls of the models' fused blocks whose
-    input shape the routing rule sends to the kernel: the JAX package's
-    VMEM estimates against its cap (``ops/*_infer.py``), the kernels'
-    shape conditions, and the block's width. ``calls`` counts them all."""
-
-    def __init__(self, models, option: str):
-        from freesound_classification_tpu_torch.models import (
-            backbone,
-            blocks,
-        )
-        from freesound_classification_tpu_torch.ops import (
-            backbone_infer,
-            head_infer,
-            resnet_infer,
-        )
-
-        cap = resnet_infer.VMEM_CAP
-
-        def k45(m, shape):
-            _, c, h, w = shape
-            return (c == m.conv1.out_channels
-                    and resnet_infer.vmem_estimate_t(h, w, c) <= cap)
-
-        def k6(m, shape):
-            _, c, t = shape
-            return (c == m.conv1.out_channels
-                    and resnet_infer.vmem_estimate_1d(t, c) <= cap)
-
-        def k7(m, shape):
-            _, c, h, w = shape
-            return (m.strides == 1 and m.downsample is None
-                    and c == m.conv1.out_channels
-                    and backbone_infer.vmem_estimate_basic(h, w, c) <= cap)
-
-        def k8(m, shape):
-            return head_infer.head_supported(shape, m.conv.out_channels)
-
-        rules = ({blocks.ConvBlock2d: k8} if option == "fused_head" else
-                 {blocks.ResnetBlock2d: k45, blocks.ResnetBlock1d: k6,
-                  backbone.BasicBlock: k7})
-        self.modules = [m for model in models for m in model.modules()
-                        if type(m) in rules]
-        self.rules = rules
-        self.count = self.calls = 0
-
-    def hook(self, module, args):
-        self.calls += 1
-        self.count += bool(self.rules[type(module)](module,
-                                                     tuple(args[0].shape)))
-
-    def __enter__(self):
-        self.handles = [m.register_forward_pre_hook(self.hook)
-                        for m in self.modules]
-        return self
-
-    def __exit__(self, *exc):
-        for h in self.handles:
-            h.remove()
-
-
 def fused_ensemble(label: str, model_kind: str, experiment: str,
                    csv_probs: np.ndarray, host: list, counter, smi: str,
+                   per_model: int | None = None,
                    option: str = "fused_infer") -> int:
     """The 5-fold bf16 ensemble of ``experiment`` through
     ``build_predictor(..., option=True)`` (``fused_infer`` or
-    ``fused_head``) over the decoded batches: the kernel's launches, which
-    must equal the count the routing rule gives at each batch's shapes
-    (``routed_blocks``), the fused probabilities against the unfused CLI's
-    CSV and against the fused path through the plain versions, and the
-    fused and unfused ensembles' ms per batch. Returns the launches."""
+    ``fused_head``) over the decoded batches: the kernel's launches
+    (``per_model`` per fold and batch, by default one per block of
+    ``NETWORK``), the fused probabilities against the
+    unfused CLI's CSV and against the fused path through the plain
+    versions, and the fused and unfused ensembles' ms per batch. Returns
+    the launches."""
     from freesound_classification_tpu_torch.cli import predict_2d_cnn
 
     def predictor(fused):
@@ -1432,16 +1368,12 @@ def fused_ensemble(label: str, model_kind: str, experiment: str,
 
     unfused, fused = predictor(False), predictor(True)
     counter.launches = 0
-    with routed_blocks(fused.models, option) as routed:
-        probs = fused.predict_loader(host)
+    probs = fused.predict_loader(host)
     torch.cuda.synchronize()
     launches = counter.launches
-    expected = routed.count
-    log(f"{label} fused ensemble: the routing rule sends {routed.count} of "
-        f"{routed.calls} block calls to the kernel, the rest to the "
-        f"unfused or folded path")
-    if expected <= 0:
-        raise RuntimeError(f"{label}: no block routes to the kernel")
+    if per_model is None:
+        per_model = NETWORK["num_conv_blocks"]
+    expected = per_model * N_FOLDS * len(host)
     with plain_fused_blocks():
         plain = fused.predict_loader(host)
     vs_unfused = float(np.abs(probs - csv_probs).max())
@@ -1512,9 +1444,7 @@ def phase_backbone_predict(root: str, inputs: dict, host: list, smi: str
     """The predict CLI with ``--model_kind backbone_cnn`` (5 folds of
     ``BACKBONE`` in bf16) over the 200 test clips, a warm-up run and a
     timed one, then the same ensemble with ``fused_infer``; returns K7's
-    launches (of resnet34's 13 identity blocks per fold and batch, those
-    that the routing rule sends to the kernel: never the two 512-channel
-    ones)."""
+    launches (13 identity blocks of resnet34 per fold and batch)."""
     from freesound_classification_tpu_torch.cli import predict_2d_cnn
     from freesound_classification_tpu_torch.models.backbone import (
         RESNET_STAGES,
@@ -1551,15 +1481,10 @@ def phase_backbone_predict(root: str, inputs: dict, host: list, smi: str
         raise RuntimeError("backbone predictions barely depend on the clip")
     identity = sum(n - (stage > 0)
                    for stage, n in enumerate(RESNET_STAGES[BACKBONE]))
-    launches = fused_ensemble("backbone", "backbone_cnn",
-                              inputs["backbone_experiment"], probs, host,
-                              kernels.basic_block_fused, smi)
-    # every 512-channel identity block (stage 3) exceeds the JAX cap
-    deep = (RESNET_STAGES[BACKBONE][3] - 1) * N_FOLDS * len(host)
-    if identity * N_FOLDS * len(host) - launches < deep:
-        raise RuntimeError("backbone: the 512-channel blocks did not run "
-                           "the folded twin")
-    return launches
+    return fused_ensemble("backbone", "backbone_cnn",
+                          inputs["backbone_experiment"], probs, host,
+                          kernels.basic_block_fused, smi,
+                          per_model=identity)
 
 
 def phase_backbone_train(root: str, inputs: dict, smi: str) -> dict:
@@ -1829,7 +1754,7 @@ def main() -> None:
             kernels.resnet_block_2d_fused, smi)
         k8["launches"] = fused_ensemble(
             "2d head", "2d_cnn", inputs["experiment"], probs_2d, host,
-            kernels.conv_head_fused, smi, option="fused_head")
+            kernels.conv_head_fused, smi, per_model=1, option="fused_head")
         k6["launches"] = phase_hier_predict(root, inputs, host, smi)
         k7["launches"] = phase_backbone_predict(root, inputs, host, smi)
         train = phase_train(root, train_inputs, smi)

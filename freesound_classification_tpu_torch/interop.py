@@ -227,37 +227,23 @@ def _fsync_dir(directory: str) -> None:
 
 
 def save_fold_npz(path: str, params: Mapping, batch_stats: Mapping) -> None:
-    """Write one fold's variables as a flat ``.npz`` at ``path``, durably.
-
-    The arrays go to a temporary file, which is fsynced; then the swap of
-    the JAX package's checkpoints (``training/checkpoints.py``): the
-    current file is renamed to ``<path>.old``, the new one to ``path``, and
-    the ``.old`` removed, with the directory fsynced after each rename. A
-    kill at any point leaves a complete copy at ``path`` or ``<path>.old``,
-    and ``load_fold_npz`` falls back to the ``.old``."""
+    """Write one fold's variables as a flat ``.npz`` at ``path``, durably:
+    to a temporary file, fsynced, then renamed over ``path`` (one atomic
+    step) and the directory fsynced, so that a kill at any point leaves a
+    complete file at ``path``."""
     flat: dict = {}
     _flatten({"params": params, "batch_stats": batch_stats}, "", flat)
-    directory = os.path.dirname(os.path.abspath(path))
-    tmp, old = f"{path}.tmp-{os.getpid()}", f"{path}.old"
+    tmp = f"{path}.tmp-{os.getpid()}"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
         f.flush()
         os.fsync(f.fileno())
-    if os.path.exists(path):
-        os.replace(path, old)  # replaces a stale .old in one step
-        _fsync_dir(directory)
     os.replace(tmp, path)
-    _fsync_dir(directory)
-    if os.path.exists(old):
-        os.remove(old)
+    _fsync_dir(os.path.dirname(os.path.abspath(path)))
 
 
 def load_fold_npz(path: str) -> Tuple[dict, dict]:
-    """Read a ``save_fold_npz`` file back into (params, batch_stats); where
-    ``path`` is missing, from the ``<path>.old`` that a save killed
-    mid-swap left."""
-    if not os.path.exists(path) and os.path.exists(f"{path}.old"):
-        path = f"{path}.old"
+    """Read a ``save_fold_npz`` file back into (params, batch_stats)."""
     trees: dict = {c: {} for c in _COLLECTIONS}
     with np.load(path) as data:
         for key in data.files:

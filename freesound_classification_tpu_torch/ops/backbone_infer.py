@@ -7,14 +7,12 @@ bias-free convolutions with folded weights (``fold_basic_params``: ``s =
 scale / sqrt(var + eps)``, ``w' = w s``, ``b' = beta - mean s``, in float32,
 as the JAX package folds), and the projection shortcut likewise.
 
-``basic_block_infer`` routes as the JAX function does on a TPU: a stride-1
-block whose input width is its width, that has no projection and whose JAX
-kernel would fit its VMEM cap (``vmem_estimate_basic``, the JAX package's
-estimate, against ``resnet_infer.VMEM_CAP``) runs K7
-(``kernels.basic_block_fused``), which rounds x, the weights, h1 and y to
-bf16; every other block runs the folded twin (``basic_block_infer_folded``)
-in x's dtype. On the backbone's paths every 512-channel block and a
-256-channel one over a map 128 or more wide run the twin. Maps are NCHW.
+``basic_block_infer`` routes as the JAX function does, less the TPU's VMEM
+fit check (a budget of the TPU compiler; K7's tiles fit a Hopper block's
+shared memory at every map size): a stride-1 block whose input width is its
+width and that has no projection runs K7 (``kernels.basic_block_fused``),
+which rounds x, the weights, h1 and y to bf16; every other block runs the
+folded twin (``basic_block_infer_folded``) in x's dtype. Maps are NCHW.
 """
 
 from __future__ import annotations
@@ -31,15 +29,6 @@ def _fold(conv: nn.Module, bn: nn.Module, eps: float):
     C, K), folded with its BatchNorm."""
     s = bn.weight / torch.sqrt(bn.running_var + eps)
     return conv.weight.permute(2, 3, 1, 0) * s, bn.bias - bn.running_mean * s
-
-
-def vmem_estimate_basic(h: int, w: int, c: int) -> int:
-    """K7's estimate in bytes (JAX ``pallas_backbone._vmem_estimate_basic``):
-    an (h, w, c) block's working set on the TPU."""
-    cp = -(-c // 16) * 16
-    wp = -(-(w + 1) // 128) * 128
-    return (2 * 2 * 2 * h * cp * wp + 2 * 4 * 4 * 3 * cp * wp
-            + 4 * 3 * cp * wp * 3 + 2 * cp * cp * 18)
 
 
 def fold_basic_params(block: nn.Module, eps: float = 1e-5) -> dict:
@@ -83,12 +72,9 @@ def basic_block_infer(x: torch.Tensor, block: nn.Module,
                       strides: int = 1) -> torch.Tensor:
     """Eval-mode fused ``BasicBlock`` forward on NCHW (JAX
     ``basic_block_infer``): K7 for a stride-1 block with x's width equal to
-    its own, no projection and a JAX kernel within the VMEM cap, else the
-    folded twin."""
-    _, c, h, w = x.shape
+    its own and no projection, else the folded twin."""
     if (strides != 1 or block.downsample is not None
-            or c != block.conv1.weight.shape[0]
-            or vmem_estimate_basic(h, w, c) > resnet_infer.VMEM_CAP):
+            or x.shape[1] != block.conv1.weight.shape[0]):
         return basic_block_infer_folded(x, fold_basic_params(block), strides)
     return kernels.basic_block_fused(x, resnet_infer.fused_weights(
         block, fold_basic_params, kernels.pack_basic_block))

@@ -37,24 +37,14 @@ def fold_head_params(block: nn.Module, eps: float = 1e-5) -> dict:
         }
 
 
-def vmem_estimate(h: int, w: int, depth: int) -> int:
-    """K8's estimate in bytes (JAX ``pallas_head._vmem_estimate``): an (h,
-    w) input into ``depth`` channels on the TPU."""
-    wp = -(-((w + 1) // 2 + 1) // 128) * 128
-    return (2 * 4 * 8 * (h + 2) * wp + 2 * 2 * (h // 2) * depth * wp
-            + 4 * (72 + 3 * 2 * depth) * wp)
-
-
 def head_supported(shape, depth: int) -> bool:
     """Whether K8 takes an NCHW input of ``shape`` into ``depth`` channels
-    (JAX ``pallas_head.head_supported``, with its VMEM clause: inputs of
-    about 1000 frames and more at 128 mels run the unfused head)."""
+    (JAX ``pallas_head.head_supported`` less its VMEM clause)."""
     if len(shape) != 4:
         return False
     _, c, h, w = shape
     return (1 <= c <= kernels.HEAD_MAX_IN and h >= 2 and w >= 2
-            and depth % 16 == 0 and 16 <= depth <= 128
-            and vmem_estimate(h, w, depth) <= resnet_infer.VMEM_CAP)
+            and depth % 16 == 0 and 16 <= depth <= 128)
 
 
 def conv_block_2d_head_infer(x: torch.Tensor,

@@ -555,15 +555,13 @@ H100_SMS = 132
 
 class ConvPlan(NamedTuple):
     """One launch of the core: tiles of ``bm`` positions x ``bn`` channels
-    on a ``grid_m`` x ``grid_n`` grid, ``smem`` bytes of shared memory; K
-    in chunks of ``bk`` channels of one tap."""
+    on a ``grid_m`` x ``grid_n`` grid, ``smem`` bytes of shared memory."""
 
     bm: int
     bn: int
     grid_m: int
     grid_n: int
     smem: int
-    bk: int
 
 
 def _chunking(bn: int) -> tuple:
@@ -593,7 +591,7 @@ def conv_plan(m_total: int, n_write: int, cp: int) -> ConvPlan:
     wide."""
     bm, bn = _tile(cp)
     return ConvPlan(bm, bn, -(-m_total // bm), -(-n_write // bn),
-                    _ring_bytes(bm, bn), _chunking(bn)[0])
+                    _ring_bytes(bm, bn))
 
 
 @functools.lru_cache(maxsize=256)
@@ -608,24 +606,7 @@ def tail_plan(m_total: int, cp: int) -> ConvPlan:
     bk = _chunking(bn)[0]
     kpad = -(-cp // bk) * bk
     return ConvPlan(bm, bn, -(-m_total // bm), 1,
-                    _ring_bytes(bm, bn) + bm * (kpad + 8) * 2, bk)
-
-
-def gather_sources(m0: int, bm: int, tap: int, taps: int, n_batch: int,
-                   height: int, width: int) -> np.ndarray:
-    """The positions (b H W + h W + w) that the core's A loads read for the
-    rows m0 .. m0 + bm - 1 of a tile at ``tap`` (taps 9: 3 dh + dw; 1: the
-    centre), -1 where they load zeros (off the map, past the batch): the
-    arithmetic of ``Gather`` in ``csrc/conv_blocks.cu``."""
-    m = m0 + np.arange(bm, dtype=np.int64)
-    hw = height * width
-    b, r = m // hw, m % hw
-    h, w = r // width, r % width
-    dh, dw = (0, 0) if taps == 1 else (tap // 3 - 1, tap % 3 - 1)
-    hh, ww = h + dh, w + dw
-    ok = ((m < n_batch * hw) & (hh >= 0) & (hh < height) & (ww >= 0)
-          & (ww < width))
-    return np.where(ok, b * hw + hh * width + ww, -1)
+                    _ring_bytes(bm, bn) + bm * (kpad + 8) * 2)
 
 
 def _channel_rows(x: torch.Tensor, cp: int) -> tuple:

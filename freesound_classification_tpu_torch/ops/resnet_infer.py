@@ -9,14 +9,12 @@ eps)``, ``w' = w s``, ``b' = (b - mean) s + beta``, in float32, as the JAX
 package folds).
 
 ``resnet_block_1d_infer`` and ``resnet_block_2d_infer`` route as the JAX
-functions do on a TPU: the fused kernel (K6, or K4/K5 in 2d,
-``ops/kernels.py``), which rounds x, the weights, h1, h2 and y to bf16, where
-the JAX kernel's working set fits its VMEM cap (the JAX package's own
-estimates, copied here: ``vmem_estimate_1d``, ``vmem_estimate_t`` and, for
-``use_kernel="v1"``, ``vmem_estimate_v1``, against ``VMEM_CAP``); else, or
-for a block whose input width is not its depth, or on request, the folded
-twin (``resnet_block_*_infer_folded``), which computes in x's dtype. Maps
-are the port's: (B, C, T) and NCHW.
+functions do, less the TPU's VMEM fit check (a budget of the TPU compiler;
+the kernels' tiles fit a Hopper block's shared memory at every map size):
+the fused kernel (K6, or K4/K5 in 2d, ``ops/kernels.py``), which rounds x,
+the weights, h1, h2 and y to bf16; or, for a block whose input width is not
+its depth or on request, the folded twin (``resnet_block_*_infer_folded``),
+which computes in x's dtype. Maps are the port's: (B, C, T) and NCHW.
 """
 
 from __future__ import annotations
@@ -26,41 +24,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from freesound_classification_tpu_torch.ops import kernels
-
-# the JAX package's fit check on a TPU: a fused kernel runs where its
-# estimated VMEM working set is within this cap (chip VMEM ~16 MB, compiler
-# slack), the folded twin elsewhere
-VMEM_CAP = 13 * 1024 * 1024
-_V1_BAND = 2048  # the v1 kernel's center rows per compute band
-
-
-def _lanes(n: int) -> int:
-    """n rounded up to the TPU's 128 lanes."""
-    return -(-n // 128) * 128
-
-
-def vmem_estimate_1d(t: int, c: int) -> int:
-    """K6's estimate in bytes (JAX ``pallas_resnet1d._vmem_estimate_1d``)."""
-    cp = -(-c // 16) * 16
-    tp = _lanes(t + 1)
-    return 2 * 2 * 2 * cp * tp + 4 * cp * tp * 4 + 2 * cp * cp * 5
-
-
-def vmem_estimate_t(h: int, w: int, c: int) -> int:
-    """K5's estimate in bytes (JAX ``pallas_resnet._vmem_estimate_t``)."""
-    cp = -(-c // 16) * 16
-    wp = _lanes(w + 1)
-    return (2 * 2 * 2 * h * cp * wp + 4 * 4 * 3 * cp * wp
-            + 4 * 3 * cp * wp * 3 + 2 * cp * cp * 5)
-
-
-def vmem_estimate_v1(h: int, w: int, c: int, k: int) -> int:
-    """K4's estimate in bytes (JAX ``pallas_resnet._vmem_estimate``)."""
-    r_in = (h + 2) * (w + 2)
-    lanes = _lanes(max(c, k))
-    band = min(_V1_BAND, ((h * (w + 2) + 15) // 16) * 16)
-    return (2 * r_in * lanes + 2 * (r_in + 2) * lanes + 2 * 2 * band * lanes
-            + 3 * 4 * band * lanes + 2 * 11 * lanes * lanes)
 
 
 def _fold(conv: nn.Module, bn: nn.Module, eps: float):
@@ -148,11 +111,9 @@ def resnet_block_1d_infer(x: torch.Tensor, block: nn.Module,
                           use_kernel: bool = True) -> torch.Tensor:
     """Eval-mode fused ``ResnetBlock1d`` forward, (B, C, T) -> the same
     shape (JAX ``resnet_block_1d_infer``; ``use_kernel`` is its
-    ``use_pallas_kernel``). K6 when x's width is the block's depth and the
-    JAX kernel would fit its VMEM cap, else the folded twin."""
-    _, c, t = x.shape
-    if (c != block.conv1.weight.shape[0] or not use_kernel
-            or vmem_estimate_1d(t, c) > VMEM_CAP):
+    ``use_pallas_kernel``). K6 when x's width is the block's depth, else
+    the folded twin."""
+    if x.shape[1] != block.conv1.weight.shape[0] or not use_kernel:
         return resnet_block_1d_infer_folded(x, fold_block_params_1d(block))
     return kernels.resnet_block_1d_fused(
         x, fused_weights(block, fold_block_params_1d))
@@ -162,16 +123,9 @@ def resnet_block_2d_infer(x: torch.Tensor, block: nn.Module,
                           use_kernel: bool | str = False) -> torch.Tensor:
     """Eval-mode fused ``ResnetBlock2d`` forward on NCHW (JAX
     ``resnet_block_2d_infer``; ``use_kernel`` is its ``use_pallas_kernel``).
-    True and "v1" (the TPU's two layouts) both run K4/K5 where the JAX
-    kernel of that layout would fit its VMEM cap; False, a block past the
-    cap, or an x whose width is not the block's depth, the folded twin."""
-    _, c, h, w = x.shape
-    k = block.conv1.weight.shape[0]
-    if c != k or not use_kernel:
-        return resnet_block_2d_infer_folded(x, fold_block_params(block))
-    estimate = (vmem_estimate_v1(h, w, c, k) if use_kernel == "v1"
-                else vmem_estimate_t(h, w, c))
-    if estimate > VMEM_CAP:
+    True and "v1" (the TPU's two layouts) both run K4/K5; False, or an x
+    whose width is not the block's depth, the folded twin."""
+    if x.shape[1] != block.conv1.weight.shape[0] or not use_kernel:
         return resnet_block_2d_infer_folded(x, fold_block_params(block))
     return kernels.resnet_block_2d_fused(
         x, fused_weights(block, fold_block_params))

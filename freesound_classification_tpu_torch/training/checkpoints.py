@@ -5,9 +5,9 @@ and BatchNorm statistics in the JAX package's variable layout
 (``interop.to_jax_variables``) as the flat ``.npz`` that the predict CLI and
 ``scripts/export_fold_weights.py`` already share, for either classifier
 family. Each file is written durably (``interop.save_fold_npz``: fsynced,
-swapped in through ``<path>.old``), so a reader never sees half a file and a
-kill leaves a complete copy that ``load_model`` finds. ``load_model`` serves reloading a fold's
-best model and the finetune CLI's warm start from another experiment.
+then renamed into place), so a reader never sees half a file and a kill
+leaves a complete one. ``load_model`` serves reloading a fold's best model
+and the finetune CLI's warm start from another experiment.
 Optimizer state is not saved: resuming waits (ROADMAP).
 """
 

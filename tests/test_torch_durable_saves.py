@@ -1,9 +1,7 @@
 """The port's fold saves survive a kill, on the CPU
-(``interop.save_fold_npz`` / ``load_fold_npz``, as the JAX package's
-checkpoint swap in ``training/checkpoints.py``, tested in
-``tests/test_resume.py``): a process that saves one fold file over and over
-is SIGKILLed at random points, with every rename widened by a sleep, and
-each time the file loads back as one complete save.
+(``interop.save_fold_npz`` / ``load_fold_npz``): a process that saves one
+fold file over and over is SIGKILLed at random points, with every rename
+widened by a sleep, and each time a complete save sits at the fold's path.
 """
 
 import os
@@ -19,8 +17,8 @@ from freesound_classification_tpu_torch import interop
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # saves versions start + 1, start + 2, ... of a fold: every array holds the
-# version; every rename sleeps 20 ms after it, so that kills land between
-# the swap's steps
+# version; every rename sleeps 20 ms after it, so that kills land around
+# the renames
 WORKER = """
 import os, sys, time
 import numpy as np
@@ -48,7 +46,7 @@ def _version(path):
     return int(v)
 
 
-def test_save_swaps_into_place_and_keeps_no_old(tmp_path):
+def test_save_replaces_in_place_and_leaves_no_temporary(tmp_path):
     path = str(tmp_path / "best_model.npz")
     for i in (1, 2):
         interop.save_fold_npz(path, {"w": np.full((64, 64), i, np.float32)},
@@ -57,20 +55,10 @@ def test_save_swaps_into_place_and_keeps_no_old(tmp_path):
     assert os.listdir(tmp_path) == ["best_model.npz"]
 
 
-def test_load_falls_back_to_old(tmp_path):
-    """A kill between the swap's two renames leaves only ``<path>.old``."""
-    path = str(tmp_path / "best_model.npz")
-    interop.save_fold_npz(path, {"w": np.full((64, 64), 7, np.float32)},
-                          {"s": np.full(3, 7, np.float32)})
-    os.replace(path, path + ".old")
-    assert _version(path) == 7
-
-
 def test_sigkill_during_saves_leaves_a_complete_fold(tmp_path):
-    """Eight kills at random points of a save loop; after each, the fold
-    loads as one complete version (from ``path`` or its ``.old``), never
-    older than what the previous kill left, and the next worker carries on
-    over it."""
+    """Eight kills at random points of a save loop; after each, a complete
+    version sits at ``path``, never older than what the previous kill left,
+    and the next worker carries on over it."""
     path = str(tmp_path / "best_model.npz")
     rng = np.random.RandomState(0)
     last = 0
@@ -84,7 +72,7 @@ def test_sigkill_during_saves_leaves_a_complete_fold(tmp_path):
         finally:
             proc.send_signal(signal.SIGKILL)
             proc.wait(timeout=60)
-        assert os.path.exists(path) or os.path.exists(path + ".old")
+        assert os.path.isfile(path)
         version = _version(path)
         assert version >= max(last, 1)
         last = version
