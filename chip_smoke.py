@@ -33,12 +33,17 @@ Phases, each of which raises on failure (none catches its own):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
   2. build: compiles the port's CUDA sources, prints the seconds
   3. K1: the mel kernel against its plain twin at B=128 x 10 s,
-     mel_2048_1024_128, float32
+     mel_2048_1024_128, float32, on the mel filterbank and on a dense one;
+     the bands one bin up and the frames shifted by one fail by far; the
+     bytes it moves beside the function's, and its launches by
+     torch.profiler
   4. K2: the resample kernel against its plain twin at the effects chain's
      shape for the bench's train batch (48 of 64 rows x 10 s), and a wrong
      factor and a shifted wave failing by far
   5. K3: the phase-vocoder resynthesis against its plain twin at the same
-     shape (n_fft 1024, hop 256), on a real analysis; shifted frames fail
+     shape (n_fft 1024, hop 256), on a real analysis; shifted frames fail;
+     the bytes it moves beside the function's, and its three launches by
+     torch.profiler
   K6, K4/K5, K7 (the backbone's four stage shapes) and K8 (the 2d block0
      head): each against its plain version at the paths' shapes, and three
      wrong inputs failing by far (shifted frames, another fold's weights,
@@ -47,6 +52,9 @@ Phases, each of which raises on failure (none catches its own):
      (64 x 431 frames of a bf16 [re | im] spectrum, F 1025, M 128), and
      three wrong inputs failing by far (im_offset one bin off, frames
      shifted by one, the magnitude as one float32 chain)
+  step split: one augmented bench train step (B = 64 x 10 s) by
+     torch.profiler: device busy time and idle share, K1's and K3's share,
+     the ten longest kernels
   6. predict path: the predict CLI with launch counts reset just before
      it; the CSV's schema and values; K1 launched; the predictions vary
      across clips by more than the bf16 tolerance, and the same ensemble
@@ -220,10 +228,10 @@ def timed_in_turns(kernel, plain, *others) -> tuple:
     return (*(float(np.mean(r)) for r in runs), runs)
 
 
-def kernel_split(fn, calls: int = 5) -> str:
-    """The device kernels under ``fn`` by ``torch.profiler``: each one's
-    mean ms and launches per call of ``fn``, or "not measured" where the
-    profiler sees no device time."""
+def device_kernels(fn, calls: int = 5) -> list:
+    """The device kernels under ``fn`` by ``torch.profiler``: (name, mean
+    ms per call of ``fn``, launches per call), longest first; empty where
+    the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -232,14 +240,21 @@ def kernel_split(fn, calls: int = 5) -> str:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    parts = []
+    found = []
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0)
-        if us > 0 and e.count >= calls:
+        if us > 0:
             name = e.key.replace("void ", "").replace(
                 "(anonymous namespace)::", "")
-            parts.append(f"{name[:60]} {us / calls / 1e3:.4f} ms "
-                         f"x{e.count // calls}")
+            found.append((name, us / calls / 1e3, e.count / calls))
+    return sorted(found, key=lambda k: -k[1])
+
+
+def kernel_split(fn, calls: int = 5) -> str:
+    """``device_kernels`` of ``fn`` launched on every call, as one line, or
+    "not measured" where the profiler sees no device time."""
+    parts = [f"{name[:60]} {ms:.4f} ms x{n:g}"
+             for name, ms, n in device_kernels(fn, calls) if n >= 1]
     return "; ".join(parts) or "not measured"
 
 
@@ -286,16 +301,37 @@ def phase_k1() -> dict:
     fb = torch.from_numpy(
         dsp.mel_filterbank(SR, feat.n_fft, feat.n_mel)).cuda()
     spec = dsp.stft(wave, feat.n_fft, feat.hop_size)
-    got = kernels.mel_project_log(spec, fb)
-    want = kernels.mel_project_log_reference(spec, fb)
-    torch.cuda.synchronize()
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        raise RuntimeError(f"K1: bad output {tuple(got.shape)}")
-    err = (got - want).abs().max().item()
+    # a dense filterbank (no zero entry: every band spans every bin) at the
+    # mel bands' scale, and two wrong inputs: the bands one bin up, the
+    # frames one along
+    dense = torch.rand(fb.shape, device="cuda", generator=gen) / 16 + 1e-3
+    shifted_fb = torch.roll(fb, 1, dims=1)
+    shifted_spec = torch.roll(spec, 1, dims=2)
+
+    def check(label, spec_, fb_):
+        got_ = kernels.mel_project_log(spec_, fb_)
+        want_ = kernels.mel_project_log_reference(spec_, fb_)
+        torch.cuda.synchronize()
+        if got_.shape != want_.shape or not torch.isfinite(got_).all():
+            raise RuntimeError(f"K1 {label}: bad output {tuple(got_.shape)}")
+        err_ = (got_ - want_).abs().max().item()
+        if not err_ <= K1_TOL:
+            raise RuntimeError(f"K1 disagrees with its plain twin on the "
+                               f"{label}: {err_}")
+        return got_, want_, err_
+
+    got, want, err = check("mel filterbank", spec, fb)
+    _, _, dense_err = check("dense filterbank", spec, dense)
+    wrong_bands = (kernels.mel_project_log(spec, shifted_fb)
+                   - want).abs().max().item()
+    wrong_frames = (kernels.mel_project_log(shifted_spec, fb)
+                    - want).abs().max().item()
     log(f"K1 {tuple(spec.shape)} -> {tuple(got.shape)}: max_abs_err {err:.3e}"
-        f" (tolerance {K1_TOL:g})")
-    if not err <= K1_TOL:
-        raise RuntimeError(f"K1 disagrees with its plain twin: {err}")
+        f" (tolerance {K1_TOL:g}), on a dense filterbank {dense_err:.3e}; "
+        f"bands one bin up give {wrong_bands:.3e}, frames shifted by one "
+        f"{wrong_frames:.3e}")
+    if not min(wrong_bands, wrong_frames) > 100 * K1_TOL:
+        raise RuntimeError("K1's comparison cannot tell a wrong input")
     ms, plain_ms, times = timed_in_turns(
         lambda: kernels.mel_project_log(spec, fb),
         lambda: kernels.mel_project_log_reference(spec, fb))
@@ -307,9 +343,17 @@ def phase_k1() -> dict:
     flops = b * t * (3 * f + 2 * nnz + m)
     n_bytes = spec.numel() * 8 + fb.numel() * 4 + got.numel() * 4
     bound, bound_by = bound_ms(n_bytes, flops, PEAK_F32)
+    # the design: the spectrum and the log-mel once, fb once by the band
+    # ranges' reductions and their (M,) results; the kernel's reads of the
+    # bands' ranges of fb (8 KB) stay in L1/L2
+    design = spec.numel() * 8 + got.numel() * 4 + fb.numel() * 4 + m * 16
     log(f"K1 time: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
         f"(runs {times}); bound {bound:.4f} ms by {bound_by} "
-        f"({nnz} of {fb.numel()} filterbank entries non-zero)")
+        f"({nnz} of {fb.numel()} filterbank entries non-zero; the function "
+        f"needs {n_bytes / 1e6:.1f} MB, the design moves "
+        f"{design / 1e6:.1f} MB)")
+    log(f"K1 by launch (torch.profiler): "
+        f"{kernel_split(lambda: kernels.mel_project_log(spec, fb))}")
     return {"name": "mel_log_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/mel_log.cu",
             "replaces": "freesound_classification_tpu/ops/pallas_kernels.py:40",
@@ -384,8 +428,11 @@ def phase_k2() -> dict:
             "library_ms": library_ms}
 
 
-def phase_k3() -> dict:
-    from freesound_classification_tpu_torch.ops import kernels, pv
+def k3_args() -> tuple:
+    """K3's inputs at the chain's shape for the bench's train batch (48
+    rows x 10 s, n_fft 1024, hop 256), from a real analysis, with the
+    bases ``ops/pv.py`` passes."""
+    from freesound_classification_tpu_torch.ops import pv
 
     n_fft, hop = 1024, 256
     t_out = (CHAIN_LEN + n_fft // 2) // hop + 2
@@ -395,9 +442,50 @@ def phase_k3() -> dict:
     # the chain's stretch rates 1 / 2^(cents/1200), |cents| < 300
     rate = torch.exp2(-(600 * torch.rand(CHAIN_ROWS, device="cuda",
                                          generator=gen) - 300) / 1200)
-    icos, isin = (torch.from_numpy(x).cuda().bfloat16()
-                  for x in kernels.synthesis_basis(n_fft))
-    args = (mag, dphi, phase0, rate, icos, isin, hop, t_out)
+    icos, isin = pv._bases(n_fft, mag.device)
+    return mag, dphi, phase0, rate, icos, isin, hop, t_out
+
+
+def k3_design_bytes(mag, rate, rows: int, hop: int) -> dict:
+    """The bytes the K3 kernels move from device memory on these inputs,
+    by part: each pass's distinct picked frames of dphi (the tile sums'
+    and the main pass's) and of mag (the lerp's two frames), the float32
+    rows, and the small tile sums, spill and fixed-up rows. The basis that
+    every block streams (2.2 MB, L2-resident) is given apart."""
+    b, t_in, f = mag.shape
+    pos = torch.arange(rows, device=mag.device)[None] * rate[:, None]
+    lo = torch.floor(torch.clamp(pos, 0.0, t_in - 1.0)).long()
+    picks_d = torch.floor(torch.clamp(pos, 0.0, t_in - 2.0)).long()
+
+    def distinct(idx):
+        return sum(int(torch.unique(row).numel()) for row in idx)
+
+    frames_m = distinct(torch.cat([lo, torch.clamp(lo + 1, max=t_in - 1)],
+                                  dim=1))
+    frames_d = distinct(picks_d)
+    n_tiles, n_blocks = -(-rows // 128), -(-rows // 64)
+    sums = b * n_tiles * 8 * f * 4  # a running sum every 16 frames
+    spill = b * n_blocks * 6 * hop * 2  # bf16 terms
+    parts = {
+        "dphi, tile sums": frames_d * f * 4,
+        "dphi, main": frames_d * f * 4,
+        "mag, main": frames_m * f * 4,
+        "rows out": b * rows * hop * 4,
+        "sums, spill, fix-up": 2 * sums + 2 * spill
+                               + 2 * b * (n_blocks - 1) * 3 * hop * 4,
+    }
+    parts["total"] = sum(parts.values())
+    parts["basis from L2"] = b * n_blocks * 4 * 2 * (-(-f // 16) * 16) \
+        * 256 * 2
+    return parts
+
+
+def phase_k3() -> dict:
+    from freesound_classification_tpu_torch.ops import kernels
+
+    args = k3_args()
+    mag, dphi, phase0, rate, icos, isin, hop, t_out = args
+    n_fft = icos.shape[1]
     got = kernels.pv_resynth(*args)
     want = kernels.pv_resynth_reference(*args)
     torch.cuda.synchronize()
@@ -426,8 +514,15 @@ def phase_k3() -> dict:
                + 2 * icos.numel() * 2 + got.numel() * 4)
     bound, bound_by = bound_ms(n_bytes, 2.0 * b * rows * 2 * f * n_fft,
                                PEAK_BF16)
+    design = k3_design_bytes(mag, rate, rows, hop)
     log(f"K3 time: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
-        f"(runs {times}); bound {bound:.4f} ms by {bound_by}")
+        f"(runs {times}); bound {bound:.4f} ms by {bound_by}; the function "
+        f"needs {n_bytes / 1e9:.4f} GB, the design moves "
+        f"{design['total'] / 1e9:.4f} GB ("
+        + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in design.items()
+                    if k != "total") + ")")
+    log(f"K3 by launch (torch.profiler): "
+        f"{kernel_split(lambda: kernels.pv_resynth(*args))}")
     return {"name": "pv_resynth_kernels", "route": "cuda",
             "source":
                 "freesound_classification_tpu_torch/csrc/pv_resynth.cu",
@@ -819,6 +914,38 @@ def phase_k9() -> dict:
             "replaces": "scripts/probe_dft_context.py:95",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_step_split(smi: str) -> None:
+    """One augmented train step of the bench (``bench_train_steps``'s
+    program: B = 64 x 10 s, the bf16 reference-scale model, the chain at
+    p_aug 0.75) split by kernel with torch.profiler: the device's busy time
+    against the step's CUDA-event time (the rest is the idle share), K1's
+    and K3's time and share of the step, and the ten longest kernels."""
+    from freesound_classification_tpu_torch import bench
+
+    device = torch.device(DEVICE)
+    engine = bench.train_engine(device, bench.NETWORK, True, 16)
+    wave, lengths, labels = bench.train_batch(device)
+
+    def step():
+        engine.train_step(wave, lengths, labels)
+
+    step_ms = cuda_ms(step, iters=5)
+    found = device_kernels(step, calls=3)
+    busy = sum(ms for _, ms, _ in found)
+
+    def part(prefix):
+        return sum(ms for name, ms, _ in found if name.startswith(prefix))
+
+    k1, k3 = part("mel_log_kernel"), part("pv_")
+    log(f"augmented train step (B=64 x 10 s, torch.profiler over 3 steps): "
+        f"{step_ms:.3f} ms a step by CUDA events, device busy {busy:.3f} ms "
+        f"(idle share {1 - busy / step_ms:.3f}); K1 {k1:.4f} ms "
+        f"({100 * k1 / step_ms:.2f}% of the step), K3 {k3:.4f} ms "
+        f"({100 * k3 / step_ms:.2f}%) on {smi}")
+    log("  ten longest kernels a step: " + "; ".join(
+        f"{name[:50]} {ms:.4f} ms x{n:g}" for name, ms, n in found[:10]))
 
 
 def synthetic_clip_lengths(n: int, seed: int = 0) -> np.ndarray:
@@ -1739,6 +1866,7 @@ def main() -> None:
     k7 = phase_k7()
     k8 = phase_k8()
     k9 = phase_k9()
+    phase_step_split(smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.time()
         inputs = write_inputs(root)

@@ -237,11 +237,10 @@ def bench_inference(device: torch.device, n_clips: int = N_CLIPS,
             n_rows - n_clips, n_rows, _since(before))
 
 
-def bench_train_steps(device: torch.device, network: dict = NETWORK,
-                      batch: int = 64, seconds: float = 10,
-                      n: int = 20) -> tuple:
-    """The train-step workload without and with augmentation; returns
-    (bench.py's train keys, kernel launches per variant)."""
+def train_batch(device: torch.device, batch: int = 64,
+                seconds: float = 10) -> tuple:
+    """The train-step workload's batch, (wave, lengths, labels) on
+    ``device``: ``bench.py``'s draws from ``RandomState(0)``."""
     b, length = batch, int(SR * seconds)
     rng = np.random.RandomState(0)
     wave = torch.from_numpy(rng.randn(b, length).astype(np.float32)
@@ -249,20 +248,37 @@ def bench_train_steps(device: torch.device, network: dict = NETWORK,
     lengths = torch.full((b,), length, dtype=torch.int32, device=device)
     labels = torch.from_numpy((rng.rand(b, N_CLASSES) < 0.05).astype(
         np.float32)).to(device)
+    return wave, lengths, labels
+
+
+def train_engine(device: torch.device, network: dict, augment: bool,
+                 n: int) -> Engine:
+    """The train-step workload's engine: the bf16 model from seed 0, Adam,
+    and with ``augment`` the chain of ``bench.py`` (p_mixup 0.5, p_aug 0.75,
+    p_shuffle 0.5), ready for ``n`` steps."""
     train_config = types.SimpleNamespace(
         optimizer="adam", learning_rate=1e-3, scheduler="steplr_1_1.0",
         weight_decay=0.0)
-    augmenter = make_augmenter(AugmentConfig(p_mixup=0.5, p_aug=0.75,
-                                             p_shuffle=0.5))
+    augmenter = make_augmenter(AugmentConfig(
+        p_mixup=0.5, p_aug=0.75, p_shuffle=0.5)) if augment else None
+    model = create_model(types.SimpleNamespace(**network), N_CLASSES,
+                         torch.bfloat16, seed=0, device=device)
+    engine = Engine(model, Frontend(FEATURES, "2d", sr=SR, device=device),
+                    train_config, loss="lsep", augment=augmenter, seed=0,
+                    device=device)
+    engine.make_optimizer(max_steps=n + 2, steps_per_epoch=n + 2)
+    return engine
+
+
+def bench_train_steps(device: torch.device, network: dict = NETWORK,
+                      batch: int = 64, seconds: float = 10,
+                      n: int = 20) -> tuple:
+    """The train-step workload without and with augmentation; returns
+    (bench.py's train keys, kernel launches per variant)."""
+    wave, lengths, labels = train_batch(device, batch, seconds)
     out, launches = {}, {}
-    for key, augment in (("noaug", None), ("aug", augmenter)):
-        model = create_model(types.SimpleNamespace(**network), N_CLASSES,
-                             torch.bfloat16, seed=0, device=device)
-        engine = Engine(model, Frontend(FEATURES, "2d", sr=SR,
-                                        device=device),
-                        train_config, loss="lsep", augment=augment, seed=0,
-                        device=device)
-        engine.make_optimizer(max_steps=n + 2, steps_per_epoch=n + 2)
+    for key in ("noaug", "aug"):
+        engine = train_engine(device, network, key == "aug", n)
         before = _launches()
         with FlopCounterMode(display=False) as counter:
             engine.train_step(wave, lengths, labels)

@@ -15,129 +15,157 @@
 // tiles, and no contiguous copy. out is written as (B, M, T), which is already
 // the model's input layout, so no transpose pass follows.
 //
-// Bound. At the main path's shape (B = 128 clips of 10 s at 44.1 kHz,
-// mel_2048_1024_128: F = 1025, M = 128, T = 431) the product is ~14.5 GFLOP
-// of fp32 FMA against ~0.45 GB of spectrum read once: ~32 FLOP per byte, so
-// the fp32 FMA rate of the CUDA cores (no tensor cores in fp32), not HBM
-// bandwidth, bounds it.
+// Bound. Bytes. At the main path's shape (B = 128 clips of 10 s at 44.1 kHz,
+// mel_2048_1024_128: F = 1025, M = 128, T = 431) the spectrum is 452 MB and
+// the output 28 MB, 0.14 ms at 3.35 TB/s. A mel filterbank is sparse: each
+// band covers a narrow range of bins (2-64 at this shape; 2,014 of its
+// 131,200 entries are non-zero), so the product over each band's range is
+// ~0.5 GFLOP, far below the bytes. A dense loop over all F bins for every
+// band would be 14.5 GFLOP of fp32 FMA, 0.22 ms at 67 TFLOP/s: above the
+// bound by itself, which is why this design does not do it.
 //
-// Design. One block per (64-frame tile, 64-band tile, clip). A loop over F in
-// chunks of 32 bins computes each |S| once into shared memory and stages the
-// matching filterbank slice beside it; each of the 256 threads keeps a 4 x 4
-// register tile of accumulators fed by float4 shared-memory reads. The ragged
-// F = 1025 and T edges are masked to zero on load and skipped on store.
-// Later work: wgmma/TMA, and skipping the filterbank's all-zero (m, f) ranges
-// (each mel band covers a narrow range of bins).
+// Design. One block per (8-frame tile, clip). The block stages |S| of all F
+// bins of its frames in shared memory once (8 x 1025 x 4 B = 32.8 KB, small
+// enough that several blocks share an SM and one block's loads overlap
+// another's sums; 16-frame tiles left fewer blocks and more idle bytes):
+// each magnitude is computed once. torch.stft's frames lie back to back, so
+// a tile is one contiguous run of 8 x F complex values, read 16 bytes (two
+// bins) a load with neighbouring threads on neighbouring bytes and eight
+// loads in flight per thread (other strides take 8-byte loads). Then each of
+// the 256 threads takes a (band, frame) pair and sums only over the band's
+// range [band_lo[m], band_hi[m]), the first to the last non-zero bin, which
+// the wrapper computes from fb on the device on every call; a band with no
+// non-zero entry has an empty range and gives log(1e-4). Eight neighbouring
+// threads take the 8 frames of one band, so the log-mel is written along T.
+// Any fb gives the plain twin's result up to fp32 summation order: only
+// entries outside a band's range, all zero, are skipped.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kBM = 64;  // mel bands per block
-constexpr int kBN = 64;  // frames per block
-constexpr int kBK = 32;  // frequency bins per chunk
-constexpr int kTM = 4;   // bands per thread
-constexpr int kTN = 4;   // frames per thread
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
-constexpr int kLoadRows = kThreads / kBK;           // 8 tile rows per pass
-// Row padding of the shared tiles: loads walk k across a warp, so rows of
-// kBM + 4 floats spread a warp's stores over 8 banks instead of 1, and keep
-// each row 16-byte aligned for the float4 reads.
-constexpr int kPad = 4;
+constexpr int kFrames = 8;    // frames per block
+constexpr int kThreads = 256;
+constexpr int kBandRows = kThreads / kFrames;  // bands summed at once
+constexpr int kUnroll = 8;    // spectrum loads in flight per thread
 constexpr float kLogEps = 1e-4f;
 
 __global__ void __launch_bounds__(kThreads)
 mel_log_kernel(const float2* __restrict__ spec, long long stride_b,
                long long stride_f, long long stride_t,
-               const float* __restrict__ fb, float* __restrict__ out,
+               const float* __restrict__ fb, const int* __restrict__ band_lo,
+               const int* __restrict__ band_hi, float* __restrict__ out,
                int n_freq, int n_frames, int n_mel) {
-  __shared__ __align__(16) float fb_s[kBK][kBM + kPad];   // fb[m0+m, f0+k]
-  __shared__ __align__(16) float mag_s[kBK][kBN + kPad];  // |S[b, f0+k, t0+t]|
+  extern __shared__ float mag_s[];  // [kFrames][n_freq]: |S| of the frames
 
   const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const float2* clip = spec + static_cast<long long>(blockIdx.z) * stride_b;
+  const int t0 = blockIdx.x * kFrames;
+  const int n_t = min(kFrames, n_frames - t0);
+  const float2* clip = spec + blockIdx.y * stride_b + t0 * stride_t;
 
-  // compute mapping: a 4 x 4 tile of (band, frame) outputs per thread
-  const int tx = tid % (kBN / kTN);
-  const int ty = tid / (kBN / kTN);
-  // load mapping: neighbouring threads take neighbouring frequency bins, the
-  // contiguous axis of both torch.stft's output and the (M, F) filterbank
-  const int lk = tid % kBK;
-  const int lr = tid / kBK;
-
-  float acc[kTM][kTN];
+  // stage |S| of element e = t * n_freq + f of the tile at mag_s[e]
+  const int total = n_t * n_freq;
+  if (stride_f == 1 && stride_t == n_freq) {
+    // frames back to back (torch.stft's layout): the tile is one run of
+    // total complex values, read 16 bytes (two bins) a load after at most
+    // one 8-byte value that puts the loads on a 16-byte boundary
+    const int head = (reinterpret_cast<uintptr_t>(clip) & 15) ? 1 : 0;
+    const int pairs = (total - head) / 2;
+    const float4* run = reinterpret_cast<const float4*>(clip + head);
+    for (int v0 = tid; v0 < pairs; v0 += kThreads * kUnroll) {
+      float4 z[kUnroll];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+      for (int u = 0; u < kUnroll; ++u)
+        z[u] = v0 + u * kThreads < pairs ? run[v0 + u * kThreads]
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  for (int f0 = 0; f0 < n_freq; f0 += kBK) {
-    const int f = f0 + lk;
-    const bool f_ok = f < n_freq;
-#pragma unroll
-    for (int r = lr; r < kBN; r += kLoadRows) {
-      const int t = t0 + r;
-      float mag = 0.f;
-      if (f_ok && t < n_frames) {
-        const float2 z = clip[f * stride_f + t * stride_t];
-        mag = sqrtf(z.x * z.x + z.y * z.y);
+      for (int u = 0; u < kUnroll; ++u) {
+        const int e = head + 2 * (v0 + u * kThreads);
+        if (e < total) {
+          mag_s[e] = sqrtf(z[u].x * z[u].x + z[u].y * z[u].y);
+          mag_s[e + 1] = sqrtf(z[u].z * z[u].z + z[u].w * z[u].w);
+        }
       }
-      mag_s[lk][r] = mag;
     }
-#pragma unroll
-    for (int r = lr; r < kBM; r += kLoadRows) {
-      const int m = m0 + r;
-      fb_s[lk][r] = (f_ok && m < n_mel)
-                        ? fb[static_cast<long long>(m) * n_freq + f] : 0.f;
+    if (tid == 0) {  // the unpaired values at either end
+      if (head) {
+        const float2 z = clip[0];
+        mag_s[0] = sqrtf(z.x * z.x + z.y * z.y);
+      }
+      if ((total - head) % 2) {
+        const float2 z = clip[total - 1];
+        mag_s[total - 1] = sqrtf(z.x * z.x + z.y * z.y);
+      }
     }
-    __syncthreads();
+  } else {
+    // any strides: kThreads apart per thread, (t, f) stepped along
+    const int dt = kThreads / n_freq;
+    const int df = kThreads - dt * n_freq;
+    int t = tid / n_freq;
+    int f = tid - t * n_freq;
+    for (int e0 = tid; e0 < total; e0 += kThreads * kUnroll) {
+      float2 z[kUnroll];
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&fb_s[k][ty * kTM]);
-      const float4 s = *reinterpret_cast<const float4*>(&mag_s[k][tx * kTN]);
-      const float av[kTM] = {a.x, a.y, a.z, a.w};
-      const float sv[kTN] = {s.x, s.y, s.z, s.w};
+      for (int u = 0; u < kUnroll; ++u) {
+        z[u] = e0 + u * kThreads < total ? clip[t * stride_t + f * stride_f]
+                                         : make_float2(0.f, 0.f);
+        f += df;
+        t += dt;
+        if (f >= n_freq) {
+          f -= n_freq;
+          ++t;
+        }
+      }
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], sv[j], acc[i][j]);
+      for (int u = 0; u < kUnroll; ++u) {
+        const int e = e0 + u * kThreads;
+        if (e < total) mag_s[e] = sqrtf(z[u].x * z[u].x + z[u].y * z[u].y);
+      }
     }
-    __syncthreads();
   }
+  __syncthreads();
 
+  const int tt = tid % kFrames;
+  if (tt >= n_t) return;
+  const float* mag_t = mag_s + tt * n_freq;
   float* clip_out =
-      out + static_cast<long long>(blockIdx.z) * n_mel * n_frames;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int m = m0 + ty * kTM + i;
-    if (m >= n_mel) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int t = t0 + tx * kTN + j;
-      if (t < n_frames)
-        clip_out[static_cast<long long>(m) * n_frames + t] =
-            logf(acc[i][j] + kLogEps);
-    }
+      out + static_cast<long long>(blockIdx.y) * n_mel * n_frames + t0 + tt;
+  for (int m = tid / kFrames; m < n_mel; m += kBandRows) {
+    const float* w = fb + static_cast<long long>(m) * n_freq;
+    const int hi = band_hi[m];
+    float acc = 0.f;
+    for (int k = band_lo[m]; k < hi; ++k)
+      acc = fmaf(__ldg(w + k), mag_t[k], acc);
+    clip_out[static_cast<long long>(m) * n_frames] = logf(acc + kLogEps);
   }
 }
 
 }  // namespace
 
 // spec: complex64 (B, F, T) as (re, im) float pairs with element strides
-// stride_b/stride_f/stride_t; fb: (M, F) float32 contiguous; out: (B, M, T)
-// float32 contiguous; all on the current device. stream: a cudaStream_t.
-// Returns the cudaError_t of the launch (0 on success). B <= 65535.
+// stride_b/stride_f/stride_t; fb: (M, F) float32 contiguous; band_lo/hi:
+// (M,) int32, each band's first non-zero bin and one past its last (lo >= hi
+// for a band with none); out: (B, M, T) float32 contiguous; all on the
+// current device. 8 * F * 4 bytes of shared memory (F <= 7264); B <= 65535.
+// stream: a cudaStream_t. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int mel_log_launch(const void* spec, long long stride_b,
                               long long stride_f, long long stride_t,
-                              const void* fb, void* out, int n_batch,
+                              const void* fb, const void* band_lo,
+                              const void* band_hi, void* out, int n_batch,
                               int n_freq, int n_frames, int n_mel,
                               void* stream) {
-  const dim3 grid((n_frames + kBN - 1) / kBN, (n_mel + kBM - 1) / kBM, n_batch);
-  mel_log_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int smem = kFrames * n_freq * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      mel_log_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_frames + kFrames - 1) / kFrames, n_batch);
+  mel_log_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(spec), stride_b, stride_f, stride_t,
-      static_cast<const float*>(fb), static_cast<float*>(out), n_freq,
+      static_cast<const float*>(fb), static_cast<const int*>(band_lo),
+      static_cast<const int*>(band_hi), static_cast<float*>(out), n_freq,
       n_frames, n_mel);
   return static_cast<int>(cudaGetLastError());
 }

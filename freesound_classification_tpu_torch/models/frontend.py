@@ -7,6 +7,7 @@ from typing import Tuple
 import torch
 
 from freesound_classification_tpu_torch.ops import dsp, kernels
+from freesound_classification_tpu_torch.utils.device import resolve_device
 
 
 class Frontend:
@@ -20,7 +21,8 @@ class Frontend:
     Features are the descriptor's: log-mel (``mel_*``), log-STFT magnitude
     (``stft_*``) or the raw samples (``raw``, F = 1, a frame per sample).
     ``mel_project`` is K1 (``kernels.mel_project_log``) unless a caller
-    substitutes its plain twin to compare the two on the card.
+    substitutes its plain twin to compare the two on the card. ``device``
+    is the card unless the caller passes "cpu"; without a card it raises.
     """
 
     def __init__(
@@ -28,7 +30,7 @@ class Frontend:
         descriptor: str,
         model_family: str = "2d",
         sr: int = 44100,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         mel_project: dsp.MelProject = kernels.mel_project_log,
     ):
         if model_family not in ("1d", "2d"):
@@ -37,7 +39,7 @@ class Frontend:
         self.descriptor = descriptor
         self.model_family = model_family
         self.sr = sr
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.mel_project = mel_project
         self.filterbank = None
         if self.feat.kind == "mel":

@@ -103,18 +103,18 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every exported C function."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # int mel_log_launch(spec, stride_b, stride_f, stride_t, fb, out,
-    #                    B, F, T, M, stream) -> cudaError_t
-    lib.mel_log_launch.argtypes = [ptr, i64, i64, i64, ptr, ptr,
+    # int mel_log_launch(spec, stride_b, stride_f, stride_t, fb, band_lo,
+    #                    band_hi, out, B, F, T, M, stream) -> cudaError_t
+    lib.mel_log_launch.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr,
                                    i32, i32, i32, i32, ptr]
     lib.mel_log_launch.restype = i32
     # int resample_launch(wave, factor, out, B, L, stream) -> cudaError_t
     lib.resample_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
     lib.resample_launch.restype = i32
-    # int pv_resynth_launch(mag, dphi, phase0, rate, basis, tile_sum, a,
-    #                       syn, out, B, t_in, F, bins_pad, n_pad, hop, r,
-    #                       rows, stream) -> cudaError_t
-    lib.pv_resynth_launch.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+    # int pv_resynth_launch(mag, dphi, phase0, rate, basis_tiles, sums,
+    #                       spill, out, B, t_in, F, bins_pad, hop, rows,
+    #                       stream) -> cudaError_t
+    lib.pv_resynth_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.pv_resynth_launch.restype = i32
     # int resnet_block_1d_launch(x, w1, w2, w3, bias, slope, out, B, C, cp,
     #                            T, sb, sc, st, tile, m_rows, r1, stream)

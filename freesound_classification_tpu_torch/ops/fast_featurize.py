@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from freesound_classification_tpu_torch.ops import dsp, kernels
+from freesound_classification_tpu_torch.utils.device import resolve_device
 
 
 @functools.lru_cache(maxsize=8)
@@ -99,14 +100,16 @@ class FastFrontend:
     """The 2d frontend by the fast featurization (the probe's
     ``fast_inputs``): (wave (B, L), sample lengths (B,)) -> (log-mel (B, M,
     T, 1), frame lengths (B,) = min(lengths // hop + 1, T)). ``descriptor``
-    is a mel descriptor whose hop divides its n_fft."""
+    is a mel descriptor whose hop divides its n_fft. ``device`` is the card
+    unless the caller passes "cpu"; without a card it raises."""
 
     def __init__(self, descriptor: str, sr: int = 44100,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         feat = dsp.parse_features(descriptor)
         if feat.kind != "mel":
             raise ValueError(f"FastFrontend needs a mel descriptor, got "
                              f"{descriptor!r}")
+        device = resolve_device(device)
         self.hop = feat.hop_size
         self.basis = torch.from_numpy(cat_basis(feat.n_fft, self.hop)).to(
             device=device, dtype=torch.bfloat16)

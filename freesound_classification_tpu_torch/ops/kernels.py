@@ -58,12 +58,29 @@ def mel_project_log_reference(spec: torch.Tensor,
     ).transpose(-1, -2)
 
 
+def mel_band_ranges(fb: torch.Tensor) -> tuple:
+    """Each band's range of bins in a (M, F) filterbank, as K1 loops over
+    them: int32 (M,) ``lo`` (the first non-zero bin) and ``hi`` (one past
+    the last), on ``fb``'s device with no host sync. A band with no
+    non-zero entry gets lo = F, hi = 0: an empty range."""
+    n_freq = fb.shape[1]
+    nonzero = fb != 0
+    bins = torch.arange(n_freq, dtype=torch.int32, device=fb.device)
+    lo = torch.where(nonzero, bins, n_freq).amin(dim=1)
+    hi = torch.where(nonzero, bins + 1, 0).amax(dim=1)
+    return lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous()
+
+
+_K1_FRAMES = 8  # frames per block of mel_log_kernel: 8 x F floats staged
+
+
 def mel_project_log(spec: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
     """K1: complex64 spectrum (B, F, T), any strides, x contiguous float32
     filterbank (M, F) -> contiguous float32 log-mel (B, M, T).
 
     CPU tensors take ``mel_project_log_reference``; CUDA tensors launch
-    ``mel_log_kernel`` on the current stream.
+    ``mel_log_kernel`` on the current stream, which sums each band over its
+    ``mel_band_ranges`` only.
     """
     if spec.device.type == "cpu" and fb.device.type == "cpu":
         return mel_project_log_reference(spec, fb)
@@ -84,7 +101,8 @@ def mel_project_log(spec: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
                          f"bins, spec has {n_freq}")
     if not fb.is_contiguous():
         raise ValueError("mel_project_log: fb must be contiguous")
-    if not 0 < n_batch <= _MAX_GRID_YZ or min(n_freq, n_frames, n_mel) <= 0:
+    if (not 0 < n_batch <= _MAX_GRID_YZ or min(n_freq, n_frames, n_mel) <= 0
+            or _K1_FRAMES * n_freq * 4 > _MAX_SHARED_BYTES):
         raise ValueError(f"mel_project_log: unsupported shape B={n_batch} "
                          f"F={n_freq} T={n_frames} M={n_mel}")
 
@@ -93,12 +111,13 @@ def mel_project_log(spec: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
     lib = build.load_library()
     out = torch.empty((n_batch, n_mel, n_frames), dtype=torch.float32,
                       device=spec.device)
+    lo, hi = mel_band_ranges(fb)
     # read in place through the strides: torch.stft's (B, F, T) output lies
     # frame-major in memory, which the kernel's loads are laid out for
     with torch.cuda.device(spec.device):
         err = lib.mel_log_launch(
-            spec.data_ptr(), *spec.stride(), fb.data_ptr(), out.data_ptr(),
-            n_batch, n_freq, n_frames, n_mel,
+            spec.data_ptr(), *spec.stride(), fb.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), out.data_ptr(), n_batch, n_freq, n_frames, n_mel,
             torch.cuda.current_stream(spec.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mel_log_kernel launch failed: cudaError {err}")
@@ -201,6 +220,15 @@ resample_linear.launches = 0
 
 PV_MAX_RATE = 1.3  # the TPU kernel's domain; the chain's rates <= 1.19
 PV_TILE = 128  # frames per phase-carry tile: the TPU kernel's _PV_TM
+# pv_resynth_kernel's shape: 64 frames a block (half a phase tile), the
+# overlap-add offsets it takes (n_fft // hop; the chain's hop is n_fft // 4),
+# columns per offset (hop, zero padded), basis rows per streamed stage,
+# and the widest bins_pad whose A, basis ring and staging tile fit 227 KB
+_PV_ROWS = 64
+_PV_OFFSETS = 4
+_PV_COLS = 256
+_PV_STAGE_K = 32
+_PV_MAX_BINS_PAD = 528
 _TWO_PI = 6.2831854820251465  # float32(2 pi)
 _INV_TWO_PI = 0.15915493667125702  # float32(1 / float32(2 pi))
 
@@ -288,13 +316,55 @@ def pv_resynth_reference(mag, dphi, phase0, rate, icos, isin, hop: int,
     return out
 
 
+def pv_basis_tiles(icos: torch.Tensor, isin: torch.Tensor,
+                   hop: int) -> torch.Tensor:
+    """The padded [icos; isin] basis as ``pv_resynth_kernel`` streams it:
+    bf16 (offsets, stages, 4, 32, 8, 8) = (o, q, k // 8 % 4, c // 8, c % 8,
+    k % 8), one contiguous 16 KB stage per (o, q), holding rows k in
+    [32 q, 32 q + 32) and columns o * hop + c, c < 256, of
+
+        [icos; 0; isin; 0]   (2 bins_pad, n_fft), bins_pad = F rounded up to 16
+
+    with zeros at c >= hop: wgmma's K-major core matrices (8 columns x 8
+    rows of k, 128 bytes each), 4 along k outside 32 along the columns."""
+    f, n_fft = icos.shape
+    bins_pad = -(-f // 16) * 16
+    full = icos.new_zeros((2 * bins_pad, _PV_OFFSETS, _PV_COLS),
+                          dtype=torch.bfloat16)
+    for o in range(_PV_OFFSETS):
+        cols = slice(o * hop, (o + 1) * hop)
+        full[:f, o, :hop] = icos[:, cols]
+        full[bins_pad: bins_pad + f, o, :hop] = isin[:, cols]
+    stages = 2 * bins_pad // _PV_STAGE_K
+    return full.view(stages, _PV_STAGE_K // 8, 8, _PV_OFFSETS,
+                     _PV_COLS // 8, 8).permute(3, 0, 1, 4, 5, 2).contiguous()
+
+
+def _cached_pv_basis_tiles(icos, isin, hop: int,
+                           device: torch.device) -> torch.Tensor:
+    """``pv_basis_tiles`` on ``device``, built once per (device, n_fft) for
+    the same unmodified icos and isin (``ops/pv.py`` passes its cached
+    bases on every call)."""
+    return _pv_basis_tiles_on(icos, isin, hop, device, icos._version,
+                              isin._version)
+
+
+@functools.lru_cache(maxsize=4)
+def _pv_basis_tiles_on(icos, isin, hop, device, *versions):
+    # a tensor hashes by identity: the key is these tensors at these versions
+    return pv_basis_tiles(icos, isin, hop).to(device)
+
+
 def pv_resynth(mag, dphi, phase0, rate, icos, isin, hop: int,
                t_out: int) -> torch.Tensor:
     """K3: the phase-vocoder resynthesis of ``pv_resynth_reference``.
 
-    CPU tensors take the plain twin; CUDA tensors launch the four kernels of
-    ``csrc/pv_resynth.cu`` (tile sums, phase, bf16 synthesis product,
-    overlap-add) and count one launch. Rates must lie in (0, 1.3].
+    CPU tensors take the plain twin; CUDA tensors launch the three kernels
+    of ``csrc/pv_resynth.cu`` (tile sums; A, the bf16 synthesis product on
+    wgmma and the overlap-add in one pass; the rows spanning two blocks)
+    and count one launch. Rates must lie in (0, 1.3]; the kernel takes
+    n_fft // hop == 4, hop <= 256 and F <= 528 (the chain's n_fft <= 1024,
+    hop n_fft // 4).
     """
     if mag.device.type == "cpu":
         _check_pv_rate(rate)
@@ -304,29 +374,28 @@ def pv_resynth(mag, dphi, phase0, rate, icos, isin, hop: int,
     b, t_in, f = mag.shape
     n_fft = icos.shape[1]
     r = n_fft // hop
+    bins_pad = -(-f // 16) * 16
     if (dphi.shape != (b, t_in - 1, f) or phase0.shape != (b, f)
             or rate.shape != (b,) or icos.shape != (f, n_fft)
-            or isin.shape != icos.shape or t_in < 2 or r < 1
+            or isin.shape != icos.shape or t_in < 2
             or not 0 < b <= _MAX_GRID_YZ):
         raise ValueError(
             f"pv_resynth: inconsistent shapes mag {tuple(mag.shape)}, dphi "
             f"{tuple(dphi.shape)}, phase0 {tuple(phase0.shape)}, rate "
             f"{tuple(rate.shape)}, basis {tuple(icos.shape)}, hop {hop}")
+    if r != _PV_OFFSETS or hop > _PV_COLS or bins_pad > _PV_MAX_BINS_PAD:
+        raise ValueError(
+            f"pv_resynth: the kernel takes n_fft // hop == {_PV_OFFSETS}, "
+            f"hop <= {_PV_COLS} and F <= {_PV_MAX_BINS_PAD}, got n_fft "
+            f"{n_fft}, hop {hop}, F {f}")
     _check_pv_rate(rate)
     rows = t_out + r - 1
-    n_tiles = -(-rows // PV_TILE)
-    bins_pad = -(-f // 16) * 16
-    n_pad = -(-n_fft // 128) * 128
     device = mag.device
-    basis = torch.zeros(2 * bins_pad, n_pad, dtype=torch.bfloat16,
-                        device=device)
-    basis[:f, :n_fft] = icos.to(device=device, dtype=torch.bfloat16)
-    basis[bins_pad: bins_pad + f, :n_fft] = isin.to(device=device,
-                                                    dtype=torch.bfloat16)
-    tile_sum = torch.empty(b, n_tiles, f, dtype=torch.float32, device=device)
-    a = torch.empty(b * rows, 2 * bins_pad, dtype=torch.bfloat16,
-                    device=device)
-    syn = torch.empty(b * rows, n_pad, dtype=torch.bfloat16, device=device)
+    tiles = _cached_pv_basis_tiles(icos, isin, hop, device)
+    sums = torch.empty(b, -(-rows // PV_TILE), PV_TILE // 16, f,
+                       dtype=torch.float32, device=device)
+    spill = torch.empty(b, -(-rows // _PV_ROWS), r * (r - 1) // 2, hop,
+                        dtype=torch.bfloat16, device=device)
     out = torch.empty(b, rows, hop, dtype=torch.float32, device=device)
 
     from freesound_classification_tpu_torch.ops import build
@@ -335,10 +404,9 @@ def pv_resynth(mag, dphi, phase0, rate, icos, isin, hop: int,
     with torch.cuda.device(device):
         err = lib.pv_resynth_launch(
             mag.data_ptr(), dphi.data_ptr(), phase0.data_ptr(),
-            rate.data_ptr(), basis.data_ptr(), tile_sum.data_ptr(),
-            a.data_ptr(), syn.data_ptr(), out.data_ptr(), b, t_in, f,
-            bins_pad, n_pad, hop, r, rows,
-            torch.cuda.current_stream(device).cuda_stream)
+            rate.data_ptr(), tiles.data_ptr(), sums.data_ptr(),
+            spill.data_ptr(), out.data_ptr(), b, t_in, f, bins_pad, hop,
+            rows, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pv_resynth kernels launch failed: cudaError {err}")
     pv_resynth.launches += 1

@@ -39,6 +39,7 @@ from freesound_classification_tpu_torch.training.optimizers import (
     make_optimizer,
     set_lr,
 )
+from freesound_classification_tpu_torch.utils.device import resolve_device
 
 
 class Engine:
@@ -50,21 +51,22 @@ class Engine:
     function or None. ``seed`` seeds the generator of every random draw of
     the augmenter; dropout draws from PyTorch's default generator.
     ``warm_start_path``, a fold ``.npz`` of the same architecture, seeds
-    the model at the start of every ``fit_validate``.
+    the model at the start of every ``fit_validate``. ``device`` is the
+    card unless the caller passes "cpu"; without a card it raises.
     """
 
     def __init__(self, model: nn.Module, frontend: Frontend, train_config,
                  loss: str = "lsep_naive",
                  augment: Optional[Callable] = None,
                  checkpoint_dir: Optional[str] = None, seed: int = 42,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = "cuda",
                  warm_start_path: Optional[str] = None):
         accum = int(getattr(train_config, "accumulation_steps", 1))
         if accum > 1:
             raise NotImplementedError(
                 f"accumulation_steps={accum}: gradient accumulation is not "
                 "ported yet (ROADMAP M2.2)")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.frontend = frontend
         self.train_config = train_config

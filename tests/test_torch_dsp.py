@@ -121,7 +121,7 @@ def test_frontend_matches_jax():
     x[1, 30000:] = 0.0
     want_in, want_fl = JaxFrontend(DESCRIPTOR, "2d", sr=SR)(
         jnp.asarray(x), jnp.asarray(lengths))
-    front = Frontend(DESCRIPTOR, "2d", sr=SR)
+    front = Frontend(DESCRIPTOR, "2d", sr=SR, device="cpu")
     got_in, got_fl = front(torch.from_numpy(x), torch.from_numpy(lengths))
     assert got_in.shape == want_in.shape
     np.testing.assert_array_equal(got_fl.numpy(), np.asarray(want_fl))

@@ -111,7 +111,7 @@ def test_frontend_matches_jax(descriptor, family, atol):
     want_in, want_fl = JaxFrontend(descriptor, family, sr=SR,
                                    dft_precision="high")(
         jnp.asarray(x), jnp.asarray(lengths))
-    front = Frontend(descriptor, family, sr=SR)
+    front = Frontend(descriptor, family, sr=SR, device="cpu")
     got_in, got_fl = front(torch.from_numpy(x), torch.from_numpy(lengths))
     assert tuple(got_in.shape) == want_in.shape
     assert front.n_features == got_in.shape[-1 if family == "1d" else 1]
@@ -318,7 +318,7 @@ def test_warm_start_loads_weights_and_statistics_only(tmp_path):
     train_cfg = Config({"optimizer": "adam", "learning_rate": 1e-3,
                         "scheduler": "steplr_1_0.5", "weight_decay": 0.0})
     engine = engine_lib.Engine(model, frontend=None, train_config=train_cfg,
-                               warm_start_path=path)
+                               device="cpu", warm_start_path=path)
     engine.make_optimizer(10, 5)
     engine.warm_start(path)
     got_p, got_s = interop.to_jax_variables(engine.model.state_dict())

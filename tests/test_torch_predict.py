@@ -118,7 +118,8 @@ def _port_predictor():
         model = TwoDimensionalCNN(**NETWORK, n_classes=len(CLASSES))
         model.load_state_dict(interop.from_jax_variables(*_fold_variables(k)))
         models.append(model)
-    return EnsemblePredictor(models, Frontend(DESCRIPTOR, "2d", sr=SR), "cpu")
+    return EnsemblePredictor(
+        models, Frontend(DESCRIPTOR, "2d", sr=SR, device="cpu"), "cpu")
 
 
 def _jax_loader(files, num_workers=0):
