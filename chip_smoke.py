@@ -44,10 +44,14 @@ Phases, each of which raises on failure (none catches its own):
      shape (n_fft 1024, hop 256), on a real analysis; shifted frames fail;
      the bytes it moves beside the function's, and its three launches by
      torch.profiler
-  K6, K4/K5, K7 (the backbone's four stage shapes) and K8 (the 2d block0
-     head): each against its plain version at the paths' shapes, and three
-     wrong inputs failing by far (shifted frames, another fold's weights,
-     and padding the wrong tensor: x instead of h1, or x before bn_in)
+  K6 (the hierarchical path's six block shapes, on the maps' channels-
+     contiguous layout, with the layout the path hands it and the cost of
+     a time-major one), K4/K5, K7 (the backbone's four stage shapes) and K8
+     (the 2d block0 head): each against its plain version at the paths'
+     shapes, and three wrong inputs failing by far (shifted frames, another
+     fold's weights, and padding the wrong tensor: x instead of h1, or x
+     before bn_in); each timed in turns with its plain version and its
+     bf16 folded twin on cuDNN (a yardstick the port never calls)
   K9: the split mel kernel against its plain twin at the probe's shape
      (64 x 431 frames of a bf16 [re | im] spectrum, F 1025, M 128), and
      three wrong inputs failing by far (im_offset one bin off, frames
@@ -141,10 +145,12 @@ TRAIN_EPOCHS = 2
 TRAIN_CLASSES = 8
 STEP_TOL_LOSS = 1e-4
 STEP_TOL_GRAD = 1e-2  # each gradient over the model's largest
-# the fused blocks' shapes on the paths: block0 and the deepest block of the
-# hierarchical model over 10 s (215 frames, halved by block0's pool) and of
-# the 2d predict model (128 mels x 215 frames, halved)
-K6_SHAPES = ((128, 64, 215), (128, 486, 6))
+# the fused blocks' shapes on the paths: every block of the hierarchical
+# model over 10 s (215 frames after block0's pool, halved by each block), and
+# block0 and the deepest block of the 2d predict model (128 mels x 215
+# frames, halved)
+K6_SHAPES = ((128, 64, 215), (128, 96, 107), (128, 144, 53),
+             (128, 216, 26), (128, 324, 13), (128, 486, 6))
 K45_SHAPES = ((128, 64, 64, 215), (128, 486, 2, 6))
 # the backbone path's identity blocks over 10 s (431 frames -> 216 after
 # conv1 -> 108 after the max-pool), one shape per stage; and the 2d path's
@@ -641,9 +647,8 @@ def check_fused_block(label: str, model_kind: str, shape: tuple,
     other = resnet_infer.fused_weights(
         random_resnet_block(model_kind, channels, seed + 1), fold)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    x = torch.randn(shape, device=DEVICE, generator=gen).to(torch.bfloat16)
-    if not one_d:
-        x = x.contiguous(memory_format=torch.channels_last)
+    x = channels_contiguous(
+        torch.randn(shape, device=DEVICE, generator=gen).to(torch.bfloat16))
     bias = wts.bias.clone()
     bias[0, :channels] += 8.0
     pad = (1, 1) if one_d else (1, 1, 1, 1)
@@ -661,27 +666,87 @@ def check_fused_block(label: str, model_kind: str, shape: tuple,
     flops = 2.0 * positions * channels * channels * (2 + taps)
     weight_bytes = (2 + taps) * channels * channels * 2 + 6 * channels * 4
     n_bytes = 2 * x.numel() * 2 + weight_bytes
-    # K4/K5's design also writes h1 and reads it back (cp channels)
-    design = (n_bytes if one_d else
-              n_bytes + 2 * positions * kernels._round16(channels) * 2)
+    cp = kernels._round16(channels)
+    plan = (kernels.resnet_block_1d_plan(positions, channels, cp) if one_d
+            else (kernels.conv_plan(positions, cp, cp),
+                  kernels.tail_plan(positions, cp)))
+    # the design also writes h1 and reads it back (cp channels), and h2
+    # where it runs three launches
+    design = n_bytes + 2 * (len(plan) - 1) * positions * cp * 2
     bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
     log(f"{label} {tuple(shape)} time: kernel {out['ms']:.4f} ms, plain "
         f"version {out['plain_ms']:.4f} ms, bf16 folded twin "
-        f"{out.pop('folded_ms'):.4f} ms (runs {out.pop('times')}); bound "
+        f"{out['folded_ms']:.4f} ms (runs {out.pop('times')}); bound "
         f"{bound:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-        f"{n_bytes / 1e6:.1f} MB; the design moves {design / 1e6:.1f} MB)")
+        f"{n_bytes / 1e6:.1f} MB; the design moves {design / 1e6:.1f} MB) "
+        f"in {len(plan)} launches: "
+        + ", ".join(f"{p.bm} x {p.bn} tiles, grid {p.grid_m} x {p.grid_n}"
+                    for p in plan))
     log(f"{label} {tuple(shape)} by launch (torch.profiler): "
         f"{kernel_split(lambda: kernel(x, wts))}")
-    return dict(out, bound_ms=bound, bound_by=bound_by)
+    return dict(out, bound_ms=bound, bound_by=bound_by, x=x, wts=wts)
+
+
+def channels_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """x's values with contiguous channels, as the fused paths hold their
+    maps: (B, C, T) as (B, T, C) in memory, NCHW as channels_last."""
+    if x.dim() == 4:
+        return x.contiguous(memory_format=torch.channels_last)
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def k6_input_strides() -> str:
+    """The strides of the map each ResnetBlock1d of the hierarchical model
+    (NETWORK's width, bf16, eval, ``fused_infer``) is handed on the card,
+    on 4 random clips of 10 s of features: the layout K6 reads."""
+    from freesound_classification_tpu_torch.models import blocks, classifiers
+
+    model = classifiers.HierarchicalCNN(
+        128, dtype=torch.bfloat16, fused_infer=True, **NETWORK)
+    model = model.to(DEVICE).to(torch.bfloat16).eval()
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args: seen.append((tuple(args[0].shape),
+                                     args[0].stride())))
+        for m in model.modules() if isinstance(m, blocks.ResnetBlock1d)]
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    feats = torch.randn(4, 431, 128, device=DEVICE, generator=gen)
+    with torch.no_grad():
+        model(feats, torch.full((4,), 431, device=DEVICE))
+    for h in hooks:
+        h.remove()
+    return "; ".join(f"{shape} strides {stride}" for shape, stride in seen)
 
 
 def phase_k6() -> dict:
-    """K6 at the hierarchical path's first and deepest block shapes."""
-    first = check_fused_block("K6", "hierarchical_cnn", K6_SHAPES[0], 20)
-    check_fused_block("K6", "hierarchical_cnn", K6_SHAPES[1], 22)
+    """K6 at every block shape of the hierarchical path, and the layout the
+    path hands it."""
+    from freesound_classification_tpu_torch.ops import kernels
+
+    log(f"K6 inputs on the hierarchical fused path: {k6_input_strides()}")
+    outs = [check_fused_block("K6", "hierarchical_cnn", shape, 20 + 2 * i)
+            for i, shape in enumerate(K6_SHAPES)]
+    log("K6 at the six block shapes, ms: kernel "
+        + " / ".join(f"{o['ms']:.4f}" for o in outs)
+        + f" (sum {sum(o['ms'] for o in outs):.4f}); bf16 folded twin "
+        + " / ".join(f"{o['folded_ms']:.4f}" for o in outs)
+        + f" (sum {sum(o['folded_ms'] for o in outs):.4f})")
+    # the layout the unfused conv1d hands a block: time-major, copied to
+    # channel rows by the wrapper on every call
+    first = outs[0]
+    x, wts = first.pop("x"), first.pop("wts")
+    time_major = x.contiguous()
+    rows_ms, copied_ms, _ = timed_in_turns(
+        lambda: kernels.resnet_block_1d_fused(x, wts),
+        lambda: kernels.resnet_block_1d_fused(time_major, wts))
+    log(f"K6 {tuple(x.shape)}: channels-contiguous x {rows_ms:.4f} ms, "
+        f"time-major x (a padded copy a call) {copied_ms:.4f} ms")
+    for o in outs:
+        for key in ("folded_ms", "x", "wts"):
+            o.pop(key, None)
     return {"name": "resnet_block_1d_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/"
-                      "resnet_block.cu",
+                      "conv_blocks.cu",
             "replaces":
                 "freesound_classification_tpu/ops/pallas_resnet1d.py:107",
             **first, "library_ms": None}
@@ -689,8 +754,10 @@ def phase_k6() -> dict:
 
 def phase_k45() -> dict:
     """K4/K5 at the 2d predict path's first and deepest block shapes."""
-    first = check_fused_block("K4/K5", "2d_cnn", K45_SHAPES[0], 30)
-    check_fused_block("K4/K5", "2d_cnn", K45_SHAPES[1], 32)
+    first, _ = (check_fused_block("K4/K5", "2d_cnn", shape, 30 + 2 * i)
+                for i, shape in enumerate(K45_SHAPES))
+    for key in ("folded_ms", "x", "wts"):
+        first.pop(key)
     return {"name": "resnet_block_2d_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/"
                       "conv_blocks.cu",
@@ -802,7 +869,7 @@ def phase_k8() -> dict:
         resnet_infer,
     )
 
-    def weights(seed):
+    def head_block(seed):
         params, stats = interop.random_jax_variables(
             num_conv_blocks=1, start_deep_supervision_on=0,
             conv_base_depth=NETWORK["conv_base_depth"], growth_rate=1.0,
@@ -812,11 +879,15 @@ def phase_k8() -> dict:
             k[len("blocks.0."):]: v
             for k, v in interop.from_jax_variables(params, stats).items()
             if k.startswith("blocks.0.")})
-        return resnet_infer.fused_weights(block.to(DEVICE).eval(),
+        return block.to(DEVICE).eval()
+
+    def weights(seed):
+        return resnet_infer.fused_weights(head_block(seed),
                                           head_infer.fold_head_params,
                                           kernels.pack_conv_head)
 
     wts, other = weights(50), weights(51)
+    fp = bf16_folded(head_infer.fold_head_params(head_block(50)))
     raised = wts._replace(t_in=wts.t_in + 8.0)
     b, c_in, h, w = K8_SHAPE
     gen = torch.Generator(device=DEVICE).manual_seed(52)
@@ -829,26 +900,36 @@ def phase_k8() -> dict:
         xp = torch.nn.functional.pad(x_.float(), (1, 1, 1, 1))
         xa = (xp * w_.s_in.view(1, -1, 1, 1) + w_.t_in.view(1, -1, 1, 1)) \
             .to(torch.bfloat16).float()
-        k = w_.w.float().reshape(3, 3, c_in, -1).permute(3, 2, 0, 1)
-        y = torch.nn.functional.max_pool2d(
-            torch.nn.functional.conv2d(xa, k), 2)
+        y = torch.nn.functional.max_pool2d(torch.nn.functional.conv2d(
+            xa, kernels.head_conv_weight(w_)), 2)
         y = y * w_.scale.view(1, -1, 1, 1) + w_.shift.view(1, -1, 1, 1)
         return torch.where(y >= 0, y, w_.alpha.view(1, -1, 1, 1) * y) \
             .to(torch.bfloat16)
 
+    def folded_twin():
+        # bn_in, then cuDNN's bf16 conv (SAME), the 2x2 max, bn_out, PReLU
+        xa = x * fp["s_in"].view(1, -1, 1, 1) + fp["t_in"].view(1, -1, 1, 1)
+        y = torch.nn.functional.max_pool2d(torch.nn.functional.conv2d(
+            xa, fp["kern"].permute(3, 2, 0, 1), padding=1), 2)
+        y = y * fp["scale"].view(1, -1, 1, 1) + fp["bias"].view(1, -1, 1, 1)
+        return torch.nn.functional.prelu(y, fp["alpha"])
+
     out = check_kernel("K8", kernels.conv_head_fused,
                        kernels.conv_head_fused_reference, x, wts, other,
-                       raised, padded_before_bn)
-    depth = wts.w.shape[2]
+                       raised, padded_before_bn, folded=folded_twin)
+    depth = fp["scale"].shape[0]
     positions = b * (h // 2) * (w // 2) * 4  # the conv outputs pooled
     flops = 2.0 * positions * 9 * c_in * depth
     n_bytes = (x.numel() * 2 + b * depth * (h // 2) * (w // 2) * 2
                + wts.w.numel() * 2 + (2 * c_in + 3 * depth) * 4)
     bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
     log(f"K8 {K8_SHAPE} -> {(b, depth, h // 2, w // 2)} time: kernel "
-        f"{out['ms']:.4f} ms, plain version {out['plain_ms']:.4f} ms (runs "
+        f"{out['ms']:.4f} ms, plain version {out['plain_ms']:.4f} ms, bf16 "
+        f"folded twin {out.pop('folded_ms'):.4f} ms (runs "
         f"{out.pop('times')}); bound {bound:.4f} ms by {bound_by} "
         f"({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+    log(f"K8 by launch (torch.profiler): "
+        f"{kernel_split(lambda: kernels.conv_head_fused(x, wts))}")
     return {"name": "conv_head_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/conv_head.cu",
             "replaces": "freesound_classification_tpu/ops/pallas_head.py:135",

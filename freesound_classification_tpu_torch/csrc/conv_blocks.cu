@@ -1,7 +1,7 @@
-// K4/K5 and K7: the 2d eval-mode residual blocks with BatchNorm folded, on
+// K4/K5, K6 and K7: the eval-mode residual blocks with BatchNorm folded, on
 // one tensor-core convolution core (an implicit matrix product).
 //
-// Replaces three TPU kernels:
+// Replaces four TPU kernels:
 //   K7  _basic_t_kernel  freesound_classification_tpu/ops/pallas_backbone.py
 //       (the backbone's stride-1 identity BasicBlock)
 //   K4  _fused_kernel    freesound_classification_tpu/ops/pallas_resnet.py
@@ -9,6 +9,8 @@
 //   K5  _fused_t_kernel  the same file (the transposed layout;
 //       use_pallas_kernel True). K4's and K5's layouts are TPU sublane
 //       artifacts: on Hopper one kernel serves both.
+//   K6  _fused_1d_kernel freesound_classification_tpu/ops/pallas_resnet1d.py
+//       (ResnetBlock1d: K4/K5's function on a (B, C, T) map, 3 taps)
 //
 // Functions, on a (B, C, H, W) map; x, the weights, h1, h2 and y bf16, sums
 // float32 (the TPU kernels' rounding points):
@@ -17,8 +19,10 @@
 //   K4/K5: h1 = bf16(prelu(x w1 + b1, a1)), 0 off the map
 //          h2 = bf16(prelu(conv3x3(h1, w2) + b2, a2))
 //          y  = bf16(prelu((h2 w3 + b3) + x, a3))
+//   K6:    K4/K5's, with H = 1, W = T and conv3 (taps t - 1, t, t + 1)
 // SAME padding is on h1: a tap off the map reads h1 = 0, not the block's
-// function of a zero x.
+// function of a zero x; a 1d row's taps read 0 past its own clip's ends,
+// never the next clip's first frame.
 //
 // Design. A convolution over a map of channel rows is a matrix product:
 // M = B H W positions, K = taps x channels, N = output channels. The rows
@@ -51,12 +55,22 @@
 // is SAME padding on h1. K4/K5 is two launches too: h1 = prelu(x w1 + b1)
 // to device memory, then the tail: per tile of positions, h2 over all of
 // the block's channels into shared memory (bf16, zero past C), then h2 w3
-// + b3 + x and the PReLU to the map; h2 never leaves the CTA.
+// + b3 + x and the PReLU to the map; h2 never leaves the CTA. K6 runs the
+// same two launches with the tail's three taps where the tail's grid fills
+// the 132 SMs. At its small maps (the hierarchical model's deeper blocks:
+// 768-6784 positions of 144-486 channels) the tail would be 12-106 tiles
+// of 64 positions, each streaming every weight; there K6 is three
+// launches, h1, h2 (through device memory, < 1 MB) and y, each tiled over
+// positions and columns (64 x 128, 64 x 64 or 32 x 64, the largest whose
+// grid fills the card), so that the weights are split across blocks. Each
+// of those launches takes 10-21 us on the card for 0.4-1.1 GFLOP: at these
+// sizes the launches' latency, not the tensor cores, bounds K6.
 //
 // Bound. The function moves x in and y out (56.6 MB each at K7's stage 0,
 // B 128, 64 x 32 x 108; 225 MB at K4/K5's block0, B 128, 64 x 64 x 215)
 // and does 65 GFLOP (K7, every stage) or 158 GFLOP (K4/K5 block0): the
-// tensor cores bound it (0.066 ms and 0.16 ms at 989 TFLOP/s). This design
+// tensor cores bound it (0.066 ms and 0.16 ms at 989 TFLOP/s). K6 does
+// 1.1-1.8 GFLOP on 3-7 MB a block shape: 0.002 ms. This design
 // adds the h1 round trip (a write and a read of x's size), and mma.sync
 // reaches a part of the card's bf16 rate that only wgmma reaches in full.
 
@@ -101,11 +115,13 @@ struct Epilogue {
 // A tile of BM positions x BN channels. K runs in chunks of kBK channels of
 // one tap through a ring of kStages: 32 x 3 for the 64-column tiles (cp <=
 // 64, where two blocks an SM must fit), 64 x 2 for the 128-column ones
-// (half the barriers). A rows of kBK + 8 and B rows of BN + 8 elements put
-// ldmatrix's eight rows on distinct banks.
+// (half the barriers), 64 x 3 for the 32-row tile (whose A chunk is then
+// one 16-byte segment a thread). A rows of kBK + 8 and B rows of BN + 8
+// elements put ldmatrix's eight rows on distinct banks. A warp computes 32
+// rows x kWN columns: kNT n8 tiles, 1 (the 32 x 64 tile) or even.
 template <int BM, int BN>
 struct Tile {
-  static constexpr int kBK = BN == 64 ? 32 : 64;
+  static constexpr int kBK = BN == 64 && BM >= 64 ? 32 : 64;
   static constexpr int kStages = BN == 64 ? 3 : 2;
   static constexpr int kLdA = kBK + 8;
   static constexpr int kWarpsM = BM / 32;
@@ -118,7 +134,8 @@ struct Tile {
   static constexpr int kStage = kStageA + kStageB;  // elements
   static constexpr int kARows = BM * (kBK / 8) / kThreads;
   static constexpr int kBSegs = kBK * (BN / 8) / kThreads;
-  static_assert(kNT % 2 == 0 && kARows >= 1 && kBSegs >= 1, "tile shape");
+  static_assert((kNT == 1 || kNT % 2 == 0) && kARows >= 1 && kBSegs >= 1,
+                "tile shape");
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -146,6 +163,14 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 
@@ -200,12 +225,14 @@ struct Gather {
     }
   }
 
-  // the chunk (tap, channels c0 .. c0 + kBK - 1) into the A stage
+  // the chunk (tap, channels c0 .. c0 + kBK - 1) into the A stage. Taps:
+  // 1 (1x1), 3 (1d, along w: dw = tap - 1), 9 (3x3: tap 3 dh + dw)
   template <int kTaps>
   __device__ __forceinline__ void load(bf16* sa, const Map& x, const Shape& s,
                                        int tap, int c0) const {
-    const int dh = kTaps == 1 ? 0 : tap / 3 - 1;
-    const int dw = kTaps == 1 ? 0 : tap % 3 - 1;
+    static_assert(kTaps == 1 || kTaps == 3 || kTaps == 9, "taps");
+    const int dh = kTaps == 9 ? tap / 3 - 1 : 0;
+    const int dw = kTaps == 9 ? tap % 3 - 1 : kTaps == 3 ? tap - 1 : 0;
     const int seg = threadIdx.x % kSegs;
     const int c = c0 + seg * 8;
     const long long shift = dh * x.sh + dw * x.sw + c;
@@ -224,10 +251,10 @@ struct Gather {
 // weight rows c0 .. c0 + kBK - 1 of tap `tap` of w (taps x cp x cp, input
 // channels on rows), columns n0 .. n0 + BN - 1, into the B stage; zeros past
 // cp
-template <int BN>
+template <int BM, int BN>
 __device__ __forceinline__ void load_b(bf16* sb, const bf16* w, int cp,
                                        int tap, int c0, int n0) {
-  constexpr int kBK = Tile<64, BN>::kBK;
+  constexpr int kBK = Tile<BM, BN>::kBK;
   constexpr int kSegs = BN / 8;  // 16-byte segments of a row
 #pragma unroll
   for (int j = 0; j < kBK * kSegs / kThreads; ++j) {
@@ -282,6 +309,14 @@ __device__ __forceinline__ void gemm(float (&acc)[2][Tile<BM, BN>::kNT][4],
           mma_bf16(acc[mt][2 * p], a[mt], b[0], b[1]);
           mma_bf16(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
         }
+      }
+      if constexpr (T::kNT % 2 == 1) {  // the last n8 tile on its own
+        unsigned b[2];
+        ldmatrix_x2_trans(b, sb + (kk + (lane & 15)) * T::kLdB +
+                                 wn * T::kWN + (T::kNT - 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_bf16(acc[mt][T::kNT - 1], a[mt], b[0], b[1]);
       }
     }
   }
@@ -372,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       [&](bf16* stage, int kc) {
         const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
         g.template load<kTaps>(stage, x, s, tap, c0);
-        load_b<BN>(stage + T::kStageA, w, s.cp, tap, c0, n0);
+        load_b<BM, BN>(stage + T::kStageA, w, s.cp, tap, c0, n0);
       },
       [&](const bf16* stage, int, int kk, int mt) {
         return stage + (wm * 32 + mt * 16 + (lane & 15)) * T::kLdA + kk +
@@ -381,10 +416,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   store_tile<BM, BN>(acc, s, e, m0, n0);
 }
 
-// K4/K5's tail over BM positions: h2 = prelu(conv3x3(h1, w2) + b2, a2) for
-// every column into shared memory (zero past cp), then y = prelu((h2 w3 +
-// b3) + x, a3) through the epilogue e (bias b3, slope a3, res x).
-template <int BM, int BN>
+// The resnet blocks' tail over BM positions: h2 = prelu(conv(h1, w2) + b2,
+// a2) (kTaps 9: K4/K5's 3x3; 3: K6's 1d taps) for every column into shared
+// memory (zero past cp), then y = prelu((h2 w3 + b3) + x, a3) through the
+// epilogue e (bias b3, slope a3, res x).
+template <int BM, int BN, int kTaps>
 __global__ void __launch_bounds__(kThreads, 2)
     resnet_tail_kernel(Map h1, const bf16* __restrict__ w2,
                        const bf16* __restrict__ w3,
@@ -406,11 +442,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int n0 = 0; n0 < kpad; n0 += BN) {
     float acc[2][T::kNT][4] = {};
     gemm<BM, BN>(
-        acc, 9 * kct, ring,
+        acc, kTaps * kct, ring,
         [&](bf16* stage, int kc) {
           const int tap = kc / kct, c0 = (kc - tap * kct) * kBK;
-          g.template load<9>(stage, h1, s, tap, c0);
-          load_b<BN>(stage + T::kStageA, w2, s.cp, tap, c0, n0);
+          g.template load<kTaps>(stage, h1, s, tap, c0);
+          load_b<BM, BN>(stage + T::kStageA, w2, s.cp, tap, c0, n0);
         },
         [&](const bf16* stage, int, int kk, int mt) {
           return stage + (wm * 32 + mt * 16 + (lane & 15)) * T::kLdA + kk +
@@ -444,7 +480,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     gemm<BM, BN>(
         acc, kct, ring,
         [&](bf16* stage, int kc) {
-          load_b<BN>(stage + T::kStageA, w3, s.cp, 0, kc * kBK, n0);
+          load_b<BM, BN>(stage + T::kStageA, w3, s.cp, 0, kc * kBK, n0);
         },
         [&](const bf16*, int kc, int kk, int mt) {
           return h2 + (wm * 32 + mt * 16 + (lane & 15)) * ldh + kc * kBK + kk +
@@ -452,6 +488,22 @@ __global__ void __launch_bounds__(kThreads, 2)
         });
     store_tile<BM, BN>(acc, s, e, m0, n0);
   }
+}
+
+// Raise the kernel's dynamic shared memory limit to smem bytes, once per
+// kernel and device: the call costs host time on every launch otherwise.
+template <auto kKernel>
+cudaError_t allow_smem(int smem) {
+  constexpr int kDevices = 64;
+  static int allowed[kDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kDevices && allowed[device] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < kDevices) allowed[device] = smem;
+  return err;
 }
 
 template <int BM, int BN>
@@ -463,28 +515,39 @@ template <int BM, int BN, int kTaps>
 cudaError_t launch_conv(const Map& x, const bf16* w, const Shape& s,
                         const Epilogue& e, int smem, cudaStream_t stream) {
   if (smem < ring_bytes<BM, BN>()) return cudaErrorInvalidValue;
-  auto kernel = conv_kernel<BM, BN, kTaps>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = allow_smem<conv_kernel<BM, BN, kTaps>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.m_total + BM - 1) / BM, (e.n_write + BN - 1) / BN);
-  kernel<<<grid, kThreads, smem, stream>>>(x, w, s, e);
+  conv_kernel<BM, BN, kTaps><<<grid, kThreads, smem, stream>>>(x, w, s, e);
   return cudaGetLastError();
 }
 
-// the plan's tiles: 256 x 64 for cp <= 64, else 128 x 128
+// A launch's tiles (ops/kernels.conv_plan, small_map_plan): 256 x 64 and
+// 128 x 128 for K7's 3x3 convolutions and the blocks' 1x1 h1; 64 x 128,
+// 64 x 64 and 32 x 64 for K6's small maps (1x1 and 1d taps), which need
+// more, smaller tiles to fill the card
 template <int kTaps>
 cudaError_t launch_conv_plan(int bm, int bn, const Map& x, const bf16* w,
                              const Shape& s, const Epilogue& e, int smem,
                              cudaStream_t stream) {
-  if (bm == 256 && bn == 64)
-    return launch_conv<256, 64, kTaps>(x, w, s, e, smem, stream);
-  if (bm == 128 && bn == 128)
-    return launch_conv<128, 128, kTaps>(x, w, s, e, smem, stream);
+  if constexpr (kTaps != 3) {
+    if (bm == 256 && bn == 64)
+      return launch_conv<256, 64, kTaps>(x, w, s, e, smem, stream);
+    if (bm == 128 && bn == 128)
+      return launch_conv<128, 128, kTaps>(x, w, s, e, smem, stream);
+  }
+  if constexpr (kTaps != 9) {
+    if (bm == 64 && bn == 128)
+      return launch_conv<64, 128, kTaps>(x, w, s, e, smem, stream);
+    if (bm == 64 && bn == 64)
+      return launch_conv<64, 64, kTaps>(x, w, s, e, smem, stream);
+    if (bm == 32 && bn == 64)
+      return launch_conv<32, 64, kTaps>(x, w, s, e, smem, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
-template <int BM, int BN>
+template <int BM, int BN, int kTaps>
 cudaError_t launch_tail(const Map& h1, const bf16* w2, const bf16* w3,
                         const float* b2, const float* a2, const Shape& s,
                         const Epilogue& e, int smem, cudaStream_t stream) {
@@ -492,18 +555,78 @@ cudaError_t launch_tail(const Map& h1, const bf16* w2, const bf16* w3,
   const int kpad = (s.cp + kBK - 1) / kBK * kBK;
   if (smem < ring_bytes<BM, BN>() + BM * (kpad + 8) * 2)
     return cudaErrorInvalidValue;
-  auto kernel = resnet_tail_kernel<BM, BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      allow_smem<resnet_tail_kernel<BM, BN, kTaps>>(smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(s.m_total + BM - 1) / BM, kThreads, smem, stream>>>(
-      h1, w2, w3, b2, a2, s, e);
+  resnet_tail_kernel<BM, BN, kTaps>
+      <<<(s.m_total + BM - 1) / BM, kThreads, smem, stream>>>(h1, w2, w3, b2,
+                                                             a2, s, e);
   return cudaGetLastError();
+}
+
+// the tail's tiles (ops/kernels.tail_plan)
+template <int kTaps>
+cudaError_t launch_tail_plan(int bm, int bn, const Map& h1, const bf16* w2,
+                             const bf16* w3, const float* b2, const float* a2,
+                             const Shape& s, const Epilogue& e, int smem,
+                             cudaStream_t stream) {
+  if (bm == 256 && bn == 64)
+    return launch_tail<256, 64, kTaps>(h1, w2, w3, b2, a2, s, e, smem, stream);
+  if (bm == 128 && bn == 128)
+    return launch_tail<128, 128, kTaps>(h1, w2, w3, b2, a2, s, e, smem,
+                                        stream);
+  if (bm == 64 && bn == 64)
+    return launch_tail<64, 64, kTaps>(h1, w2, w3, b2, a2, s, e, smem, stream);
+  if (bm == 64 && bn == 128)
+    return launch_tail<64, 128, kTaps>(h1, w2, w3, b2, a2, s, e, smem, stream);
+  return cudaErrorInvalidValue;
 }
 
 Map rows_of(const void* p, long long sb, long long sh, long long sw,
             int channels) {
   return Map{static_cast<const bf16*>(p), sb, sh, sw, channels};
+}
+
+// One launch of a plan: its tiles' rows and columns and shared bytes.
+struct Launch {
+  int bm, bn, smem;
+};
+
+// The folded resnet block (K4/K5: kTaps 9; K6: 3) on the map xm into out
+// (element strides osb, osh, osw, contiguous channels). h1 = prelu(x w1 +
+// b1, a1) to the scratch h1 (B, H, W, cp); then either the tail (two
+// launches: h2 in shared memory), or, with three launches, h2 = prelu(conv(
+// h1, w2) + b2, a2) to the scratch h2 (B, H, W, cp) and y = prelu((h2 w3 +
+// b3) + x, a3), each tiled over positions and columns.
+template <int kTaps>
+cudaError_t resnet_block(const Map& xm, const bf16* w1, const bf16* w2,
+                         const bf16* w3, const float* b, const float* a,
+                         bf16* h1, bf16* h2, bf16* out, long long osb,
+                         long long osh, long long osw, int pairs,
+                         const Shape& s, int channels, int n_launches,
+                         const Launch* plan, cudaStream_t st) {
+  const int cp = s.cp;
+  const long long hsw = cp, hsh = hsw * s.width, hsb = hsh * s.height;
+  const Epilogue e1{b, a, nullptr, 0, 0, 0, h1, hsb, hsh, hsw, cp, cp, 1};
+  cudaError_t err =
+      launch_conv_plan<1>(plan[0].bm, plan[0].bn, xm, w1, s, e1,
+                          plan[0].smem, st);
+  if (err != cudaSuccess) return err;
+  const Map hm = rows_of(h1, hsb, hsh, hsw, cp);
+  const Epilogue ey{b + 2 * cp, a + 2 * cp, xm.ptr, xm.sb, xm.sh, xm.sw,
+                    out, osb, osh, osw, channels, channels, pairs};
+  if (n_launches == 2)
+    return launch_tail_plan<kTaps>(plan[1].bm, plan[1].bn, hm, w2, w3,
+                                   b + cp, a + cp, s, ey, plan[1].smem, st);
+  if (n_launches != 3 || h2 == nullptr) return cudaErrorInvalidValue;
+  const Epilogue e2{b + cp, a + cp, nullptr, 0, 0, 0, h2, hsb, hsh, hsw,
+                    cp, cp, 1};
+  err = launch_conv_plan<kTaps>(plan[1].bm, plan[1].bn, hm, w2, s, e2,
+                                plan[1].smem, st);
+  if (err != cudaSuccess) return err;
+  return launch_conv_plan<1>(plan[2].bm, plan[2].bn,
+                             rows_of(h2, hsb, hsh, hsw, cp), w3, s, ey,
+                             plan[2].smem, st);
 }
 
 }  // namespace
@@ -556,34 +679,39 @@ extern "C" int resnet_block_2d_launch(
     int width, int bm, int bn, int smem, int tail_bm, int tail_bn,
     int tail_smem, void* stream) {
   const Shape s{height, width, n_batch * height * width, cp};
-  const long long hsw = cp, hsh = hsw * width, hsb = hsh * height;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  const float* a = static_cast<const float*>(slope);
-  const Map xm = rows_of(x, sb, sh, sw, x_channels);
-  const Epilogue e1{b, a, nullptr, 0, 0, 0, static_cast<bf16*>(h1),
-                    hsb, hsh, hsw, cp, cp, 1};
-  cudaError_t err = launch_conv_plan<1>(
-      bm, bn, xm, static_cast<const bf16*>(w1), s, e1, smem, st);
-  if (err != cudaSuccess) return err;
-  const Map hm = rows_of(h1, hsb, hsh, hsw, cp);
-  const Epilogue e3{b + 2 * cp, a + 2 * cp, xm.ptr, sb, sh, sw,
-                    static_cast<bf16*>(out), osb, osh, osw,
-                    channels, channels, pairs};
-  const bf16* w2b = static_cast<const bf16*>(w2);
-  const bf16* w3b = static_cast<const bf16*>(w3);
-  if (tail_bm == 256 && tail_bn == 64)
-    return launch_tail<256, 64>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                tail_smem, st);
-  if (tail_bm == 128 && tail_bn == 128)
-    return launch_tail<128, 128>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                 tail_smem, st);
-  if (tail_bm == 64 && tail_bn == 64)
-    return launch_tail<64, 64>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                               tail_smem, st);
-  if (tail_bm == 64 && tail_bn == 128)
-    return launch_tail<64, 128>(hm, w2b, w3b, b + cp, a + cp, s, e3,
-                                tail_smem, st);
-  return cudaErrorInvalidValue;
+  const Launch plan[2] = {{bm, bn, smem}, {tail_bm, tail_bn, tail_smem}};
+  return resnet_block<9>(
+      rows_of(x, sb, sh, sw, x_channels), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(w3),
+      static_cast<const float*>(bias), static_cast<const float*>(slope),
+      static_cast<bf16*>(h1), nullptr, static_cast<bf16*>(out), osb, osh,
+      osw, pairs, s, channels, 2, plan, static_cast<cudaStream_t>(stream));
 }
 
+// K6, on a (B, C, T) map: the core with H = 1 and W = T. x: channel rows
+// (element strides sb per clip, st per frame; as basic_block_launch). w1,
+// w3: bf16 (cp, cp); w2: bf16 (3, cp, cp), taps t - 1, t, t + 1; bias,
+// slope: as resnet_block_2d_launch. h1, h2: scratch bf16 (B, T, cp),
+// contiguous (h2 unused, may be null, with two launches). out: bf16 with
+// element strides osb, ost and contiguous channels. n_launches: 2 (h1,
+// then the tail) or 3 (h1, h2, y: small maps); bm*, bn*, smem*: each
+// launch's tiles and shared bytes (ops/kernels.resnet_block_1d_plan).
+// Returns the first cudaError_t of the launches.
+extern "C" int resnet_block_1d_launch(
+    const void* x, long long sb, long long st, int x_channels,
+    const void* w1, const void* w2, const void* w3, const void* bias,
+    const void* slope, void* h1, void* h2, void* out, long long osb,
+    long long ost, int pairs, int n_batch, int channels, int cp, int length,
+    int n_launches, int bm0, int bn0, int smem0, int bm1, int bn1, int smem1,
+    int bm2, int bn2, int smem2, void* stream) {
+  const Shape s{1, length, n_batch * length, cp};
+  const Launch plan[3] = {
+      {bm0, bn0, smem0}, {bm1, bn1, smem1}, {bm2, bn2, smem2}};
+  return resnet_block<3>(
+      rows_of(x, sb, 0, st, x_channels), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(w3),
+      static_cast<const float*>(bias), static_cast<const float*>(slope),
+      static_cast<bf16*>(h1), static_cast<bf16*>(h2),
+      static_cast<bf16*>(out), osb, 0, ost, pairs, s, channels, n_launches,
+      plan, static_cast<cudaStream_t>(stream));
+}

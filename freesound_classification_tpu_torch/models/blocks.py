@@ -164,7 +164,9 @@ class ResnetBlock2d(_ResnetBlock):
 class ConvBlock1d(nn.Module):
     """BN -> conv3 (pad 1) -> max-pool 2 -> BN -> PReLU -> ResnetBlock1d
     (JAX ``blocks.ConvBlock1d``). Halves T; a time axis of size 1 pools with
-    window 1, where ``max_pool1d`` with window 2 would raise."""
+    window 1, where ``max_pool1d`` with window 2 would raise. With
+    ``fused_infer``, eval-mode forwards keep the map's channels contiguous
+    for K6."""
 
     def __init__(self, in_channels: int, depth: int,
                  fused_infer: bool = False):
@@ -176,11 +178,26 @@ class ConvBlock1d(nn.Module):
         self.resnet = ResnetBlock1d(depth, fused_infer)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv(self.bn_in(x))
-        if x.shape[2] >= 2:
-            h = F.max_pool1d(h, 2)
+        if self.resnet.fused_infer and not self.training:
+            h = self._head_channels_contiguous(self.bn_in(x))
+        else:
+            h = self.conv(self.bn_in(x))
+            if x.shape[2] >= 2:
+                h = F.max_pool1d(h, 2)
         h = self.prelu(self.bn_out(h))
         return self.resnet(h)
+
+    def _head_channels_contiguous(self, x: torch.Tensor) -> torch.Tensor:
+        """conv and pool over (B, C, 1, T) in channels_last memory: the map
+        K6 is handed keeps its channels contiguous (the JAX package's
+        (B, T, C)), which K6 reads in place, where ``conv1d`` would make its
+        input contiguous and return a time-major map that K6 copies."""
+        x4 = x.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+        h = F.conv2d(x4, self.conv.weight.to(x.dtype).unsqueeze(2),
+                     self.conv.bias.to(x.dtype), padding=(0, 1))
+        if x.shape[2] >= 2:
+            h = F.max_pool2d(h, (1, 2))
+        return h.squeeze(2)
 
 
 class ConvBlock2d(nn.Module):

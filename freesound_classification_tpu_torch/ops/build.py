@@ -116,11 +116,14 @@ def load_library() -> ctypes.CDLL:
     #                       stream) -> cudaError_t
     lib.pv_resynth_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.pv_resynth_launch.restype = i32
-    # int resnet_block_1d_launch(x, w1, w2, w3, bias, slope, out, B, C, cp,
-    #                            T, sb, sc, st, tile, m_rows, r1, stream)
+    # int resnet_block_1d_launch(x, sb, st, x_channels, w1, w2, w3, bias,
+    #                            slope, h1, h2, out, osb, ost, pairs, B, C,
+    #                            cp, T, n_launches, bm0, bn0, smem0, bm1,
+    #                            bn1, smem1, bm2, bn2, smem2, stream)
     #     -> cudaError_t
-    lib.resnet_block_1d_launch.argtypes = ([ptr] * 7 + [i32] * 4 + [i64] * 3
-                                           + [i32] * 3 + [ptr])
+    lib.resnet_block_1d_launch.argtypes = ([ptr] + [i64] * 2 + [i32]
+                                           + [ptr] * 8 + [i64] * 2
+                                           + [i32] * 15 + [ptr])
     lib.resnet_block_1d_launch.restype = i32
     # int basic_block_launch(x, sb, sh, sw, x_channels, w1, w2, bias, h1,
     #                        out, osb, osh, osw, pairs, B, C, cp, H, W, bm,
@@ -139,9 +142,9 @@ def load_library() -> ctypes.CDLL:
     lib.resnet_block_2d_launch.restype = i32
     # int conv_head_launch(x, x_bf16, s_in, t_in, w, scale, shift, alpha,
     #                      out, B, C_in, H, W, depth, sb, sc, sh, sw, osb,
-    #                      osc, osh, osw, stream) -> cudaError_t
+    #                      osh, osw, smem, stream) -> cudaError_t
     lib.conv_head_launch.argtypes = ([ptr, i32] + [ptr] * 7 + [i32] * 5
-                                     + [i64] * 8 + [ptr])
+                                     + [i64] * 7 + [i32, ptr])
     lib.conv_head_launch.restype = i32
     # int mel_log_split_launch(spec, stride_b, stride_t, im_offset, fb_t, out,
     #                          B, F, T, M, stream) -> cudaError_t

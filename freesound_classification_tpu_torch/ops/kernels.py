@@ -12,12 +12,13 @@ Each replaces a TPU kernel of
 - K3, ``pv_resynth`` (``csrc/pv_resynth.cu``, replaces
   ``_pv_resynth_kernel``): phase-vocoder resynthesis with overlap-add, the
   output half of the chain's PV stretch.
-- K4/K5, ``resnet_block_2d_fused`` (``csrc/conv_blocks.cu``, replaces
-  ``_fused_kernel`` and ``_fused_t_kernel`` of ``ops/pallas_resnet.py``),
-  and K6, ``resnet_block_1d_fused`` (``csrc/resnet_block.cu``, replaces
-  ``_fused_1d_kernel`` of ``ops/pallas_resnet1d.py``): the eval-mode resnet
-  block with BatchNorm folded, the ``fused_infer`` option of the models.
-- K7, ``basic_block_fused`` (``csrc/conv_blocks.cu``, on K4/K5's
+- K4/K5, ``resnet_block_2d_fused`` (replaces ``_fused_kernel`` and
+  ``_fused_t_kernel`` of ``ops/pallas_resnet.py``), and K6,
+  ``resnet_block_1d_fused`` (replaces ``_fused_1d_kernel`` of
+  ``ops/pallas_resnet1d.py``), both on the convolution core of
+  ``csrc/conv_blocks.cu``: the eval-mode resnet block with BatchNorm
+  folded, the ``fused_infer`` option of the models.
+- K7, ``basic_block_fused`` (``csrc/conv_blocks.cu``, on the same
   convolution core; replaces
   ``_basic_t_kernel`` of ``ops/pallas_backbone.py``): the eval-mode
   stride-1 identity BasicBlock of the backbone, BatchNorm folded
@@ -421,7 +422,6 @@ pv_resynth.launches = 0
 # ---------------------------------------------------------------------------
 
 _MAX_SHARED_BYTES = 232448  # dynamic shared memory a Hopper block may use
-_RESNET_WARPS = 8  # K6's warps, each with a 16 x 16 float32 stage
 
 
 class FusedBlockWeights(NamedTuple):
@@ -540,82 +540,12 @@ def _check_block_input(name: str, x: torch.Tensor, channels: int,
                          f"channel {spatial}d block")
 
 
-def _resnet_shared_bytes(r1: int, m_rows: int, cp: int) -> int:
-    """K6: x and h1 (r1 rows), h2 (m_rows rows) in bf16, the warps' float32
-    stages, six float32 vectors, and an int64 offset per row."""
-    return ((2 * r1 + m_rows) * (cp + 16) * 2
-            + (_RESNET_WARPS * 256 + 6 * cp) * 4 + (r1 + m_rows) * 8)
-
-
 def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-@functools.lru_cache(maxsize=256)
-def resnet_block_1d_tiles(cp: int, length: int) -> tuple:
-    """K6's tile: (tile, m_rows, r1). A tile is up to 64 frames; m_rows is
-    the tile rounded to 16; r1, the shared rows of x and h1, covers the
-    one-frame halo and every row the taps read. Tiles shrink by 16 frames
-    until shared memory fits."""
-    tile = min(length, 64)
-    while True:
-        m_rows = _round16(tile)
-        r1 = _round16(max(tile + 2, m_rows + 2))
-        if _resnet_shared_bytes(r1, m_rows, cp) <= _MAX_SHARED_BYTES:
-            return tile, m_rows, r1
-        if tile == 1:
-            raise ValueError(f"resnet block: {cp} channels do not fit "
-                             "shared memory")
-        tile = max(1, tile - 16)
-
-
-def resnet_block_1d_fused(x: torch.Tensor,
-                          wts: FusedBlockWeights) -> torch.Tensor:
-    """K6: the folded ResnetBlock1d on a (B, C, T) map, any strides, any
-    float dtype (rounded to bf16 on the way in, bf16 values out in x's
-    dtype). CPU tensors take ``resnet_block_1d_fused_reference``; CUDA
-    tensors launch ``resnet_block_1d_kernel`` (``csrc/resnet_block.cu``)."""
-    if x.device.type == "cpu":
-        return resnet_block_1d_fused_reference(x, wts)
-    name = "resnet_block_1d_fused"
-    _check_block_input(name, x, wts.channels, 1)
-    cp = wts.w1.shape[0]
-    _check_weights(name, x, wts, {
-        "w1": ((cp, cp), torch.bfloat16), "w3": ((cp, cp), torch.bfloat16),
-        "w2": ((3, cp, cp), torch.bfloat16),
-        "bias": ((3, cp), torch.float32), "slope": ((3, cp), torch.float32)})
-    if cp % 16 or not 0 < wts.channels <= cp:
-        raise ValueError(f"{name}: {wts.channels} channels padded to {cp}")
-    xb = x.to(torch.bfloat16)
-    out = torch.empty_like(xb)
-    if out.stride() != xb.stride():  # not dense: the kernel reads out's
-        xb = torch.empty_like(xb).copy_(xb)
-    n_batch, _, length = x.shape
-    tile, m_rows, r1 = resnet_block_1d_tiles(cp, length)
-    if n_batch * -(-length // tile) >= 2**31:
-        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the grid")
-
-    from freesound_classification_tpu_torch.ops import build
-
-    lib = build.load_library()
-    with torch.cuda.device(x.device):
-        err = lib.resnet_block_1d_launch(
-            xb.data_ptr(), wts.w1.data_ptr(), wts.w2.data_ptr(),
-            wts.w3.data_ptr(), wts.bias.data_ptr(), wts.slope.data_ptr(),
-            out.data_ptr(), n_batch, wts.channels, cp, length, *xb.stride(),
-            tile, m_rows, r1, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"resnet_block_1d_kernel launch failed: cudaError "
-                           f"{err}")
-    resnet_block_1d_fused.launches += 1
-    return out.to(x.dtype)
-
-
-resnet_block_1d_fused.launches = 0
-
-
 # ---------------------------------------------------------------------------
-# The 2d blocks' convolution core (csrc/conv_blocks.cu): K4/K5 and K7
+# The blocks' convolution core (csrc/conv_blocks.cu): K4/K5, K6 and K7
 # ---------------------------------------------------------------------------
 
 H100_SMS = 132
@@ -632,17 +562,20 @@ class ConvPlan(NamedTuple):
     smem: int
 
 
-def _chunking(bn: int) -> tuple:
-    """(channels a K chunk, stages of the ring) of a tile bn columns wide
-    (``Tile`` in ``csrc/conv_blocks.cu``): 32 x 3 at 64 columns, where two
-    blocks an SM must fit, else 64 x 2 (half the barriers)."""
-    return (32, 3) if bn == 64 else (64, 2)
+def _chunking(bm: int, bn: int) -> tuple:
+    """(channels a K chunk, stages of the ring) of a bm x bn tile (``Tile``
+    in ``csrc/conv_blocks.cu``): 32 x 3 at 64 columns, where two blocks an
+    SM must fit, but 64 x 3 for the 32-row tile (one 16-byte A segment a
+    thread); 64 x 2 at 128 columns (half the barriers)."""
+    if bn == 64:
+        return (32 if bm >= 64 else 64), 3
+    return 64, 2
 
 
 def _ring_bytes(bm: int, bn: int) -> int:
     """The ring: per stage an A chunk (bm rows of bk + 8 channels) and a B
     chunk (bk rows of bn + 8 columns), bf16."""
-    bk, stages = _chunking(bn)
+    bk, stages = _chunking(bm, bn)
     return stages * (bm * (bk + 8) + bk * (bn + 8)) * 2
 
 
@@ -671,10 +604,43 @@ def tail_plan(m_total: int, cp: int) -> ConvPlan:
     bm, bn = _tile(cp)
     if -(-m_total // bm) < 2 * H100_SMS:
         bm = 64
-    bk = _chunking(bn)[0]
+    bk = _chunking(bm, bn)[0]
     kpad = -(-cp // bk) * bk
     return ConvPlan(bm, bn, -(-m_total // bm), 1,
                     _ring_bytes(bm, bn) + bm * (kpad + 8) * 2)
+
+
+# K6's small-map tiles, largest first: the three-launch plan takes the first
+# that puts a wave of blocks on the card
+_SMALL_MAP_TILES = ((64, 128), (64, 64), (32, 64))
+
+
+@functools.lru_cache(maxsize=256)
+def small_map_plan(m_total: int, n_write: int) -> ConvPlan:
+    """One launch of K6's three-launch plan (``conv_kernel`` over
+    ``m_total`` positions writing ``n_write`` columns), tiled over positions
+    and columns: the largest of ``_SMALL_MAP_TILES`` whose grid fills the
+    132 SMs, else the smallest (the largest grid the map allows). 128-column
+    tiles only where there are more than 64 columns."""
+    plans = [ConvPlan(bm, bn, -(-m_total // bm), -(-n_write // bn),
+                      _ring_bytes(bm, bn))
+             for bm, bn in _SMALL_MAP_TILES if bn == 64 or n_write > 64]
+    return next((p for p in plans if p.grid_m * p.grid_n >= H100_SMS),
+                plans[-1])
+
+
+@functools.lru_cache(maxsize=256)
+def resnet_block_1d_plan(m_total: int, channels: int, cp: int) -> tuple:
+    """K6's launches on the core: K4/K5's two (``conv_plan`` for h1, then
+    ``tail_plan``, h2 in shared memory) where the tail's grid fills the
+    card; else three (h1, h2 through device memory, y), each tiled over
+    positions and columns (``small_map_plan``), so that the weights are
+    split across blocks rather than streamed whole by each of a few."""
+    tail = tail_plan(m_total, cp)
+    if tail.grid_m >= H100_SMS:
+        return conv_plan(m_total, cp, cp), tail
+    return (small_map_plan(m_total, cp), small_map_plan(m_total, cp),
+            small_map_plan(m_total, channels))
 
 
 def _channel_rows(x: torch.Tensor, cp: int) -> tuple:
@@ -753,6 +719,63 @@ def resnet_block_2d_fused(x: torch.Tensor,
 
 
 resnet_block_2d_fused.launches = 0
+
+
+def resnet_block_1d_fused(x: torch.Tensor,
+                          wts: FusedBlockWeights) -> torch.Tensor:
+    """K6: the folded ResnetBlock1d on a (B, C, T) map (read in place when
+    its channels are contiguous with C % 8 == 0, the fused hierarchical
+    path's layout; others through a padded copy), any float dtype (rounded
+    to bf16 on the way in) -> bf16 values in x's dtype, channels contiguous.
+    CPU tensors take ``resnet_block_1d_fused_reference``; CUDA tensors
+    launch ``csrc/conv_blocks.cu`` with H = 1 and W = T, as
+    ``resnet_block_1d_plan`` plans it."""
+    if x.device.type == "cpu":
+        return resnet_block_1d_fused_reference(x, wts)
+    name = "resnet_block_1d_fused"
+    _check_block_input(name, x, wts.channels, 1)
+    cp = wts.w1.shape[0]
+    _check_weights(name, x, wts, {
+        "w1": ((cp, cp), torch.bfloat16), "w3": ((cp, cp), torch.bfloat16),
+        "w2": ((3, cp, cp), torch.bfloat16),
+        "bias": ((3, cp), torch.float32), "slope": ((3, cp), torch.float32)},
+        aligned=True)
+    if cp % 16 or not 0 < wts.channels <= cp:
+        raise ValueError(f"{name}: {wts.channels} channels padded to {cp}")
+    n_batch, c, length = x.shape
+    m_total = n_batch * length
+    if m_total >= 2**31:
+        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the grid")
+    rows, (sb, _, st), readable = _channel_rows(x.unsqueeze(2), cp)
+    plan = resnet_block_1d_plan(m_total, c, cp)
+    # h1, and h2 where three launches pass it through device memory
+    scratch = torch.empty((len(plan) - 1, m_total, cp), dtype=torch.bfloat16,
+                          device=x.device)
+    out = torch.empty((n_batch, length, c), dtype=torch.bfloat16,
+                      device=x.device).transpose(1, 2)
+    tiles = [v for p in plan for v in (p.bm, p.bn, p.smem)]
+    tiles += [0] * (9 - len(tiles))
+
+    from freesound_classification_tpu_torch.ops import build
+
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.resnet_block_1d_launch(
+            rows.data_ptr(), sb, st, readable, wts.w1.data_ptr(),
+            wts.w2.data_ptr(), wts.w3.data_ptr(), wts.bias.data_ptr(),
+            wts.slope.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + (len(plan) - 2) * m_total * cp * 2,
+            out.data_ptr(), out.stride(0), c,
+            int(c % 2 == 0), n_batch, c, cp, length, len(plan), *tiles,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"resnet_block_1d kernels launch failed: cudaError "
+                           f"{err}")
+    resnet_block_1d_fused.launches += 1
+    return out if x.dtype == torch.bfloat16 else out.to(x.dtype)
+
+
+resnet_block_1d_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -860,14 +883,16 @@ basic_block_fused.launches = 0
 # ---------------------------------------------------------------------------
 
 HEAD_MAX_IN = 4  # input channels the kernel takes (block0 has 2)
-HEAD_TILE = (8, 32)  # pooled rows and columns per block of the kernel
+HEAD_TILE = (8, 32)  # pooled rows and columns a tile of the kernel
+_HEAD_PATCH_ROW = 81  # the staged input's row in pixels (17 mod 32)
 
 
 class HeadWeights(NamedTuple):
     """A folded head as K8 reads it: s_in, t_in (C_in,) float32 (bn_in, an
-    affine on the input), w (9, C_in, depth) bf16, tap 3 dh + dw; scale,
-    shift and alpha (depth,) float32 (bn_out with the conv bias folded in,
-    applied after the pool, and the PReLU slopes)."""
+    affine on the input); w the packed (K, depth) bf16 operand of the
+    conv's matrix product (``pack_conv_head``); scale, shift and alpha
+    (depth,) float32 (bn_out with the conv bias folded in, applied after
+    the pool, and the PReLU slopes)."""
 
     s_in: torch.Tensor
     t_in: torch.Tensor
@@ -877,15 +902,70 @@ class HeadWeights(NamedTuple):
     alpha: torch.Tensor
 
 
+def _head_pairs(c_in: int) -> int:
+    """CP: C_in rounded up to even, so that each pair of K rows is one
+    tap's two channels."""
+    return c_in + c_in % 2
+
+
+def head_k_rows(c_in: int) -> int:
+    """K of the head's matrix product: 9 taps x CP, zero-padded to a
+    multiple of 16 (the k of mma.sync m16n8k16; the kernel runs the last
+    2 or 4 real k as one m16n8k8): 32 for C_in <= 2, else 48."""
+    return -(-9 * _head_pairs(c_in) // 16) * 16
+
+
 def pack_conv_head(fp: dict) -> HeadWeights:
     """A folded head (``ops/head_infer.fold_head_params``, float32) -> its
-    kernel weights: the conv kernel rounded once to bf16."""
+    kernel weights: the conv kernel (3, 3, C_in, depth), rounded once to
+    bf16, as the (K, depth) operand: row tap CP + ci (tap 3 dh + dw), zero
+    for the padding channel ci >= C_in and past 9 CP."""
     c_in, depth = fp["kern"].shape[2:]
+    cp = _head_pairs(c_in)
+    w = F.pad(fp["kern"].reshape(9, c_in, depth).float(),
+              (0, 0, 0, cp - c_in)).reshape(9 * cp, depth)
+    w = F.pad(w, (0, 0, 0, head_k_rows(c_in) - 9 * cp))
     return HeadWeights(
         fp["s_in"].float().contiguous(), fp["t_in"].float().contiguous(),
-        fp["kern"].reshape(9, c_in, depth).to(torch.bfloat16).contiguous(),
-        fp["scale"].float().contiguous(), fp["bias"].float().contiguous(),
-        fp["alpha"].float().contiguous())
+        w.to(torch.bfloat16).contiguous(), fp["scale"].float().contiguous(),
+        fp["bias"].float().contiguous(), fp["alpha"].float().contiguous())
+
+
+def head_conv_weight(wts: HeadWeights) -> torch.Tensor:
+    """The conv weight (depth, C_in, 3, 3), float32, of the packed
+    operand."""
+    c_in, depth = wts.s_in.shape[0], wts.w.shape[1]
+    cp = _head_pairs(c_in)
+    return wts.w[:9 * cp].float().reshape(3, 3, cp, depth)[:, :, :c_in] \
+        .permute(3, 2, 0, 1)
+
+
+class HeadPlan(NamedTuple):
+    """K8's launch: ``tiles_h`` x ``tiles_w`` tiles of ``tile_h`` x
+    ``tile_w`` pooled outputs a clip, ``n_tiles`` in all (blocks walk them
+    in turn), ``smem`` bytes of shared memory a block."""
+
+    tile_h: int
+    tile_w: int
+    tiles_h: int
+    tiles_w: int
+    n_tiles: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def head_plan(n_batch: int, c_in: int, h_out: int, w_out: int,
+              depth: int) -> HeadPlan:
+    """K8's tiles and shared memory (``smem_bytes`` in
+    ``csrc/conv_head.cu``): the staging tile of pooled outputs (bf16, in
+    TMA's boxes of 16 channels) and the staged input (2 tile_h + 2 rows of
+    ``_HEAD_PATCH_ROW`` pixels of CP bf16)."""
+    th, tw = HEAD_TILE
+    tiles_h, tiles_w = -(-h_out // th), -(-w_out // tw)
+    smem = (th * tw * depth * 2
+            + (2 * th + 2) * _HEAD_PATCH_ROW * _head_pairs(c_in) * 2)
+    return HeadPlan(th, tw, tiles_h, tiles_w, n_batch * tiles_h * tiles_w,
+                    smem)
 
 
 def conv_head_fused_reference(x: torch.Tensor,
@@ -894,15 +974,13 @@ def conv_head_fused_reference(x: torch.Tensor,
     H // 2, W // 2) bf16. bn_in(x) in float32 rounded to bf16 (the SAME
     zeros are zeros of bn_in(x)), the bf16 conv with float32 sums, the 2x2
     max of the float32 conv outputs, ``* scale + shift``, PReLU, bf16."""
-    c_in, depth = wts.w.shape[1:]
 
     def per_channel(v):
         return v.view(1, -1, 1, 1)
 
     xa = (x.float() * per_channel(wts.s_in) + per_channel(wts.t_in)) \
         .to(torch.bfloat16).float()
-    k = wts.w.float().reshape(3, 3, c_in, depth).permute(3, 2, 0, 1)
-    y = F.max_pool2d(F.conv2d(xa, k, padding=1), 2)
+    y = F.max_pool2d(F.conv2d(xa, head_conv_weight(wts), padding=1), 2)
     y = y * per_channel(wts.scale) + per_channel(wts.shift)
     return torch.where(y >= 0, y, per_channel(wts.alpha) * y) \
         .to(torch.bfloat16)
@@ -912,20 +990,21 @@ def conv_head_fused(x: torch.Tensor, wts: HeadWeights) -> torch.Tensor:
     """K8: the folded head on an NCHW map (any strides; float32 or bf16)
     -> (B, depth, H // 2, W // 2) bf16 in channels_last memory. CPU tensors
     take ``conv_head_fused_reference``; CUDA tensors launch
-    ``conv_head_kernel`` (``csrc/conv_head.cu``). 1 <= C_in <= 4, H and
-    W >= 2, depth a multiple of 16 in [16, 128]."""
+    ``conv_head_kernel`` (``csrc/conv_head.cu``, tiles of ``head_plan``).
+    1 <= C_in <= 4, H and W >= 2, depth a multiple of 16 in [16, 128]."""
     if x.device.type == "cpu":
         return conv_head_fused_reference(x, wts)
     name = "conv_head_fused"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must be on the CPU or a CUDA device, "
                          f"got {x.device}")
-    c_in, depth = wts.w.shape[1:]
+    c_in, (k_rows, depth) = wts.s_in.shape[0], wts.w.shape
     if (x.dim() != 4 or x.shape[1] != c_in or not 1 <= c_in <= HEAD_MAX_IN
             or min(x.shape[2:]) < 2 or x.shape[0] <= 0
-            or depth % 16 or not 16 <= depth <= 128):
+            or depth % 16 or not 16 <= depth <= 128
+            or k_rows != head_k_rows(c_in)):
         raise ValueError(f"{name}: unsupported x {tuple(x.shape)} for "
-                         f"{c_in} -> {depth} channels")
+                         f"{c_in} -> {depth} channels, K {k_rows}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
@@ -939,21 +1018,21 @@ def conv_head_fused(x: torch.Tensor, wts: HeadWeights) -> torch.Tensor:
     h_out, w_out = height // 2, width // 2
     out = torch.empty((n_batch, depth, h_out, w_out), dtype=torch.bfloat16,
                       device=x.device, memory_format=torch.channels_last)
-    blocks = (n_batch * -(-h_out // HEAD_TILE[0])
-              * -(-w_out // HEAD_TILE[1]))
-    if blocks >= 2**31:
-        raise ValueError(f"{name}: {blocks} blocks exceed the grid")
+    plan = head_plan(n_batch, c_in, h_out, w_out, depth)
+    if plan.n_tiles >= 2**31:
+        raise ValueError(f"{name}: {plan.n_tiles} tiles exceed the grid")
 
     from freesound_classification_tpu_torch.ops import build
 
     lib = build.load_library()
+    osb, _, osh, osw = out.stride()
     with torch.cuda.device(x.device):
         err = lib.conv_head_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16), wts.s_in.data_ptr(),
             wts.t_in.data_ptr(), wts.w.data_ptr(), wts.scale.data_ptr(),
             wts.shift.data_ptr(), wts.alpha.data_ptr(), out.data_ptr(),
-            n_batch, c_in, height, width, depth, *x.stride(), *out.stride(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            n_batch, c_in, height, width, depth, *x.stride(), osb, osh, osw,
+            plan.smem, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv_head_kernel launch failed: cudaError {err}")
     conv_head_fused.launches += 1

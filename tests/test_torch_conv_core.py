@@ -180,6 +180,51 @@ def test_k45_two_launches_equal_the_plain_twin(c, hw):
         atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("c,length,n_launches", [(12, 4300, 2),
+                                                 (20, 9, 3)])
+def test_k6_launches_equal_the_plain_twin(c, length, n_launches):
+    """K6's launches as ``resnet_block_1d_plan`` plans them: over a long map
+    two (h1 = prelu(x w1 + b1) stored as bf16 in the scratch layout, then
+    the tail's h2 in shared memory and y), over a small one three (h1, then
+    h2 = prelu(conv3(h1) + b2) stored as bf16 in a second scratch, then y):
+    bit for bit ``resnet_block_1d_fused_reference``."""
+    params, stats = interop.random_jax_variables(
+        num_conv_blocks=1, start_deep_supervision_on=0, conv_base_depth=c,
+        growth_rate=1.0, n_classes=2, seed=c, model_kind="hierarchical_cnn",
+        input_dim=3)
+    block = blocks.ResnetBlock1d(c)
+    pre = "blocks.0.resnet."
+    block.load_state_dict({
+        k[len(pre):]: v
+        for k, v in interop.from_jax_variables(params, stats).items()
+        if k.startswith(pre)})
+    wts = resnet_infer.fused_weights(block.eval(),
+                                     resnet_infer.fold_block_params_1d)
+    cp = wts.w1.shape[0]
+    assert len(kernels.resnet_block_1d_plan(2 * length, c, cp)) == n_launches
+    x = _random_x((2, c, length), seed=c + 3)
+
+    def vec(v):
+        return v[:c].view(1, c, 1)
+
+    def mat(w):
+        return w[..., :c, :c].float()
+
+    def scratch(h):
+        return _scratch(h.unsqueeze(2), cp).squeeze(2)
+
+    h1 = scratch(F.prelu(kernels.conv1x1(x, mat(wts.w1)) + vec(wts.bias[0]),
+                         wts.slope[0, :c]))
+    h2 = F.prelu(F.conv1d(h1, mat(wts.w2).permute(2, 1, 0), padding=1)
+                 + vec(wts.bias[1]), wts.slope[1, :c])
+    h2 = scratch(h2) if n_launches == 3 else h2.to(torch.bfloat16).float()
+    y = F.prelu(kernels.conv1x1(h2, mat(wts.w3)) + vec(wts.bias[2]) + x,
+                wts.slope[2, :c]).to(torch.bfloat16)
+    torch.testing.assert_close(
+        y, kernels.resnet_block_1d_fused_reference(x, wts).to(torch.bfloat16),
+        atol=0, rtol=0)
+
+
 def test_channel_rows_read_in_place_or_padded():
     """The model's channels_last map at C % 8 == 0 is read in place; a map
     of another layout or width becomes a zero-padded (B, H, W, cp) copy."""

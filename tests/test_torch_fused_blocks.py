@@ -1,7 +1,8 @@
 """The port's fused eval resnet blocks against the JAX package, on the CPU:
 the BatchNorm fold, the plain versions of K6 (1d) and K4/K5 (2d) against the
 JAX Pallas kernels in interpret mode and against the unfused flax blocks,
-``fused_infer`` at model level, and the wrappers' routing and K6's tiles.
+``fused_infer`` at model level, and the wrappers' routing and K6's launch
+plans on the convolution core.
 
 Block weights are made with numpy from a seed in the JAX package's layout
 (``interop.random_jax_variables``: BatchNorm statistics and PReLU slopes
@@ -321,21 +322,47 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
             torch.empty(1, 12, 2, 2, device="meta"), wts)
 
 
+def _written_once(plan, m_total, n_write):
+    """A ``conv_kernel`` launch's row tiles cover the positions once each
+    (rows past them are masked) and its column tiles cover the columns once
+    each."""
+    assert plan.grid_m * plan.bm >= m_total > (plan.grid_m - 1) * plan.bm
+    assert plan.grid_n * plan.bn >= n_write > (plan.grid_n - 1) * plan.bn
+    assert plan.smem <= kernels._MAX_SHARED_BYTES
+
+
 @pytest.mark.parametrize("c", [64, 96, 144, 216, 324, 486])
 @pytest.mark.parametrize("hw", [(1, 1), (1, 6), (2, 6), (4, 13),
                                 (64, 215), (128, 431)])
 def test_tiles_cover_every_tap_and_fit_shared_memory(c, hw):
-    """K6's tile (ops/kernels.resnet_block_1d_tiles) over hw[1] frames:
-    every row the taps read lies inside the shared rows, the band holds
-    every output frame of the tile, and shared memory fits a Hopper block
-    (K4/K5's tile plans: ``tests/test_torch_conv_core.py``)."""
+    """K6's launches on the convolution core
+    (``kernels.resnet_block_1d_plan``) over the hierarchical path's 128
+    clips of hw[1] frames: every output row and column of each launch is
+    written once and its tiles fit a Hopper block's shared memory. Two
+    launches (h1, then K4/K5's tail with the three 1d taps) where the
+    tail's grid fills the 132 SMs; else three (h1, h2, y), each of whose
+    grids fills the card wherever the smallest tile allows. Which frames a
+    tap reads, across clip boundaries, is checked on the card
+    (``chip_smoke.py``: shifted frames and x padded instead of h1 must fail
+    by far)."""
     cp = -(-c // 16) * 16
-    length = hw[1]
-    tile, m_rows, r1 = kernels.resnet_block_1d_tiles(cp, length)
-    assert m_rows % 16 == 0 and r1 % 16 == 0
-    assert 1 <= tile <= length and m_rows >= tile
-    # x and h1 rows: the tile plus a one-frame halo; conv2 reads rows up to
-    # 1 + m_rows - 1 + 1
-    assert r1 >= max(tile + 2, 1 + m_rows - 1 + 1 + 1)
-    assert (kernels._resnet_shared_bytes(r1, m_rows, cp)
-            <= kernels._MAX_SHARED_BYTES)
+    m_total = 128 * hw[1]
+    plan = kernels.resnet_block_1d_plan(m_total, c, cp)
+    tail = kernels.tail_plan(m_total, cp)
+    if tail.grid_m >= kernels.H100_SMS:
+        first, second = plan
+        assert first == kernels.conv_plan(m_total, cp, cp) and second == tail
+        _written_once(first, m_total, cp)
+        # the tail: one CTA per row tile, h2 over [0, cp) and y over [0, C)
+        # in its column loops, h2 of every row and channel beside the ring
+        assert tail.grid_n == 1
+        _written_once(tail._replace(bn=max(tail.bn, c)), m_total, c)
+        assert tail.smem >= (kernels._ring_bytes(tail.bm, tail.bn)
+                             + tail.bm * cp * 2)
+        return
+    assert len(plan) == 3
+    for launch, n_write in zip(plan, (cp, cp, c)):
+        _written_once(launch, m_total, n_write)
+        assert (launch.bm, launch.bn) in kernels._SMALL_MAP_TILES
+        most = -(-m_total // 32) * -(-n_write // 64)  # the 32 x 64 tile's
+        assert launch.grid_m * launch.grid_n >= min(kernels.H100_SMS, most)

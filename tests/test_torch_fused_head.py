@@ -242,7 +242,7 @@ def test_wrapper_takes_the_plain_version_on_cpu_only():
     _, block = _head(2, 16, seed=8)
     wts = resnet_infer.fused_weights(block, head_infer.fold_head_params,
                                      kernels.pack_conv_head)
-    assert wts.w.shape == (9, 2, 16) and wts.w.dtype == torch.bfloat16
+    assert wts.w.shape == (32, 16) and wts.w.dtype == torch.bfloat16
     x = torch.from_numpy(np.random.RandomState(9).randn(
         2, 2, 6, 7).astype(np.float32))
     before = kernels.conv_head_fused.launches
@@ -283,3 +283,63 @@ def test_build_predictor_takes_fused_head(tmp_path):
     lengths = torch.tensor([8000, 6000, 3000])
     got, want = (preds[f].predict_batch(wave, lengths) for f in (True, False))
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("c_in", [1, 2, 3, 4])
+def test_packed_operand_is_the_conv_as_a_matrix_product(c_in):
+    """``pack_conv_head``'s (K, depth) operand holds row tap CP + ci of the
+    bf16 kernel (CP = C_in rounded up to even), zero for the padding
+    channel and past 9 CP, K = 32 for C_in <= 2 and 48 else; the im2col
+    product of bn_in(x) (K in that order) by it is the plain twin's conv,
+    at float32 rounding (the same bf16 products, summed in another
+    order)."""
+    _, block = _head(c_in, 16, seed=40 + c_in)
+    fp = head_infer.fold_head_params(block)
+    wts = kernels.pack_conv_head(fp)
+    cp = c_in + c_in % 2
+    k_rows = 32 if c_in <= 2 else 48
+    assert wts.w.shape == (k_rows, 16) and wts.w.dtype == torch.bfloat16
+    assert not wts.w[9 * cp:].any()
+    rows = wts.w[:9 * cp].reshape(9, cp, 16)
+    assert not rows[:, c_in:].any()
+    torch.testing.assert_close(
+        rows[:, :c_in], fp["kern"].reshape(9, c_in, 16).to(torch.bfloat16),
+        atol=0, rtol=0)
+    x = torch.from_numpy(np.random.RandomState(c_in).randn(
+        2, c_in, 6, 9).astype(np.float32))
+    xa = (x * wts.s_in.view(1, -1, 1, 1) + wts.t_in.view(1, -1, 1, 1)) \
+        .to(torch.bfloat16).float()
+    xp = torch.nn.functional.pad(xa, (1, 1, 1, 1, 0, cp - c_in))
+    taps = [xp[:, :, dh:dh + 6, dw:dw + 9] for dh in range(3)
+            for dw in range(3)]
+    a = torch.stack(taps, dim=1).permute(0, 3, 4, 1, 2).reshape(
+        2, 6, 9, 9 * cp)
+    a = torch.nn.functional.pad(a, (0, k_rows - 9 * cp))
+    got = a @ wts.w.float()
+    want = torch.nn.functional.conv2d(
+        xa, kernels.head_conv_weight(wts), padding=1).permute(0, 2, 3, 1)
+    # each sum of <= 36 exact products, rounded in two orders
+    bound = 64 * 2.0 ** -24 * (a.abs() @ wts.w.float().abs())
+    assert ((got - want).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("shape,depth", [
+    ((128, 2, 128, 431), 64), ((2, 2, 6, 7), 16), ((3, 1, 17, 65), 48),
+    ((1, 4, 2, 2), 128), ((2, 3, 40, 130), 32)])
+def test_head_plan_covers_every_pooled_output_once(shape, depth):
+    """K8's tiles (``kernels.head_plan``), walked as the kernel walks them
+    (tile t: column tile t % tiles_w, row tile (t / tiles_w) % tiles_h,
+    clip t / (tiles_w tiles_h); outputs past the map are not stored), cover
+    every pooled output once, and a block's shared memory fits."""
+    n_batch, c_in, height, width = shape
+    h_out, w_out = height // 2, width // 2
+    plan = kernels.head_plan(n_batch, c_in, h_out, w_out, depth)
+    th, tw = plan.tile_h, plan.tile_w
+    count = np.zeros((n_batch, plan.tiles_h * th, plan.tiles_w * tw), int)
+    for t in range(plan.n_tiles):
+        rest = t // plan.tiles_w
+        b, i, j = rest // plan.tiles_h, rest % plan.tiles_h, t % plan.tiles_w
+        count[b, i * th:(i + 1) * th, j * tw:(j + 1) * tw] += 1
+    assert (count[:, :h_out, :w_out] == 1).all()
+    assert plan.tiles_h * th - th < h_out and plan.tiles_w * tw - tw < w_out
+    assert plan.smem <= kernels._MAX_SHARED_BYTES
