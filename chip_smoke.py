@@ -38,8 +38,11 @@ Phases, each of which raises on failure (none catches its own):
      bytes it moves beside the function's, and its launches by
      torch.profiler
   4. K2: the resample kernel against its plain twin at the effects chain's
-     shape for the bench's train batch (48 of 64 rows x 10 s), and a wrong
-     factor and a shifted wave failing by far
+     shape for the bench's train batch (48 of 64 rows x 10 s), unmasked and
+     masked to valid lengths as the chain calls it; a wrong factor, a
+     shifted wave and lengths a tenth of a clip short failing by far; timed
+     beside grid_sample and the same mask (a yardstick the port never
+     calls)
   5. K3: the phase-vocoder resynthesis against its plain twin at the same
      shape (n_fft 1024, hop 256), on a real analysis; shifted frames fail;
      the bytes it moves beside the function's, and its three launches by
@@ -53,9 +56,14 @@ Phases, each of which raises on failure (none catches its own):
      before bn_in); each timed in turns with its plain version and its
      bf16 folded twin on cuDNN (a yardstick the port never calls)
   K9: the split mel kernel against its plain twin at the probe's shape
-     (64 x 431 frames of a bf16 [re | im] spectrum, F 1025, M 128), and
-     three wrong inputs failing by far (im_offset one bin off, frames
-     shifted by one, the magnitude as one float32 chain)
+     (64 x 431 frames of a bf16 [re | im] spectrum, F 1025, M 128), on the
+     mel filterbank and on a dense one, and three wrong inputs failing by
+     far (im_offset one bin off, frames shifted by one, the magnitude as one
+     float32 chain)
+  no sync: K2's and K3's wrappers once each under
+     torch.cuda.set_sync_debug_mode("error"); then a factor and a rate out
+     of their domains, each in a child process, which must fail naming the
+     kernel
   step split: one augmented bench train step (B = 64 x 10 s) by
      torch.profiler: device busy time and idle share, K1's and K3's share,
      the ten longest kernels
@@ -105,6 +113,14 @@ import wave
 
 import numpy as np
 import torch
+
+from freesound_classification_tpu_torch.probes.kernel_turns import (
+    chain_wave,
+    cuda_ms,
+    device_kernels,
+    k2_inputs,
+    k9_inputs,
+)
 
 SR = 44100
 N_CLIPS = 200
@@ -208,21 +224,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean milliseconds per call over ``iters`` calls, by CUDA events, after
-    three warm-up calls."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def timed_in_turns(kernel, plain, *others) -> tuple:
     """Mean ms of ``kernel``, ``plain`` and any ``others`` over runs in
     turns (kernel, plain, others..., then back: ..., plain, kernel), and
@@ -232,28 +233,6 @@ def timed_in_turns(kernel, plain, *others) -> tuple:
     for i in (*range(len(fns)), *reversed(range(len(fns)))):
         runs[i].append(cuda_ms(fns[i]))
     return (*(float(np.mean(r)) for r in runs), runs)
-
-
-def device_kernels(fn, calls: int = 5) -> list:
-    """The device kernels under ``fn`` by ``torch.profiler``: (name, mean
-    ms per call of ``fn``, launches per call), longest first; empty where
-    the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    found = []
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0)
-        if us > 0:
-            name = e.key.replace("void ", "").replace(
-                "(anonymous namespace)::", "")
-            found.append((name, us / calls / 1e3, e.count / calls))
-    return sorted(found, key=lambda k: -k[1])
 
 
 def kernel_split(fn, calls: int = 5) -> str:
@@ -367,69 +346,98 @@ def phase_k1() -> dict:
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
-def chain_wave(rows: int, length: int, seed: int) -> torch.Tensor:
-    """Tones plus noise at clip-like levels, on the card."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    t = torch.arange(length, device="cuda") / SR
-    freq = 100.0 + 4000.0 * torch.rand(rows, 1, device="cuda", generator=gen)
-    return (0.3 * torch.sin(2 * np.pi * freq * t)
-            + 0.05 * torch.randn(rows, length, device="cuda", generator=gen))
-
-
 def phase_k2() -> dict:
+    """K2 at the chain's shape for the bench's train batch, unmasked and
+    masked as the chain calls it (valid lengths of half to all of a row),
+    each against its plain twin; three wrong inputs that must fail by far
+    (a factor 0.1% off, the wave shifted by one sample, the lengths a tenth
+    of a clip short); then the masked call in turns with its plain twin,
+    the unmasked call and the library yardstick (``grid_sample`` and the
+    same mask), each call's bound from the samples its data loads (a
+    masked output loads none), and each call's device time by launch."""
     from freesound_classification_tpu_torch.ops import kernels
 
-    wave = chain_wave(CHAIN_ROWS, CHAIN_LEN, 1)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    # the chain's factors: speed U(0.9, 1.1) x 2^(cents/1200), |cents| < 300
-    factor = (0.9 + 0.2 * torch.rand(CHAIN_ROWS, device="cuda",
-                                     generator=gen)) * torch.exp2(
-        (600 * torch.rand(CHAIN_ROWS, device="cuda", generator=gen) - 300)
-        / 1200)
+    wave, factor, lengths = k2_inputs(CHAIN_ROWS, CHAIN_LEN)
     got = kernels.resample_linear(wave, factor)
     want = kernels.resample_linear_reference(wave, factor)
+    got_m = kernels.resample_linear(wave, factor, lengths)
+    want_m = kernels.resample_linear_reference(wave, factor, lengths)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
+    err_m = (got_m - want_m).abs().max().item()
     wrong_factor = (kernels.resample_linear(wave, factor * 1.001)
                     - want).abs().max().item()
     shifted = (kernels.resample_linear(torch.roll(wave, 1, dims=1), factor)
                - want).abs().max().item()
+    short = (kernels.resample_linear(wave, factor, lengths - CHAIN_LEN // 10)
+             - want_m).abs().max().item()
     log(f"K2 {tuple(wave.shape)}, factors [{factor.min().item():.3f}, "
-        f"{factor.max().item():.3f}]: max_abs_err {err:.3e} (tolerance "
-        f"{K2_TOL:g}); factor x 1.001 gives {wrong_factor:.3e}, the wave "
-        f"shifted by one sample {shifted:.3e}")
-    if not err <= K2_TOL:
-        raise RuntimeError(f"K2 disagrees with its plain twin: {err}")
-    if not min(wrong_factor, shifted) > 100 * K2_TOL:
+        f"{factor.max().item():.3f}]: max_abs_err {err:.3e} unmasked, "
+        f"{err_m:.3e} masked to lengths [{lengths.min().item()}, "
+        f"{lengths.max().item()}] (tolerance {K2_TOL:g}); factor x 1.001 "
+        f"gives {wrong_factor:.3e}, the wave shifted by one sample "
+        f"{shifted:.3e}, the lengths a tenth of a clip short {short:.3e}")
+    if not max(err, err_m) <= K2_TOL:
+        raise RuntimeError(f"K2 disagrees with its plain twin: {err}, "
+                           f"masked {err_m}")
+    if not min(wrong_factor, shifted, short) > 100 * K2_TOL:
         raise RuntimeError("K2's comparison cannot tell a wrong input")
-    ms, plain_ms, times = timed_in_turns(
-        lambda: kernels.resample_linear(wave, factor),
-        lambda: kernels.resample_linear_reference(wave, factor))
     # library yardstick: grid_sample computes the same two-tap lerp with
-    # zeros outside, from positions normalized to [-1, 1]
+    # zeros outside, from positions normalized to [-1, 1]; then the mask
     pos = (torch.arange(CHAIN_LEN, device="cuda", dtype=torch.float32)[None]
            * factor[:, None])
     grid = torch.stack([2 * pos / (CHAIN_LEN - 1) - 1,
                         torch.zeros_like(pos)], dim=-1)[:, None]
     image = wave[:, None, None, :]
+    valid = lengths.float()[:, None]
 
     def library():
-        return torch.nn.functional.grid_sample(
+        return torch.where(pos < valid, torch.nn.functional.grid_sample(
             image, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True)
+            align_corners=True)[:, 0, 0], 0.0)
 
-    lib_err = (library()[:, 0, 0] - want).abs().max().item()
-    library_ms = cuda_ms(library)
-    n_bytes = wave.numel() * 4 * 2 + factor.numel() * 4
-    bound, bound_by = bound_ms(n_bytes, 6 * wave.numel(), PEAK_F32)
-    log(f"K2 time: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
-        f"(runs {times}), grid_sample {library_ms:.4f} ms (its max |diff| "
-        f"{lib_err:.2e}); bound {bound:.4f} ms by {bound_by}")
+    lib_err = (library() - want_m).abs().max().item()
+
+    def masked():
+        return kernels.resample_linear(wave, factor, lengths)
+
+    def unmasked():
+        return kernels.resample_linear(wave, factor)
+
+    ms, plain_ms, unmasked_ms, library_ms, times = timed_in_turns(
+        masked, lambda: kernels.resample_linear_reference(
+            wave, factor, lengths), unmasked, library)
+    # the work these inputs need: a row's source samples up to the last tap
+    # read, 1 + floor of the largest position that loads taps (pos <
+    # lengths[b] when masked, pos < L otherwise: taps past L read 0), each
+    # read once; the whole output written once; 6 operations an output that
+    # loads taps
+    rows, length = wave.shape
+
+    def work(loads):
+        last = torch.where(loads, pos, -1.0).amax(dim=1)
+        read = torch.clamp(torch.floor(last).long() + 2, 0, length)
+        return 4 * (int(read.sum()) + rows * length), 6 * int(loads.sum())
+
+    n_bytes, flops = work(pos < valid)
+    n_bytes += 4 * (factor.numel() + lengths.numel())
+    bound, bound_by = bound_ms(n_bytes, flops, PEAK_F32)
+    n_bytes_u, flops_u = work(pos < length)
+    bound_u, bound_by_u = bound_ms(n_bytes_u + 4 * factor.numel(), flops_u,
+                                   PEAK_F32)
+    log(f"K2 time, masked as the chain calls it: kernel {ms:.4f} ms, plain "
+        f"twin {plain_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
+        f"({n_bytes / 1e6:.1f} MB); unmasked {unmasked_ms:.4f} ms, bound "
+        f"{bound_u:.4f} ms by {bound_by_u} ({n_bytes_u / 1e6:.1f} MB); "
+        f"grid_sample and the mask {library_ms:.4f} ms (its max |diff| "
+        f"{lib_err:.2e}); runs {times}")
+    log(f"K2 by launch (torch.profiler), masked: {kernel_split(masked)}; "
+        f"unmasked: {kernel_split(unmasked)}")
     return {"name": "resample_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/resample.cu",
             "replaces":
                 "freesound_classification_tpu/ops/pallas_kernels.py:137",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(err, err_m), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library_ms}
 
@@ -940,23 +948,33 @@ def phase_k8() -> dict:
 def phase_k9() -> dict:
     """K9 at the probe's shape (64 clips x 10 s: 431 frames, F 1025, M 128)
     on the spectrum the fast featurization gives it from clip-like waves,
-    and three wrong inputs that must fail by far: im_offset one bin off,
-    frames shifted by one, and the magnitude as one float32 chain rounded to
-    bf16 once (swapping re and im would not show: |S| is symmetric in
-    them)."""
-    from freesound_classification_tpu_torch.ops import fast_featurize, kernels
+    on the mel filterbank and on a dense one (every entry non-zero: each
+    band's range is every bin), and three wrong inputs that must fail by
+    far: im_offset one bin off, frames shifted by one, and the magnitude as
+    one float32 chain rounded to bf16 once (swapping re and im would not
+    show: |S| is symmetric in them)."""
+    from freesound_classification_tpu_torch.ops import kernels
 
-    front = fast_featurize.FastFrontend(FEATURES, sr=SR, device=DEVICE)
-    spec = fast_featurize.cat_dft_spectrum(
-        chain_wave(K9_CLIPS, 10 * SR, 9), front.basis)
-    fb_t = front.fb_t
+    spec, fb_t = k9_inputs(K9_CLIPS)
     n_freq = fb_t.shape[0]
-    got = kernels.mel_log_split(spec, fb_t, n_freq, n_freq)
-    want = kernels.mel_log_split_reference(spec, fb_t, n_freq, n_freq)
-    torch.cuda.synchronize()
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        raise RuntimeError(f"K9: bad output {tuple(got.shape)}")
-    err = (got - want).abs().max().item()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    dense = (torch.rand(fb_t.shape, device="cuda", generator=gen) / 16
+             + 1e-3).to(torch.bfloat16)
+
+    def check(label, fb_):
+        got_ = kernels.mel_log_split(spec, fb_, n_freq, n_freq)
+        want_ = kernels.mel_log_split_reference(spec, fb_, n_freq, n_freq)
+        torch.cuda.synchronize()
+        if got_.shape != want_.shape or not torch.isfinite(got_).all():
+            raise RuntimeError(f"K9 {label}: bad output {tuple(got_.shape)}")
+        err_ = (got_ - want_).abs().max().item()
+        if not err_ <= K9_TOL:
+            raise RuntimeError(f"K9 disagrees with its plain twin on the "
+                               f"{label}: {err_}")
+        return got_, want_, err_
+
+    got, want, err = check("mel filterbank", fb_t)
+    _, _, dense_err = check("dense filterbank", dense)
 
     def far(out):
         return (out - want).abs().max().item()
@@ -970,31 +988,120 @@ def phase_k9() -> dict:
     chain = far(torch.log(mag.float() @ fb_t.float() + kernels.LOG_EPS)
                 .transpose(-1, -2))
     log(f"K9 {tuple(spec.shape)} -> {tuple(got.shape)}: max_abs_err "
-        f"{err:.3e} (tolerance {K9_TOL:g}); im_offset one bin off gives "
-        f"{off_by_one:.3e}, frames shifted by one {shifted:.3e}, the float32 "
-        f"chain magnitude {chain:.3e}")
-    if not err <= K9_TOL:
-        raise RuntimeError(f"K9 disagrees with its plain twin: {err}")
+        f"{err:.3e}, on a dense filterbank {dense_err:.3e} (tolerance "
+        f"{K9_TOL:g}); im_offset one bin off gives {off_by_one:.3e}, frames "
+        f"shifted by one {shifted:.3e}, the float32 chain magnitude "
+        f"{chain:.3e}")
     if not min(off_by_one, shifted, chain) > 10 * K9_TOL:
         raise RuntimeError("K9's comparison cannot tell a wrong input")
+    try:  # frames that are not back to back: refused, never another path
+        kernels.mel_log_split(spec.transpose(0, 1), fb_t, n_freq, n_freq)
+    except ValueError as refusal:
+        log(f"K9 on a spectrum with its frames apart: {refusal}")
+    else:
+        raise RuntimeError("K9 took a spectrum whose frames are apart")
+
+    def kernel():
+        return kernels.mel_log_split(spec, fb_t, n_freq, n_freq)
+
     ms, plain_ms, times = timed_in_turns(
-        lambda: kernels.mel_log_split(spec, fb_t, n_freq, n_freq),
+        kernel,
         lambda: kernels.mel_log_split_reference(spec, fb_t, n_freq, n_freq))
     b, t, _ = spec.shape
     m = fb_t.shape[1]
-    # |S| takes 4 operations a bin on the CUDA cores, far below the product
-    flops = 2.0 * b * t * n_freq * m
+    # the work these inputs need, float32 on the CUDA cores: |S| once per
+    # bin (4 operations), one FMA per non-zero filterbank entry per frame,
+    # a log per output
+    nnz = int((fb_t != 0).sum())
+    flops = b * t * (4 * n_freq + 2 * nnz + m)
     n_bytes = b * t * 2 * n_freq * 2 + fb_t.numel() * 2 + got.numel() * 4
-    bound, bound_by = bound_ms(n_bytes, flops, PEAK_BF16)
+    bound, bound_by = bound_ms(n_bytes, flops, PEAK_F32)
     log(f"K9 time: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms "
         f"(runs {times}); bound {bound:.4f} ms by {bound_by} "
-        f"({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+        f"({flops / 1e9:.3f} GFLOP, {nnz} of {fb_t.numel()} filterbank "
+        f"entries non-zero, {n_bytes / 1e6:.1f} MB)")
+    log(f"K9 by launch (torch.profiler): {kernel_split(kernel)}")
     return {"name": "mel_log_split_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/"
                       "mel_log_split.cu",
             "replaces": "scripts/probe_dft_context.py:95",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": max(err, dense_err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_no_sync() -> None:
+    """``augment.resample_rate`` (K2) and ``kernels.pv_resynth`` (K3) at the
+    chain's shape, each once under ``torch.cuda.set_sync_debug_mode("error")``
+    after a warm-up call: neither wrapper waits for the card (their domain
+    checks run in the kernels)."""
+    from freesound_classification_tpu_torch.ops import augment, kernels
+
+    wave = chain_wave(CHAIN_ROWS, CHAIN_LEN, 5)
+    lengths = torch.full((CHAIN_ROWS,), CHAIN_LEN - 1000, dtype=torch.int32,
+                         device="cuda")
+    factor = torch.linspace(0.84, 1.31, CHAIN_ROWS, device="cuda")
+    args = k3_args()
+    calls = (lambda: augment.resample_rate(wave, lengths, factor),
+             lambda: kernels.pv_resynth(*args))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("K2 (augment.resample_rate) and K3 (kernels.pv_resynth) ran under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+# each run in a child process: a factor and a rate out of the kernels'
+# domains must end the child with a device-side error naming the kernel
+DOMAIN_CHILDREN = {
+    "resample_kernel": """
+import torch
+from freesound_classification_tpu_torch.ops import kernels
+wave = torch.zeros(4, 44100, device="cuda")
+factor = torch.tensor([1.0, 1.1, 1.81, 0.9], device="cuda")
+kernels.resample_linear(wave, factor)
+torch.cuda.synchronize()
+""",
+    "pv_tile_sum_kernel": """
+import torch
+from freesound_classification_tpu_torch.ops import kernels
+mag = torch.rand(2, 20, 513, device="cuda")
+dphi = torch.rand(2, 19, 513, device="cuda")
+phase0 = torch.zeros(2, 513, device="cuda")
+rate = torch.tensor([1.0, 1.31], device="cuda")
+icos, isin = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+              for x in kernels.synthesis_basis(1024))
+kernels.pv_resynth(mag, dphi, phase0, rate, icos, isin, 256, 20)
+torch.cuda.synchronize()
+"""}
+
+
+def phase_domain() -> None:
+    """An out-of-domain factor (K2, 1.81 > 1.8) and rate (K3, 1.31 > 1.3),
+    each in its own child process, both started together: each child must
+    exit non-zero, and its output must name the kernel that stopped it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", code], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for name, code in DOMAIN_CHILDREN.items()}
+    for name, proc in procs.items():
+        output = proc.communicate(timeout=300)[0]
+        tail = " | ".join(line.strip() for line in output.splitlines()
+                          if name in line or "Error" in line)[:400]
+        log(f"out-of-domain child for {name}: exit {proc.returncode}; "
+            f"{tail}")
+        if proc.returncode == 0 or name not in output:
+            raise RuntimeError(f"an out-of-domain input did not stop "
+                               f"{name} (exit {proc.returncode}):\n"
+                               f"{output[-2000:]}")
 
 
 def phase_step_split(smi: str) -> None:
@@ -1947,6 +2054,8 @@ def main() -> None:
     k7 = phase_k7()
     k8 = phase_k8()
     k9 = phase_k9()
+    phase_no_sync()
+    phase_domain()
     phase_step_split(smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.time()

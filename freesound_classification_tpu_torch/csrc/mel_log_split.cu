@@ -11,194 +11,179 @@
 // re, im and fb_t are bf16; the magnitude rounds to bf16 after each of its
 // four operations, as the TPU kernel's bf16 arithmetic does (each is done in
 // float32 and rounded once: float32 has more than 2 x 8 + 2 bits, so the
-// double rounding gives the correctly rounded bf16 result); the sum is float32
-// on the tensor cores; out is float32.
+// double rounding gives the correctly rounded bf16 result); the products of
+// bf16 values are exact in float32 and summed in float32; out is float32.
 //
-// Layouts. spec is (B, T, W) bf16 with a contiguous last axis: re at columns
-// [0, F) and im at [im_offset, im_offset + F) of each frame's row (the port
-// uses im_offset = F; the TPU probe padded each half to 1152 lanes). fb_t is
-// (F, M) bf16 contiguous. out is written as (B, M, T), the model's input
-// layout, so the probe's trailing swapaxes pass disappears.
+// Layouts. spec is a contiguous (B, T, W) bf16 tensor, re at columns [0, F)
+// and im at [im_offset, im_offset + F) of each frame's row (the port uses
+// im_offset = F; the TPU probe padded each half to 1152 lanes). Row r = b T
+// + t lies at r W, so frames lie back to back across clips. The filterbank
+// comes as each band's range of bins [band_lo[m], band_hi[m]) (the first to
+// the last non-zero bin) and its weights over that range, packed from the
+// start of row m of a (M, F) float32 array (kernels.mel_band_pack, cached
+// per filterbank). out is written as (B, M, T), the model's input layout.
 //
-// Bound. At the probe's shape (64 clips x 431 frames, F = 1025, M = 128) the
-// spectrum is 113 MB read once and the output 14 MB written once: ~0.038 ms
-// at 3.35 TB/s. The product is 7.2 GFLOP of bf16, ~0.007 ms at 989 TFLOP/s.
-// Bytes bound it.
+// Bound. Bytes. At the probe's shape (64 clips x 431 frames, F = 1025,
+// M = 128) the spectrum is 113 MB read once and the output 14 MB written
+// once: ~0.038 ms at 3.35 TB/s. The mel filterbank is sparse (2,014 of its
+// 131,200 entries are non-zero), so the sums over the bands' ranges are
+// ~0.1 GFLOP of float32 and the magnitudes ~0.1 more, far below the bytes.
 //
-// Design. One block per (64-frame tile, 128-band tile, clip), so with M = 128
-// every spectrum element is read once. A loop over F in chunks of 16 bins
-// (F = 1025 is zero-masked to 1040): each thread holds in registers its 4
-// (frame, bin) pairs of re and im (neighbouring threads on neighbouring bins)
-// and 8 bands of one fb_t row (one 16-byte load); it turns them into the bf16
-// magnitudes and the fb_t slice of a shared-memory buffer, the block syncs
-// once, the thread starts the next chunk's loads, and the 8 warps multiply
-// the buffer on the tensor cores (nvcuda::wmma bf16 m16n16k16, float32
-// accumulators; each warp a 16-frame x 64-band strip) while those loads are
-// in flight. Two buffers alternate, so one barrier a chunk suffices. The
-// epilogue stages the accumulators band-major in shared memory (reusing the
-// buffers' space) and writes log(x + 1e-4) along t. Measured at the probe's
-// shape on an H100: 0.152 ms, 4x the bound (a first version that loaded,
-// synced and multiplied in turn took 0.257). Later work: more bytes in
-// flight (cp.async or TMA stages; the im half sits at an odd offset).
+// Design. The TPU kernel multiplies the dense filterbank on its matrix unit;
+// here, as K1 (csrc/mel_log.cu) does, each band is summed over its range
+// only. One block per 4-frame tile of rows b T + t, so tiles span clips. The
+// tile is one contiguous run of 4 W bf16 values: the block copies the
+// 16-byte-aligned span that encloses it into shared memory with cp.async
+// (16 bytes a thread, neighbouring threads on neighbouring chunks, every
+// chunk in flight at once: 16 KB a block at W = 2050, eight blocks an SM),
+// whatever im_offset is. Each magnitude is then computed once, from its re
+// and im in shared memory, into its re's place, in few instructions: the
+// products and the sum as bf16 instructions and the square root
+// approximate, each rounded so that the result is the correctly rounded one
+// (see magnitude()). Each of the 256 threads takes a (band, frame) pair,
+// four neighbouring threads the 4 frames of one band, bands interleaved so
+// that every thread sums narrow and wide bands alike, and sums the band's
+// packed weights against the frame's magnitudes over the band's range, so
+// the log-mel is written along T. A band with an empty range gives
+// log(1e-4). Any filterbank gives the plain twin's result up to float32
+// summation order: only entries outside a band's range, all zero, are
+// skipped.
+//
+// What sets the time (PERF.md, section 6): the bytes take ~0.038 ms at the
+// probe's shape, the band sums ~0.018 and the magnitudes ~0.006 more, and
+// the blocks' arithmetic overlaps other blocks' copies only in part. With
+// exact float32 steps the magnitudes took 0.010 ms more; 8-frame tiles
+// were 3% slower; persistent blocks that copy their next tile while
+// computing one (three or six an SM) took ~0.11 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kRows = 64;     // frames per block
-constexpr int kBands = 128;   // mel bands per block
-constexpr int kChunk = 16;    // frequency bins per step: one wmma k-step
-constexpr int kThreads = 256; // 8 warps
-constexpr int kRowsPerPass = kThreads / kChunk;  // 16
-constexpr int kPairs = kRows / kRowsPerPass;     // 4 (frame, bin) a thread
-constexpr int kMagLd = kChunk + 8;  // bf16 row stride of a magnitude tile
-constexpr int kFbLd = kBands + 8;   // bf16 row stride of an fb_t tile
-constexpr int kOutLd = kRows + 4;   // float row stride of the output stage
-constexpr int kMagBytes = kRows * kMagLd * 2;
-constexpr int kFbBytes = kChunk * kFbLd * 2;
-constexpr int kBufBytes = 2 * (kMagBytes + kFbBytes);
-constexpr int kStageBytes = kBands * kOutLd * 4;
-constexpr int kSmemBytes = kStageBytes > kBufBytes ? kStageBytes : kBufBytes;
+constexpr int kFrames = 4;     // rows (frames) per block
+constexpr int kThreads = 256;
+constexpr int kBandRows = kThreads / kFrames;  // bands summed at once
 constexpr float kLogEps = 1e-4f;
-static_assert(kThreads == kChunk * (kBands / 8), "one fb_t load a thread");
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
+// bf16(sqrt(bf16(bf16(re^2) + bf16(im^2)))), equal to the plain twin's
+// four float32 steps each rounded to bf16 once (a float32 step rounded to
+// bf16 is correctly rounded: 24 >= 2 x 8 + 2 bits). The products and the sum
+// are correctly rounded bf16 instructions. The square root of a bf16 value
+// lies at least 2^-19 of itself away from every bf16 rounding midpoint
+// (tests/test_torch_kernel_layouts.py checks every bf16 value), and
+// sqrt.approx.f32 errs by far less, so rounding it to bf16 gives the
+// correctly rounded root too.
 __device__ __forceinline__ __nv_bfloat16 magnitude(__nv_bfloat16 re,
                                                    __nv_bfloat16 im) {
-  const float r = __bfloat162float(re);
-  const float i = __bfloat162float(im);
-  return __float2bfloat16_rn(
-      sqrtf(bf16_round(bf16_round(r * r) + bf16_round(i * i))));
+  const __nv_bfloat16 sum = __hadd(__hmul_rn(re, re), __hmul_rn(im, im));
+  float root;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(root) : "f"(__bfloat162float(sum)));
+  return __float2bfloat16_rn(root);
 }
 
-// 4 blocks an SM (64 registers): the probe shape's 448 blocks in one wave
-__global__ void __launch_bounds__(kThreads, 4)
-mel_log_split_kernel(const __nv_bfloat16* __restrict__ spec,
-                     long long stride_b, long long stride_t, int im_offset,
-                     const __nv_bfloat16* __restrict__ fb_t,
-                     float* __restrict__ out, int n_freq, int n_frames,
-                     int n_mel) {
-  // two (magnitude, fb_t) buffers in the loop; after it, the output stage
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  float(*stage)[kOutLd] = reinterpret_cast<float(*)[kOutLd]>(smem);
+__global__ void __launch_bounds__(kThreads)
+mel_log_split_kernel(const __nv_bfloat16* __restrict__ spec, int width,
+                     int im_offset, const float* __restrict__ packed,
+                     const int* __restrict__ band_lo,
+                     const int* __restrict__ band_hi, float* __restrict__ out,
+                     int n_rows, int n_freq, int n_frames, int n_mel) {
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int t0 = blockIdx.x * kRows;
-  const int m0 = blockIdx.y * kBands;
-  const __nv_bfloat16* clip =
-      spec + static_cast<long long>(blockIdx.z) * stride_b;
+  const int r0 = blockIdx.x * kFrames;
+  const int n_t = min(kFrames, n_rows - r0);
 
-  // each warp: frames 16 * (warp % 4).., bands 64 * (warp / 4)..
-  const int row_tile = warp % 4;
-  const int band_tile = (warp / 4) * 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+  // the tile's run, from the 16-byte chunk that holds its first value to the
+  // one that holds its last (both inside the tensor's allocation)
+  const uintptr_t run = reinterpret_cast<uintptr_t>(
+      spec + static_cast<long long>(r0) * width);
+  const uintptr_t base = run & ~static_cast<uintptr_t>(15);
+  const int n_chunks = static_cast<int>(
+      (run + 2ull * n_t * width - base + 15) / 16);
+  const uint32_t s_base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  for (int c = tid; c < n_chunks; c += kThreads)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     s_base + 16 * c),
+                 "l"(base + 16ull * c)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                   "memory");
+  __syncthreads();
+  __nv_bfloat16* tile =
+      reinterpret_cast<__nv_bfloat16*>(smem) + (run - base) / 2;
 
-  // this thread's bin and frames of a magnitude tile, and row and 8 bands
-  // of an fb_t tile
-  const int lk = tid % kChunk;
-  const int lr = tid / kChunk;
-  const int fb_row = tid / (kBands / 8);
-  const int fb_band = (tid % (kBands / 8)) * 8;
-  const bool fb_band_ok = m0 + fb_band < n_mel;  // n_mel % 8 == 0
-
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  __nv_bfloat16 re[kPairs], im[kPairs];
-  uint4 fb = make_uint4(0, 0, 0, 0);
-  auto load = [&](int f0) {
-    const int f = f0 + lk;
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
-      const int t = t0 + lr + i * kRowsPerPass;
-      re[i] = zero;
-      im[i] = zero;
-      if (f < n_freq && t < n_frames) {
-        const __nv_bfloat16* row = clip + t * stride_t;
-        re[i] = row[f];
-        im[i] = row[im_offset + f];
+  // |S| of (frame t, bin f) into the place of its re, (t, f) stepped along
+  // kThreads elements at a time
+  {
+    const int dt = kThreads / n_freq;
+    const int df = kThreads - dt * n_freq;
+    int t = tid / n_freq;
+    int f = tid - t * n_freq;
+    while (t < n_t) {
+      __nv_bfloat16* row = tile + t * width;
+      row[f] = magnitude(row[f], row[im_offset + f]);
+      f += df;
+      t += dt;
+      if (f >= n_freq) {
+        f -= n_freq;
+        ++t;
       }
     }
-    const int fk = f0 + fb_row;
-    fb = (fk < n_freq && fb_band_ok)
-             ? *reinterpret_cast<const uint4*>(
-                   fb_t + static_cast<long long>(fk) * n_mel + m0 + fb_band)
-             : make_uint4(0, 0, 0, 0);
-  };
-
-  const int n_chunks = (n_freq + kChunk - 1) / kChunk;
-  load(0);
-  for (int c = 0; c < n_chunks; ++c) {
-    unsigned char* buf = smem + (c & 1) * (kMagBytes + kFbBytes);
-    __nv_bfloat16(*mag_s)[kMagLd] =
-        reinterpret_cast<__nv_bfloat16(*)[kMagLd]>(buf);
-    __nv_bfloat16(*fb_s)[kFbLd] =
-        reinterpret_cast<__nv_bfloat16(*)[kFbLd]>(buf + kMagBytes);
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i)
-      mag_s[lr + i * kRowsPerPass][lk] = magnitude(re[i], im[i]);
-    *reinterpret_cast<uint4*>(&fb_s[fb_row][fb_band]) = fb;
-    __syncthreads();
-    if (c + 1 < n_chunks) load((c + 1) * kChunk);
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, &mag_s[row_tile * 16][0], kMagLd);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fbf;
-      wmma::load_matrix_sync(fbf, &fb_s[0][(band_tile + j) * 16], kFbLd);
-      wmma::mma_sync(acc[j], fa, fbf, acc[j]);
-    }
   }
-  __syncthreads();  // every warp is done with the buffers the stage reuses
-
-  // stage[band][frame]: a column-major store of each (frame, band) fragment
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(&stage[(band_tile + j) * 16][row_tile * 16],
-                            acc[j], kOutLd, wmma::mem_col_major);
   __syncthreads();
-  float* clip_out = out + static_cast<long long>(blockIdx.z) * n_mel * n_frames;
-  for (int i = tid; i < kBands * kRows; i += kThreads) {
-    const int band = i / kRows;
-    const int frame = i % kRows;
-    const int m = m0 + band;
-    const int t = t0 + frame;
-    if (m < n_mel && t < n_frames)
-      clip_out[static_cast<long long>(m) * n_frames + t] =
-          logf(stage[band][frame] + kLogEps);
+
+  const int tt = tid % kFrames;
+  if (tt >= n_t) return;
+  const int r = r0 + tt;
+  const int b = r / n_frames;
+  const __nv_bfloat16* mag = tile + tt * width;
+  float* row_out = out + static_cast<long long>(b) * n_mel * n_frames
+                   + (r - b * n_frames);
+  for (int m = tid / kFrames; m < n_mel; m += kBandRows) {
+    const int lo = __ldg(band_lo + m);
+    const int n = __ldg(band_hi + m) - lo;
+    const float* w = packed + static_cast<long long>(m) * n_freq;
+    const __nv_bfloat16* x = mag + lo;
+    float acc = 0.f;
+    for (int j = 0; j < n; ++j)
+      acc = fmaf(__ldg(w + j), __bfloat162float(x[j]), acc);
+    row_out[static_cast<long long>(m) * n_frames] = logf(acc + kLogEps);
   }
 }
 
 }  // namespace
 
-// spec: (B, T, W) bf16, last axis contiguous, element strides stride_b and
-// stride_t, re at [0, F) and im at [im_offset, im_offset + F) of each row;
-// fb_t: (F, M) bf16 contiguous, 16-byte aligned, M % 8 == 0; out: (B, M, T)
-// float32 contiguous; all on the current device. stream: a cudaStream_t.
-// Returns the cudaError_t of the launch (0 on success). B <= 65535.
-extern "C" int mel_log_split_launch(const void* spec, long long stride_b,
-                                    long long stride_t, int im_offset,
-                                    const void* fb_t, void* out, int n_batch,
-                                    int n_freq, int n_frames, int n_mel,
-                                    void* stream) {
-  const dim3 grid((n_frames + kRows - 1) / kRows,
-                  (n_mel + kBands - 1) / kBands, n_batch);
-  mel_log_split_kernel<<<grid, kThreads, 0,
+// spec: (B, T, W) bf16 contiguous, re at [0, F) and im at [im_offset,
+// im_offset + F) of each row, n_rows = B T; packed: (M, F) float32
+// contiguous, band m's weights over [band_lo[m], band_hi[m]) from the start
+// of its row; band_lo/hi: (M,) int32 (lo >= hi for a band with no non-zero
+// entry); out: (B, M, T) float32 contiguous; all on the current device.
+// n_blocks = ceil(n_rows / 4) and smem = 4 W 2 + 14 bytes rounded up to 16
+// of shared memory (the chunks that enclose a tile starting up to 14 bytes
+// into its first), from kernels.split_plan. stream: a
+// cudaStream_t. Returns the first failing call's cudaError_t (0 on
+// success).
+extern "C" int mel_log_split_launch(const void* spec, int width,
+                                    int im_offset, const void* packed,
+                                    const void* band_lo, const void* band_hi,
+                                    void* out, int n_rows, int n_freq,
+                                    int n_frames, int n_mel, int n_blocks,
+                                    int smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mel_log_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
+  mel_log_split_kernel<<<n_blocks, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(spec), stride_b, stride_t, im_offset,
-      static_cast<const __nv_bfloat16*>(fb_t), static_cast<float*>(out),
+      static_cast<const __nv_bfloat16*>(spec), width, im_offset,
+      static_cast<const float*>(packed), static_cast<const int*>(band_lo),
+      static_cast<const int*>(band_hi), static_cast<float*>(out), n_rows,
       n_freq, n_frames, n_mel);
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,7 +68,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cassert>
 #include <cstdint>
+#include <cstdio>
 
 namespace {
 
@@ -206,15 +208,30 @@ __device__ __forceinline__ int a_offset(int m, int k) {
 
 // ---- launch 1: per-tile sums ---------------------------------------------
 
+// It also checks each row's rate against (0, max_rate] (the TPU kernel's
+// domain) on the card, so the wrapper makes no host sync: a rate outside it
+// ends the run before the later launches, as the row's first block prints
+// the row and the rate and fails a device-side assert (then traps, should
+// asserts be compiled out); the row's other blocks return.
 __global__ void __launch_bounds__(kSumThreads)
 pv_tile_sum_kernel(const float* __restrict__ dphi,
                    const float* __restrict__ rate, float* __restrict__ sums,
-                   int t_in, int n_bins, int rows, int n_tiles) {
+                   int t_in, int n_bins, int rows, int n_tiles,
+                   float max_rate) {
   const int f = blockIdx.x * kSumThreads + threadIdx.x;
   const int t = blockIdx.y;
   const int b = blockIdx.z;
-  if (f >= n_bins) return;
   const float r = rate[b];
+  if (!(r > 0.f && r <= max_rate)) {  // NaN fails too
+    if (blockIdx.x == 0 && t == 0 && threadIdx.x == 0) {
+      printf("pv_resynth: pv_tile_sum_kernel: row %d has rate %.9g outside "
+             "(0, %.9g]\n", b, r, max_rate);
+      assert(r > 0.f && r <= max_rate);
+      __trap();
+    }
+    return;
+  }
+  if (f >= n_bins) return;
   const float* d = dphi + static_cast<long long>(b) * (t_in - 1) * n_bins + f;
   const int k0 = t * kTile;
   float* out = sums + (static_cast<long long>(b) * n_tiles + t) * kSlots
@@ -477,7 +494,8 @@ pv_ola_fix_kernel(const __nv_bfloat16* __restrict__ spill,
 }  // namespace
 
 // mag: (B, t_in, F) f32; dphi: (B, t_in - 1, F) f32; phase0: (B, F) f32;
-// rate: (B,) f32; basis_tiles: the padded basis as 4 x (2 bins_pad / 32)
+// rate: (B,) f32, each in (0, max_rate] (checked on the card);
+// basis_tiles: the padded basis as 4 x (2 bins_pad / 32)
 // stages of 256 x 32 bf16 (kernels.pv_basis_tiles); scratch sums:
 // (B, n_tiles, 8, F) f32 and spill: (B, n_blocks, 6, hop) bf16, n_tiles =
 // ceil(rows / 128), n_blocks = ceil(rows / 64); out: (B, rows, hop) f32. All
@@ -490,7 +508,7 @@ extern "C" int pv_resynth_launch(const void* mag, const void* dphi,
                                  const void* basis_tiles, void* sums,
                                  void* spill, void* out, int n_batch,
                                  int t_in, int n_bins, int bins_pad, int hop,
-                                 int rows, void* stream) {
+                                 int rows, float max_rate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (rows + kTile - 1) / kTile;
   const int n_blocks = (rows + kRows - 1) / kRows;
@@ -500,7 +518,7 @@ extern "C" int pv_resynth_launch(const void* mag, const void* dphi,
                       n_batch);
   pv_tile_sum_kernel<<<sum_grid, kSumThreads, 0, s>>>(
       static_cast<const float*>(dphi), static_cast<const float*>(rate),
-      static_cast<float*>(sums), t_in, n_bins, rows, n_tiles);
+      static_cast<float*>(sums), t_in, n_bins, rows, n_tiles, max_rate);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const int smem = kStages * kStageBytes + kRows * 2 * bins_pad * 2

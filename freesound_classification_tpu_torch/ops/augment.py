@@ -216,14 +216,11 @@ def resample_rate(wave: torch.Tensor, lengths: torch.Tensor,
                   factor: torch.Tensor):
     """Playback-rate change by per-row ``factor`` (> 1: faster, shorter;
     sox ``speed``) through K2, in the same buffer: source positions at or
-    past the valid length read 0, and the valid length becomes
-    ``min(int(length / factor), L)``."""
-    b, l = wave.shape
+    past the valid length read 0 (K2's mask, in its store), and the valid
+    length becomes ``min(int(length / factor), L)``."""
+    l = wave.shape[1]
     factor = factor.float().contiguous()
-    out = kernels.resample_linear(wave.float().contiguous(), factor)
-    pos = (torch.arange(l, dtype=torch.float32, device=wave.device)[None, :]
-           * factor[:, None])
-    out = torch.where(pos < lengths.float()[:, None], out, 0.0)
+    out = kernels.resample_linear(wave.float().contiguous(), factor, lengths)
     new_len = torch.clamp((lengths.float() / factor).to(torch.int32), max=l)
     return out, torch.clamp(new_len, min=1).to(lengths.dtype)
 

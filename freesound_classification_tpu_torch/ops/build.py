@@ -103,18 +103,20 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every exported C function."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f32 = ctypes.c_float
     # int mel_log_launch(spec, stride_b, stride_f, stride_t, fb, band_lo,
     #                    band_hi, out, B, F, T, M, stream) -> cudaError_t
     lib.mel_log_launch.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr,
                                    i32, i32, i32, i32, ptr]
     lib.mel_log_launch.restype = i32
-    # int resample_launch(wave, factor, out, B, L, stream) -> cudaError_t
-    lib.resample_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    # int resample_launch(wave, factor, lengths, out, B, L, max_factor,
+    #                     stream) -> cudaError_t
+    lib.resample_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, ptr]
     lib.resample_launch.restype = i32
     # int pv_resynth_launch(mag, dphi, phase0, rate, basis_tiles, sums,
     #                       spill, out, B, t_in, F, bins_pad, hop, rows,
-    #                       stream) -> cudaError_t
-    lib.pv_resynth_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    #                       max_rate, stream) -> cudaError_t
+    lib.pv_resynth_launch.argtypes = [ptr] * 8 + [i32] * 6 + [f32, ptr]
     lib.pv_resynth_launch.restype = i32
     # int resnet_block_1d_launch(x, sb, st, x_channels, w1, w2, w3, bias,
     #                            slope, h1, h2, out, osb, ost, pairs, B, C,
@@ -146,9 +148,10 @@ def load_library() -> ctypes.CDLL:
     lib.conv_head_launch.argtypes = ([ptr, i32] + [ptr] * 7 + [i32] * 5
                                      + [i64] * 7 + [i32, ptr])
     lib.conv_head_launch.restype = i32
-    # int mel_log_split_launch(spec, stride_b, stride_t, im_offset, fb_t, out,
-    #                          B, F, T, M, stream) -> cudaError_t
-    lib.mel_log_split_launch.argtypes = [ptr, i64, i64, i32, ptr, ptr,
-                                         i32, i32, i32, i32, ptr]
+    # int mel_log_split_launch(spec, W, im_offset, packed, band_lo, band_hi,
+    #                          out, rows, F, T, M, blocks, smem, stream)
+    #     -> cudaError_t
+    lib.mel_log_split_launch.argtypes = ([ptr, i32, i32] + [ptr] * 4
+                                         + [i32] * 6 + [ptr])
     lib.mel_log_split_launch.restype = i32
     return lib

@@ -8,7 +8,8 @@ Each replaces a TPU kernel of
   ``out[b, m, t] = log(sum_f fb[m, f] * |S[b, f, t]| + 1e-4)``.
 - K2, ``resample_linear`` (``csrc/resample.cu``, replaces
   ``_resample_kernel``): per-row linear-interpolation resample, the
-  augmentation chain's playback-rate change.
+  augmentation chain's playback-rate change, masked to the chain's valid
+  lengths in its store.
 - K3, ``pv_resynth`` (``csrc/pv_resynth.cu``, replaces
   ``_pv_resynth_kernel``): phase-vocoder resynthesis with overlap-add, the
   output half of the chain's PV stretch.
@@ -148,24 +149,23 @@ RESAMPLE_MAX_FACTOR = 1.8  # the TPU kernel's domain; the chain's <= 1.31
 _MAX_EXACT_INDEX = 1 << 24  # sample indices stay exact in float32
 
 
-def _range(x: torch.Tensor) -> tuple:
-    """(min, max) of ``x`` on the host, with one device sync."""
-    return tuple(torch.stack(torch.aminmax(x)).tolist())
+def _check_cpu_domain(name: str, what: str, x: torch.Tensor,
+                      top: float) -> None:
+    """The CPU twins' check of the domain (0, top] that the CUDA kernels
+    check on the card."""
+    low, high = float(x.min()), float(x.max())
+    if not (0.0 < low and high <= top):
+        raise ValueError(f"{name}: {what} must lie in (0, {top}], got "
+                         f"[{low}, {high}]")
 
 
-def _check_resample_factor(factor: torch.Tensor) -> None:
-    low, top = _range(factor)
-    if not (0.0 < low and top <= RESAMPLE_MAX_FACTOR):
-        raise ValueError(
-            f"resample_linear: factors must lie in (0, "
-            f"{RESAMPLE_MAX_FACTOR}], got [{low}, {top}]")
-
-
-def resample_linear_reference(wave: torch.Tensor,
-                              factor: torch.Tensor) -> torch.Tensor:
+def resample_linear_reference(wave: torch.Tensor, factor: torch.Tensor,
+                              lengths: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """Plain twin of K2: (B, L) x (B,) -> (B, L),
     ``out[b, i] = (1 - frac) w[b, i0] + frac w[b, i0 + 1]`` at
-    ``pos = i * factor[b]`` (float32), with samples past L read as 0."""
+    ``pos = i * factor[b]`` (float32), with samples past L read as 0, and
+    with ``lengths`` (B,) ``out[b, i] = 0`` where ``pos >= lengths[b]``."""
     b, length = wave.shape
     pos = (torch.arange(length, dtype=torch.float32, device=wave.device)[None]
            * factor[:, None])
@@ -175,19 +175,27 @@ def resample_linear_reference(wave: torch.Tensor,
     padded = torch.cat([wave, wave.new_zeros(b, 1)], dim=1)
     taps = [torch.gather(padded, 1, torch.clamp(i, max=length))
             for i in (i0, i0 + 1)]
-    return (1.0 - frac) * taps[0] + frac * taps[1]
+    out = (1.0 - frac) * taps[0] + frac * taps[1]
+    if lengths is None:
+        return out
+    return torch.where(pos < lengths.float()[:, None], out, 0.0)
 
 
-def resample_linear(wave: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
-    """K2: float32 (B, L) waves x (B,) factors in (0, 1.8] -> (B, L).
+def resample_linear(wave: torch.Tensor, factor: torch.Tensor,
+                    lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """K2: float32 (B, L) waves x (B,) factors in (0, 1.8] -> (B, L),
+    zero where ``i * factor[b] >= lengths[b]`` if integer ``lengths`` (B,)
+    are given (the effects chain's valid lengths).
 
-    CPU tensors take ``resample_linear_reference``; CUDA tensors launch
-    ``resample_kernel``. Masking to the new valid lengths is the caller's
-    (``ops/augment.resample_rate``).
+    CPU tensors take ``resample_linear_reference`` after a host check of
+    the factors; CUDA tensors launch ``resample_kernel``, which checks the
+    factors on the card (one out of the domain ends the run with a
+    device-side error), so the call makes no host sync.
     """
     if wave.device.type == "cpu" and factor.device.type == "cpu":
-        _check_resample_factor(factor)
-        return resample_linear_reference(wave, factor)
+        _check_cpu_domain("resample_linear", "factors", factor,
+                          RESAMPLE_MAX_FACTOR)
+        return resample_linear_reference(wave, factor, lengths)
     _check_cuda_inputs("resample_linear", wave, factor)
     n_batch, length = wave.shape
     if factor.shape != (n_batch,):
@@ -196,7 +204,14 @@ def resample_linear(wave: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     if not (0 < n_batch <= _MAX_GRID_YZ and 0 < length < _MAX_EXACT_INDEX):
         raise ValueError(f"resample_linear: unsupported shape {n_batch} x "
                          f"{length}")
-    _check_resample_factor(factor)
+    if lengths is not None:
+        if (lengths.device != wave.device or lengths.shape != (n_batch,)
+                or lengths.is_floating_point() or lengths.is_complex()):
+            raise ValueError(
+                f"resample_linear: lengths must be integers (B,) = "
+                f"({n_batch},) on {wave.device}, got {lengths.dtype} "
+                f"{tuple(lengths.shape)} on {lengths.device}")
+        lengths = lengths.to(torch.int32).contiguous()
 
     from freesound_classification_tpu_torch.ops import build
 
@@ -204,8 +219,10 @@ def resample_linear(wave: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(wave)
     with torch.cuda.device(wave.device):
         err = lib.resample_launch(
-            wave.data_ptr(), factor.data_ptr(), out.data_ptr(), n_batch,
-            length, torch.cuda.current_stream(wave.device).cuda_stream)
+            wave.data_ptr(), factor.data_ptr(),
+            None if lengths is None else lengths.data_ptr(), out.data_ptr(),
+            n_batch, length, RESAMPLE_MAX_FACTOR,
+            torch.cuda.current_stream(wave.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"resample_kernel launch failed: cudaError {err}")
     resample_linear.launches += 1
@@ -257,13 +274,6 @@ def synthesis_basis(n_fft: int):
     icos = (coef * np.cos(ang) / n_fft) * w[None, :]
     isin = (-coef * np.sin(ang) / n_fft) * w[None, :]
     return icos.astype(np.float32), isin.astype(np.float32)
-
-
-def _check_pv_rate(rate: torch.Tensor) -> None:
-    low, top = _range(rate)
-    if not (0.0 < low and top <= PV_MAX_RATE):
-        raise ValueError(f"pv_resynth: rates must lie in (0, {PV_MAX_RATE}], "
-                         f"got [{low}, {top}]")
 
 
 def pv_resynth_reference(mag, dphi, phase0, rate, icos, isin, hop: int,
@@ -368,7 +378,7 @@ def pv_resynth(mag, dphi, phase0, rate, icos, isin, hop: int,
     hop n_fft // 4).
     """
     if mag.device.type == "cpu":
-        _check_pv_rate(rate)
+        _check_cpu_domain("pv_resynth", "rates", rate, PV_MAX_RATE)
         return pv_resynth_reference(mag, dphi, phase0, rate, icos, isin,
                                     hop, t_out)
     _check_cuda_inputs("pv_resynth", mag, dphi, phase0, rate)
@@ -389,7 +399,6 @@ def pv_resynth(mag, dphi, phase0, rate, icos, isin, hop: int,
             f"pv_resynth: the kernel takes n_fft // hop == {_PV_OFFSETS}, "
             f"hop <= {_PV_COLS} and F <= {_PV_MAX_BINS_PAD}, got n_fft "
             f"{n_fft}, hop {hop}, F {f}")
-    _check_pv_rate(rate)
     rows = t_out + r - 1
     device = mag.device
     tiles = _cached_pv_basis_tiles(icos, isin, hop, device)
@@ -407,7 +416,7 @@ def pv_resynth(mag, dphi, phase0, rate, icos, isin, hop: int,
             mag.data_ptr(), dphi.data_ptr(), phase0.data_ptr(),
             rate.data_ptr(), tiles.data_ptr(), sums.data_ptr(),
             spill.data_ptr(), out.data_ptr(), b, t_in, f, bins_pad, hop,
-            rows, torch.cuda.current_stream(device).cuda_stream)
+            rows, PV_MAX_RATE, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pv_resynth kernels launch failed: cudaError {err}")
     pv_resynth.launches += 1
@@ -1083,14 +1092,55 @@ def _check_split_layout(spec: torch.Tensor, fb_t: torch.Tensor, n_freq: int,
                          f"row of {spec.shape[-1]}")
 
 
+def mel_band_pack(fb_t: torch.Tensor) -> tuple:
+    """K9's filterbank: each band's range of bins in a (F, M) filterbank,
+    int32 (M,) ``lo`` and ``hi`` (``mel_band_ranges`` of its transpose),
+    and float32 (M, F) ``packed``, band m's weights over [lo[m], hi[m])
+    from the start of row m and zeros after, so that a band's weights lie
+    side by side; on ``fb_t``'s device with no host sync."""
+    n_freq = fb_t.shape[0]
+    lo, hi = mel_band_ranges(fb_t.T)
+    j = torch.arange(n_freq, device=fb_t.device)
+    idx = torch.clamp(lo.long()[:, None] + j, max=n_freq - 1)
+    picked = torch.gather(fb_t.T.float(), 1, idx)
+    packed = torch.where(j < (hi - lo)[:, None], picked, 0.0)
+    return lo, hi, packed.contiguous()
+
+
+@functools.lru_cache(maxsize=4)
+def _band_pack_of(fb_t, version):
+    # a tensor hashes by identity: the key is this tensor at this version
+    return mel_band_pack(fb_t)
+
+
+class SplitPlan(NamedTuple):
+    blocks: int  # one a tile of _K9_FRAMES rows: a run of _K9_FRAMES x W
+    smem: int  # bytes: the 16-byte chunks that enclose the run when it
+    #            starts up to 14 bytes into its first chunk
+
+
+_K9_FRAMES = 4  # kFrames of mel_log_split_kernel
+
+
+def split_plan(n_rows: int, width: int) -> SplitPlan:
+    """What ``mel_log_split`` hands ``mel_log_split_kernel`` for ``n_rows``
+    = B T rows of ``width`` bf16 values."""
+    smem = -(-(_K9_FRAMES * width * 2 + 14) // 16) * 16
+    if smem > _MAX_SHARED_BYTES:
+        raise ValueError(f"mel_log_split: rows of {width} values do not fit "
+                         f"a block's shared memory ({smem} bytes)")
+    return SplitPlan(-(-n_rows // _K9_FRAMES), smem)
+
+
 def mel_log_split(spec: torch.Tensor, fb_t: torch.Tensor, n_freq: int,
                   im_offset: int) -> torch.Tensor:
-    """K9: bf16 [re | im] spectrum (B, T, W) with a contiguous last axis x
-    contiguous bf16 filterbank (F, M), M a multiple of 8 on the card ->
-    contiguous float32 log-mel (B, M, T).
+    """K9: contiguous bf16 [re | im] spectrum (B, T, W) x bf16 filterbank
+    (F, M) -> contiguous float32 log-mel (B, M, T).
 
     CPU tensors take ``mel_log_split_reference``; CUDA tensors launch
-    ``mel_log_split_kernel`` (``csrc/mel_log_split.cu``).
+    ``mel_log_split_kernel`` (``csrc/mel_log_split.cu``), which reads the
+    frames back to back and sums each band over its range of bins only
+    (``mel_band_pack``, cached per filterbank).
     """
     _check_split_layout(spec, fb_t, n_freq, im_offset)
     if spec.device.type == "cpu" and fb_t.device.type == "cpu":
@@ -1099,17 +1149,17 @@ def mel_log_split(spec: torch.Tensor, fb_t: torch.Tensor, n_freq: int,
         raise ValueError(
             "mel_log_split: spec and fb_t must both be on the CPU or both on "
             f"one CUDA device, got {spec.device} and {fb_t.device}")
-    n_batch, n_frames, _ = spec.shape
+    n_batch, n_frames, width = spec.shape
     n_mel = fb_t.shape[1]
-    if spec.stride(-1) != 1 or not fb_t.is_contiguous():
-        raise ValueError("mel_log_split: spec's last axis and fb_t must be "
-                         "contiguous")
-    if n_mel % 8 or fb_t.data_ptr() % 16:  # fb_t rows load 8 bands at once
-        raise ValueError(f"mel_log_split: fb_t must be 16-byte aligned with "
-                         f"M a multiple of 8, got M={n_mel}")
-    if not 0 < n_batch <= _MAX_GRID_YZ or min(n_frames, n_mel) <= 0:
+    if not spec.is_contiguous():
+        raise ValueError(f"mel_log_split: the kernel reads frames back to "
+                         f"back, so spec must be a contiguous (B, T, W); got "
+                         f"strides {spec.stride()} for {tuple(spec.shape)}")
+    if not 0 < n_batch * n_frames < 2 ** 31 or n_mel <= 0:
         raise ValueError(f"mel_log_split: unsupported shape B={n_batch} "
                          f"T={n_frames} M={n_mel}")
+    plan = split_plan(n_batch * n_frames, width)
+    lo, hi, packed = _band_pack_of(fb_t, fb_t._version)
 
     from freesound_classification_tpu_torch.ops import build
 
@@ -1118,9 +1168,10 @@ def mel_log_split(spec: torch.Tensor, fb_t: torch.Tensor, n_freq: int,
                       device=spec.device)
     with torch.cuda.device(spec.device):
         err = lib.mel_log_split_launch(
-            spec.data_ptr(), spec.stride(0), spec.stride(1), im_offset,
-            fb_t.data_ptr(), out.data_ptr(), n_batch, n_freq, n_frames,
-            n_mel, torch.cuda.current_stream(spec.device).cuda_stream)
+            spec.data_ptr(), width, im_offset, packed.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+            n_batch * n_frames, n_freq, n_frames, n_mel, plan.blocks,
+            plan.smem, torch.cuda.current_stream(spec.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mel_log_split_kernel launch failed: cudaError "
                            f"{err}")

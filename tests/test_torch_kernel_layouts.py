@@ -1,11 +1,13 @@
-"""What the wrappers of K1 and K3 hand their CUDA kernels, on the CPU.
+"""What the wrappers of K1, K3 and K9 hand their CUDA kernels, on the CPU.
 
 K1 (``csrc/mel_log.cu``) sums each mel band over its range of bins only,
-from ``kernels.mel_band_ranges``; K3 (``csrc/pv_resynth.cu``) streams the
-padded synthesis basis in wgmma's shared-memory layout, from
-``kernels.pv_basis_tiles``. The kernels themselves run only on the card
-(``chip_smoke.py``); these tests hold their inputs to numpy and to
-``kernels.synthesis_basis``.
+from ``kernels.mel_band_ranges``; K9 (``csrc/mel_log_split.cu``) does the
+same from ``kernels.mel_band_pack`` (the ranges and each band's weights
+side by side), a block for each ``kernels.split_plan`` tile of frames; K3
+(``csrc/pv_resynth.cu``) streams the padded synthesis basis in wgmma's
+shared-memory layout, from ``kernels.pv_basis_tiles``. The kernels
+themselves run only on the card (``chip_smoke.py``); these tests hold their
+inputs to numpy, to the plain twins and to ``kernels.synthesis_basis``.
 """
 
 import numpy as np
@@ -89,6 +91,106 @@ def test_mel_filterbank_is_sparse_at_the_main_paths_shape():
     widths = (hi - lo).numpy()
     assert int((fb != 0).sum()) == 2014
     assert widths.sum() == 2014 and widths.min() == 2 and widths.max() == 64
+
+
+@pytest.mark.parametrize("case", ["mel_2048_1024_128", "dense", "zero_band",
+                                  "edges"])
+def test_mel_band_pack_rebuilds_the_filterbank(case):
+    """K9's packed bands put every entry of a bf16 (F, M) filterbank back
+    exactly (zeros past each band's range, an empty band all zero), with
+    K1's ranges; summing each band's packed weights against the bf16
+    magnitudes over its range gives the plain twin's log-mel, float32
+    summation order apart."""
+    fb_t = torch.from_numpy(np.ascontiguousarray(_filterbank(case).T)
+                            ).bfloat16()
+    n_freq, n_mel = fb_t.shape
+    lo, hi, packed = kernels.mel_band_pack(fb_t)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    assert packed.shape == (n_mel, n_freq)
+    k1_lo, k1_hi = kernels.mel_band_ranges(fb_t.T)
+    assert torch.equal(lo, k1_lo) and torch.equal(hi, k1_hi)
+    rebuilt = np.zeros((n_freq, n_mel), np.float32)
+    widths = (hi - lo).numpy()
+    for m in range(n_mel):
+        n = max(int(widths[m]), 0)
+        rebuilt[lo[m]: lo[m] + n, m] = packed[m, :n].numpy()
+        assert not packed[m, n:].any()
+    np.testing.assert_array_equal(rebuilt, fb_t.float().numpy())
+    if case == "zero_band":
+        assert widths[5] <= 0
+    rng = np.random.RandomState(4)
+    spec = torch.from_numpy(rng.randn(2, 9, 2 * n_freq).astype(np.float32)
+                            ).bfloat16()
+    mag = kernels.split_magnitude(spec, n_freq, n_freq).double()
+    sums = torch.stack([
+        mag[..., lo[m]: lo[m] + max(int(widths[m]), 0)]
+        @ packed[m, :max(int(widths[m]), 0)].double()
+        for m in range(n_mel)], dim=1)
+    want = kernels.mel_log_split_reference(spec, fb_t, n_freq, n_freq)
+    np.testing.assert_allclose(torch.log(sums + kernels.LOG_EPS).numpy(),
+                               want.numpy(), atol=1e-5, rtol=0)
+
+
+def test_mel_band_pack_is_cached_for_the_same_filterbank():
+    """Packed once for the same unmodified filterbank (``FastFrontend``
+    passes its own on every call), packed anew when it changes."""
+    fb_t = torch.from_numpy(np.ascontiguousarray(
+        _filterbank("zero_band").T)).bfloat16()
+    first = kernels._band_pack_of(fb_t, fb_t._version)
+    assert kernels._band_pack_of(fb_t, fb_t._version) is first
+    fb_t[:, 5] = 1.0
+    again = kernels._band_pack_of(fb_t, fb_t._version)
+    assert again is not first
+    assert (again[1] - again[0])[5].item() == fb_t.shape[0]
+
+
+@pytest.mark.parametrize("n_rows,width", [(64 * 431, 2050), (64 * 431, 2052),
+                                          (64 * 431, 2051), (256, 2304),
+                                          (5, 40), (5, 41)])
+def test_split_plan_covers_every_row_with_one_run_a_block(n_rows, width):
+    """A block takes 4 rows (its last block fewer), one contiguous run of 4
+    x W bf16 values; its shared memory holds the 16-byte chunks that
+    enclose the run at any of the 8 offsets a bf16 run can start at (odd
+    widths need the most: 8 W is 8 past a chunk)."""
+    plan = kernels.split_plan(n_rows, width)
+    assert kernels._K9_FRAMES == 4
+    assert (plan.blocks - 1) * 4 < n_rows <= plan.blocks * 4
+    for head in range(0, 16, 2):
+        chunks = -(-(head + 4 * width * 2) // 16)
+        assert chunks * 16 <= plan.smem
+    assert plan.smem % 16 == 0 and plan.smem <= kernels._MAX_SHARED_BYTES
+    if (n_rows, width) == (64 * 431, 2050):  # the probe's shape
+        assert plan == (6896, 16416)
+
+
+def test_split_plan_refuses_rows_too_wide_for_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.split_plan(16, 29100)
+
+
+def test_bf16_square_roots_lie_far_from_bf16_rounding_midpoints():
+    """K9 rounds an approximate square root (sqrt.approx.f32) of each bf16
+    |S|^2 to bf16. That is the correctly rounded root, as the plain twin
+    computes it, because the exact root of every positive bf16 value lies
+    at least 2^-19 of itself away from the nearest bf16 rounding midpoint,
+    far more than the approximation's error (a few float32 steps, 2^-22
+    each)."""
+    bits = np.arange(1, 0x7F80, dtype=np.uint32) << 16  # every finite x > 0
+    x = bits.view(np.float32).astype(np.float64)
+    root = np.sqrt(x)
+    # bf16 steps at the root (8 significant bits), and the midpoints around
+    ulp = 2.0 ** (np.floor(np.log2(root)) - 7)
+    mid = (np.floor(root / ulp) + 0.5) * ulp
+    gap = np.min(np.abs(root[:, None] - (mid[:, None] + ulp[:, None]
+                                         * np.array([-1.0, 0.0, 1.0]))),
+                 axis=1)
+    assert (gap / root).min() >= 2.0 ** -19.5
+    # and rounding a root that errs by 2^-20 of itself, either way, to bf16
+    # gives the correctly rounded root
+    exact = torch.from_numpy(root).to(torch.bfloat16)
+    for err in (-(2.0 ** -20), 2.0 ** -20):
+        off = torch.from_numpy(root * (1 + err)).float().to(torch.bfloat16)
+        assert torch.equal(off, exact)
 
 
 def _basis_through_descriptors(tiles, o, q, wg, j):

@@ -11,9 +11,10 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from freesound_classification_tpu.ops import augment as ja
 from freesound_classification_tpu.ops import pallas_kernels as jk
 from freesound_classification_tpu.ops import pv as jpv
-from freesound_classification_tpu_torch.ops import kernels, pv
+from freesound_classification_tpu_torch.ops import augment, kernels, pv
 
 N_FFT, HOP = 1024, 256
 
@@ -64,6 +65,61 @@ def test_resample_wrong_factor_fails_by_far():
     a = kernels.resample_linear(wave, torch.tensor([1.1]))
     c = kernels.resample_linear(wave, torch.tensor([1.1 * 1.01]))
     assert float((a - c).abs().max()) > 1e3 * 1e-6
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("factors", [(0.87, 1.31), (1.0, 1.12)])
+def test_masked_resample_matches_jax_resample_rate(use_pallas, factors):
+    """The chain's call, K2 masked to the valid lengths in its store
+    (``augment.resample_rate`` on the CPU: the masked plain twin), against
+    the JAX ``resample_rate`` on the TPU kernel (interpret mode) and on its
+    gather path, with lengths below L: the same float32 mask, the same new
+    lengths, and the tolerance of ``test_resample_twin_matches_tpu_kernel``
+    (the gather path clamps its taps at L - 1, which lengths below L never
+    reach)."""
+    b, l = 2, 65536
+    wave = _wave(b, l, 6)
+    f = np.asarray(factors, np.float32)
+    lengths = np.asarray([l - 20000, l // 2 + 3], np.int32)
+    want, want_len = ja.resample_rate(jnp.asarray(wave), jnp.asarray(lengths),
+                                      jnp.asarray(f), use_pallas=use_pallas)
+    got, got_len = augment.resample_rate(*(torch.from_numpy(x)
+                                           for x in (wave, lengths, f)))
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    half_step = 0.5 * np.spacing(np.float32(l * f.max()))
+    tol = half_step * np.abs(np.diff(wave, axis=1)).max() + 1e-6
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= tol
+    pos = np.arange(l, dtype=np.float32)[None] * f[:, None]
+    masked = pos >= lengths[:, None]
+    assert masked.sum(axis=1).min() > 1000
+    assert not got.numpy()[masked].any()
+
+
+def test_resample_mask_at_full_length_is_the_unmasked_twin():
+    """lengths = L masks nothing the taps did not already zero: bit for
+    bit the unmasked function, so the unmasked checks keep their meaning."""
+    l = 20000
+    wave = torch.from_numpy(_wave(3, l, 7))
+    f = torch.tensor([0.9, 1.3, 1.8])
+    full = torch.full((3,), l, dtype=torch.int32)
+    a = kernels.resample_linear(wave, f).numpy()
+    for got in (kernels.resample_linear(wave, f, full),
+                kernels.resample_linear_reference(wave, f, full)):
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      a.view(np.uint32))
+    assert (a[2, int(l / 1.8) + 2:] == 0).all()  # past L / 1.8: zero taps
+
+
+def test_resample_lengths_a_tenth_short_fail_by_far():
+    """The wrong input the card's check runs: lengths a tenth of a clip
+    short move the masked output by far more than the tolerance."""
+    l = 65536
+    wave = torch.from_numpy(_wave(2, l, 8))
+    f = torch.tensor([0.95, 1.2])
+    lengths = torch.tensor([l - 3000, l // 2], dtype=torch.int32)
+    want = kernels.resample_linear(wave, f, lengths)
+    short = kernels.resample_linear(wave, f, lengths - l // 10)
+    assert float((short - want).abs().max()) > 1e3 * 1e-6
 
 
 # ---------------------------------------------------------------------------
