@@ -28,6 +28,13 @@ The paths, each driven through the CLI a user would call:
 - the bench (``python -m freesound_classification_tpu_torch.bench``): 5-fold
   inference over 1120 bucketed clips, and the B = 64 x 10 s train step
   with and without augmentation.
+- the published recipe end to end: the port's kit
+  (``freesound_classification_tpu_torch/recipes/reproduce_reference.sh``:
+  class map, curated 5-fold round with test predictions and submission,
+  noisy-set scoring and relabelling, the noisy round, the blend) on an
+  FSDKaggle2019-layout mini dataset, and the train CLI's ``--profile``.
+- the profiling probes (``probes/train_step_split.py``,
+  ``probes/model_ablation.py``).
 
 Phases, each of which raises on failure (none catches its own):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
@@ -66,7 +73,11 @@ Phases, each of which raises on failure (none catches its own):
      kernel
   step split: one augmented bench train step (B = 64 x 10 s) by
      torch.profiler: device busy time and idle share, K1's and K3's share,
-     the ten longest kernels
+     the ten longest kernels; then the probe's stages of that step, and of
+     the bench's 5-fold inference of one 128 x 10 s batch, each timed alone
+     (ms by events, busy ms and launches by torch.profiler); a stage that
+     launched nothing fails
+  ablation: the model-ablation probe's variants, ms by events
   6. predict path: the predict CLI with launch counts reset just before
      it; the CSV's schema and values; K1 launched; the predictions vary
      across clips by more than the bf16 tolerance, and the same ensemble
@@ -76,6 +87,9 @@ Phases, each of which raises on failure (none catches its own):
   7. train path: the train CLI with the counts reset just before it; K1, K2
      and K3 launched; losses finite; parameters moved; best_model.npz
      predicts finite probabilities through the predict CLI; steps/s
+  profile: the train CLI at the recipe's width with ``--profile``, 2
+     epochs of fold 0 apart from the train path: a trace of epoch 1 under
+     ``summaries/profile`` that names K1, K2 and K3
   then: the 2d ensemble fused (K4/K5, then K8 with ``fused_head``), the
      hierarchical predict CLI and its fused ensemble (K6), the backbone
      predict CLI and its fused ensemble (K7: 13 launches per fold and
@@ -83,6 +97,17 @@ Phases, each of which raises on failure (none catches its own):
      unfused CSV and against the plain versions, and ms per batch in turns;
      the hierarchical train and finetune CLIs and the backbone train CLI
      (K1-K3 launched, losses finite, parameters moved, steps/s)
+  recipe: the kit as a child on the card, 2 epochs a round, batch 20, on
+     a mini dataset (the train path's 150 curated clips, 60 noisy clips of
+     which a third carry a wrong or an extra label, 20 test clips): exit
+     0; the class map's 8 classes; two experiments, each with five OOF and
+     five test prediction files, a submission.csv that is their mean
+     (1e-6), a results metric that is the lwlrap of its OOF CSVs (1e-9),
+     model_on_epoch_0.npz in every fold; noisy probabilities for all 60
+     clips; 60 relabelled rows (scoring_1000); a blend submission of the
+     8 classes for the 20 test clips; each step's wall time. Launches on
+     its two rounds are estimated from the train path's counts per fold
+     and epoch (the kit's children cannot report theirs)
   probe: V1 and V3 once each with the counts reset just before each; K1
      launched once in V1, K9 once in V3; V3 within its tolerance of V1 while
      neighbouring clips differ by more than twice it; ms per call in turns
@@ -102,12 +127,16 @@ float32 (TF32 is switched off below), so the comparisons measure the kernels.
 
 from __future__ import annotations
 
+import collections
 import csv
 import json
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 
@@ -157,6 +186,7 @@ RECIPE = ["--num_conv_blocks", "5", "--conv_base_depth", "100",
           "--p_mixup", "0.5", "--p_aug", "0.75", "--batch_size", "20",
           "--bf16"]
 N_TRAIN_CLIPS = 150  # 5 folds: 120 train clips, 6 steps of 20 per epoch
+TRAIN_SECONDS = (8.5, 15.0)  # every labelled clip in the 15 s crop's bucket
 TRAIN_EPOCHS = 2
 TRAIN_CLASSES = 8
 STEP_TOL_LOSS = 1e-4
@@ -218,6 +248,18 @@ BENCH_KEYS = ("value", "vs_baseline", "mfu", "train_step_ms_noaug",
               "train_step_ms_aug", "train_mfu_noaug", "train_mfu_aug",
               "train_mfu")
 BENCH_TIMEOUT = 600
+# the recipe phase: the port's kit on an FSDKaggle2019-layout mini dataset
+# (the curated set is the train path's clips), two epochs a round
+RECIPE_NOISY = 60
+RECIPE_TEST = 20
+RECIPE_EPOCHS = 2
+RECIPE_BATCH = 20
+RECIPE_TIMEOUT = 900
+WRAPPER_KERNEL = {  # ops/kernels.launch_counts' names, as the kernels line
+    "mel_project_log": "K1", "resample_linear": "K2", "pv_resynth": "K3",
+    "resnet_block_2d_fused": "K4/K5", "resnet_block_1d_fused": "K6",
+    "basic_block_fused": "K7", "conv_head_fused": "K8",
+    "mel_log_split": "K9"}
 
 
 def log(msg: str) -> None:
@@ -1135,6 +1177,35 @@ def phase_step_split(smi: str) -> None:
     log("  ten longest kernels a step: " + "; ".join(
         f"{name[:50]} {ms:.4f} ms x{n:g}" for name, ms, n in found[:10]))
 
+    from freesound_classification_tpu_torch.probes import train_step_split
+
+    for key, stages in (("train", train_step_split.train_stages),
+                        ("inference", train_step_split.inference_stages)):
+        rows = train_step_split.split(stages(device))
+        log(f"{key} stages (probes/train_step_split.py; ms per call by CUDA "
+            f"events, busy ms and launches per call by torch.profiler) on "
+            f"{smi}:\n" + train_step_split.table(rows))
+        log(f"# {key} split " + json.dumps(rows))
+        idle = [r["stage"] for r in rows if not r["launches"] > 0]
+        if idle:
+            raise RuntimeError(f"a stage launched nothing on the card: "
+                               f"{idle}")
+
+
+def phase_ablation(smi: str) -> None:
+    """``probes/model_ablation.py``'s variants at the bench shape (B = 64 x
+    10 s): featurization with K1, its plain tail and ``torch.stft`` alone;
+    the bf16 eval forward at depths 1-6; train mode, float32 and the fused
+    blocks at depth 6. ms per call by CUDA events."""
+    from freesound_classification_tpu_torch.probes import model_ablation
+
+    rows = []
+    for name, fn in model_ablation.variants(torch.device(DEVICE)):
+        rows.append((name, cuda_ms(fn, iters=10)))
+    log(f"model ablation (probes/model_ablation.py, B=64 x 10 s, ms per call "
+        f"by CUDA events) on {smi}:\n" + "\n".join(
+            f"  {name:46s} {ms:9.3f} ms" for name, ms in rows))
+
 
 def synthetic_clip_lengths(n: int, seed: int = 0) -> np.ndarray:
     """The bench's test length distribution: lognormal, clipped to 1-15 s."""
@@ -1373,7 +1444,7 @@ def write_train_inputs(root: str) -> dict:
     classes = [f"class_{c}" for c in range(TRAIN_CLASSES)]
     rows = []
     for i in range(N_TRAIN_CLIPS):
-        n = int(rng.uniform(8.5, 15.0) * SR)
+        n = int(rng.uniform(*TRAIN_SECONDS) * SR)
         label = [i % TRAIN_CLASSES] + ([(i * 3 + 1) % TRAIN_CLASSES]
                                        if i % 4 == 0 else [])
         t = np.arange(n) / SR
@@ -1475,6 +1546,48 @@ def phase_train(root: str, inputs: dict, smi: str) -> dict:
     log(f"best_model.npz through the predict CLI: {probs.shape} finite "
         f"probabilities in [{probs.min():.4g}, {probs.max():.4g}]")
     return launches
+
+
+def phase_profile(root: str, inputs: dict, smi: str) -> None:
+    """The 2d train CLI with ``--profile`` at the recipe's width, 2 epochs
+    of fold 0, apart from ``phase_train`` (whose last-epoch rate would
+    otherwise be taken under the profiler): a trace of epoch 1 lands under
+    ``summaries/profile`` and names K1, K2 and K3."""
+    from freesound_classification_tpu_torch.cli import train_2d_cnn
+
+    argv = ["--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE, *RECIPE,
+            "--folds", "0", "--n_folds", "5", "--epochs", "2",
+            "--num_workers", "4", "--log_interval", "10", "--profile",
+            "--label", "profile",
+            "--experiments_dir", os.path.join(root, "experiments")]
+    t0 = time.time()
+    experiment = train_2d_cnn.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    profile = os.path.join(experiment.experiment_dir, "summaries", "profile")
+    traces = sorted(os.listdir(profile)) if os.path.isdir(profile) else []
+    if not traces:
+        raise RuntimeError(f"--profile wrote no trace under {profile}")
+    # the identifiers in the names of the trace's device kernels
+    launched = collections.Counter()
+    for t in traces:
+        with open(os.path.join(profile, t)) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") == "kernel":
+                launched.update(set(re.findall(r"\w+", e.get("name", ""))))
+    wanted = {"K1": ("mel_log_kernel",), "K2": ("resample_kernel",),
+              "K3": ("pv_tile_sum_kernel", "pv_resynth_kernel",
+                     "pv_ola_fix_kernel")}
+    named = {k: {n: launched[n] for n in names}
+             for k, names in wanted.items()}
+    log(f"profile: train CLI --profile, {wall:.2f} s for 2 epochs of fold 0; "
+        f"{len(traces)} trace(s) of epoch 1, device kernel events by name "
+        f"{named} on {smi}")
+    if not all(n > 0 for names in named.values() for n in names.values()):
+        raise RuntimeError(f"the trace misses a kernel: {named}")
 
 
 def phase_hier_train(root: str, inputs: dict, smi: str) -> tuple:
@@ -1864,6 +1977,242 @@ def phase_backbone_train(root: str, inputs: dict, smi: str) -> dict:
     return launches
 
 
+def write_recipe_layout(root: str, curated: dict) -> dict:
+    """An FSDKaggle2019-layout mini dataset under ``root/fsd``: the curated
+    set is ``write_train_inputs``' clips and CSV; ``train_noisy/`` holds
+    ``RECIPE_NOISY`` clips of ``TRAIN_SECONDS``, every third with a wrong
+    or an extra label; ``test/`` holds ``RECIPE_TEST`` clips with the
+    bench's lengths and ``sample_submission.csv`` (fname and a zero column
+    a class)."""
+    data = os.path.join(root, "fsd")
+    for sub in ("train_noisy", "test"):
+        os.makedirs(os.path.join(data, sub))
+    os.symlink(curated["train_dir"], os.path.join(data, "train_curated"))
+    with open(curated["train_csv"]) as f, \
+            open(os.path.join(data, "train_curated.csv"), "w") as g:
+        g.write(f.read())
+    classes = curated["classes"]
+    rng = np.random.RandomState(21)
+    rows = []
+    for i in range(RECIPE_NOISY):
+        n = int(rng.uniform(*TRAIN_SECONDS) * SR)
+        c = int(rng.randint(TRAIN_CLASSES))
+        t = np.arange(n) / SR
+        audio = synthetic_clip(n, rng) + 0.2 * np.sin(
+            2 * np.pi * 300.0 * (c + 1) * t)
+        label = {c}
+        if i % 3 == 0:  # a wrong label, or an extra one
+            other = (c + 1 + i // 3 % (TRAIN_CLASSES - 1)) % TRAIN_CLASSES
+            label = {other} if i % 2 == 0 else {c, other}
+        fname = f"noisy{i:03d}.wav"
+        write_wav(os.path.join(data, "train_noisy", fname), 0.5 * audio)
+        rows.append((fname, ",".join(classes[k] for k in sorted(label))))
+    with open(os.path.join(data, "train_noisy.csv"), "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["fname", "labels"])
+        writer.writerows(rows)
+    test = []
+    for i, n in enumerate(synthetic_clip_lengths(RECIPE_TEST, seed=22)):
+        fname = f"test{i:03d}.wav"
+        write_wav(os.path.join(data, "test", fname), synthetic_clip(n, rng))
+        test.append(fname)
+    with open(os.path.join(data, "sample_submission.csv"), "w",
+              newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["fname", *classes])
+        writer.writerows([name, *([0] * len(classes))] for name in test)
+    return {"data": data, "classes": classes, "test": test,
+            "noisy": [r[0] for r in rows]}
+
+
+def run_logged(cmd: list, env: dict, timeout: float) -> tuple:
+    """``cmd`` as a child leading a new process group, its output read as
+    it comes; returns (exit code, output, [(line, seconds since start)] of
+    the ``== `` step lines). At ``timeout``, and whatever happens, the child's
+    whole process group is killed, grandchildren included."""
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def kill_group():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    timer = threading.Timer(timeout, kill_group)
+    timer.start()
+    lines, steps = [], []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("== "):
+                steps.append((line.strip(), time.time() - t0))
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        kill_group()
+        proc.wait()
+    steps.append(("end", time.time() - t0))
+    return rc, "".join(lines), steps
+
+
+def recipe_launches(path: str) -> dict:
+    """The kernel launches of the kit's runs by step, from the lines its CLI
+    processes append to ``$FSC_LAUNCH_LOG`` at exit (each from 0 at its
+    start): the curated round, the noisy scoring and the noisy round, each
+    one process."""
+    steps = collections.defaultdict(list)
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            program = os.path.basename(rec["argv"][0])
+            if program == "train_2d_cnn.py":
+                step = ("noisy round" if "--noisy_train_df" in rec["argv"]
+                        else "curated round")
+            elif program == "predict_2d_cnn.py":
+                step = "noisy scoring"
+            else:
+                raise RuntimeError(f"launch log of {program}")
+            steps[step].append({WRAPPER_KERNEL[k]: n
+                                for k, n in rec["launches"].items()})
+    if sorted(steps) != ["curated round", "noisy round", "noisy scoring"] \
+            or any(len(v) != 1 for v in steps.values()):
+        raise RuntimeError(f"the kit's launch log: {dict(steps)}")
+    return {step: runs[0] for step, runs in steps.items()}
+
+
+def phase_recipe(root: str, curated: dict, smi: str) -> dict:
+    """The port's kit (``recipes/reproduce_reference.sh``) on the card as a
+    child, at ``RECIPE_EPOCHS`` epochs a round and batch ``RECIPE_BATCH``
+    (the recipe's 20), on the mini
+    dataset of ``write_recipe_layout``; then every step's artifacts are
+    checked against what the recipe promises. Returns each step's kernel
+    launches, counted in the kit's own processes: K1, K2 and K3 must each
+    launch in both rounds, and K1 in the noisy scoring."""
+    from freesound_classification_tpu_torch.data.dataset import (
+        read_csv_columns,
+    )
+    from freesound_classification_tpu_torch.data.folds import (
+        binarize_label_strings,
+    )
+    from freesound_classification_tpu_torch.data.tables import (
+        read_prediction_files,
+        read_predictions,
+    )
+    from freesound_classification_tpu_torch.ops.metrics import lwlrap
+
+    t0 = time.time()
+    layout = write_recipe_layout(root, curated)
+    log(f"recipe inputs: {RECIPE_NOISY} noisy and {RECIPE_TEST} test clips "
+        f"({time.time() - t0:.1f} s to write)")
+    work = os.path.join(root, "recipe_work")
+    here = os.path.dirname(os.path.abspath(__file__))
+    launch_log = os.path.join(root, "recipe_launches.jsonl")
+    if os.path.exists(launch_log):
+        os.remove(launch_log)
+    env = dict(os.environ, DATA_DIR=layout["data"], WORK=work,
+               EPOCHS=str(RECIPE_EPOCHS), NOISY_EPOCHS=str(RECIPE_EPOCHS),
+               BATCH_SIZE=str(RECIPE_BATCH), DEVICE=DEVICE,
+               PY=sys.executable, FSC_LAUNCH_LOG=launch_log)
+    torch.cuda.empty_cache()  # leave the card's memory to the kit
+    rc, out, steps = run_logged(
+        ["bash", os.path.join(here, "freesound_classification_tpu_torch",
+                              "recipes", "reproduce_reference.sh")],
+        env, RECIPE_TIMEOUT)
+    log("recipe kit steps (wall s): " + "; ".join(
+        f"{name.strip('= ')} {t1 - t0_:.1f}"
+        for (name, t0_), (_, t1) in zip(steps, steps[1:])))
+    if rc != 0:
+        raise RuntimeError(f"the recipe kit failed ({rc}):\n{out[-6000:]}")
+    with open(os.path.join(work, "classmap.json")) as f:
+        class_map = json.load(f)
+    if sorted(class_map) != sorted(layout["classes"]):
+        raise RuntimeError(f"class map: {sorted(class_map)}")
+    exp_root = os.path.join(work, "experiments")
+    experiments = sorted(os.listdir(exp_root))
+    if len(experiments) != 2:
+        raise RuntimeError(f"the kit made {experiments}")
+    classes = sorted(class_map, key=class_map.get)
+    fnames, label_cells = read_csv_columns(
+        os.path.join(layout["data"], "train_curated.csv"),
+        ["fname", "labels"])
+    # the curated labels in fname order, as finalize_results sorts them
+    order = sorted(range(len(fnames)), key=lambda i: fnames[i])
+    truth = binarize_label_strings([label_cells[i] for i in order],
+                                   class_map)
+    summary = {}
+    for name in experiments:
+        exp = os.path.join(exp_root, name)
+        pred = os.path.join(exp, "predictions")
+        files = sorted(os.listdir(pred))
+        val = [f"val_preds_fold_{k}.csv" for k in range(5)]
+        test = [f"test_preds_fold_{k}.csv" for k in range(5)]
+        if not set(val + test + ["submission.csv"]) <= set(files):
+            raise RuntimeError(f"{name}: predictions {files}")
+        folds = [read_predictions(os.path.join(pred, f)) for f in test]
+        sub_f, sub_c, sub_v = read_predictions(os.path.join(
+            pred, "submission.csv"))
+        mean = np.mean([v for _, _, v in folds], axis=0)
+        sub_err = float(np.abs(sub_v - mean).max())
+        if (sub_f != layout["test"] or sub_c != classes
+                or not sub_err <= 1e-6):
+            raise RuntimeError(f"{name}: submission.csv is not the folds' "
+                               f"mean ({sub_err})")
+        oof_f, _, oof_v = read_prediction_files(
+            [os.path.join(pred, f) for f in val], classes)
+        rows = sorted(range(len(oof_f)), key=lambda i: oof_f[i])
+        if sorted(oof_f) != sorted(fnames):
+            raise RuntimeError(f"{name}: the OOF rows are not the curated "
+                               "set")
+        metric = lwlrap(truth, oof_v[rows])
+        with open(os.path.join(exp, "results.json")) as f:
+            results = json.load(f)
+        if not abs(results["metric"] - metric) <= 1e-9:
+            raise RuntimeError(f"{name}: metric {results['metric']} against "
+                               f"the OOF CSVs' {metric}")
+        for k in range(5):
+            if not os.path.isfile(os.path.join(
+                    exp, "checkpoints", f"fold_{k}", "model_on_epoch_0.npz")):
+                raise RuntimeError(f"{name}: fold {k} has no "
+                                   "model_on_epoch_0.npz")
+        with open(os.path.join(exp, "config.json")) as f:
+            label = json.load(f)["label"]
+        summary[label] = {
+            "metric": round(metric, 6),
+            "folds": [round(results[f"fold{k}"]["metric"], 4)
+                      for k in range(5)],
+            "submission_err": sub_err}
+    noisy_f, _, noisy_v = read_predictions(os.path.join(
+        work, "predictions", "noisy_probabilities.csv"))
+    if sorted(noisy_f) != sorted(layout["noisy"]) or \
+            not np.isfinite(noisy_v).all():
+        raise RuntimeError("the noisy probabilities miss clips")
+    with open(os.path.join(work, "predictions",
+                           "train_noisy_relabeled_1k.csv")) as f:
+        relabeled = list(csv.reader(f))[1:]
+    if len(relabeled) != RECIPE_NOISY:
+        raise RuntimeError(f"relabelled CSV: {len(relabeled)} rows")
+    blend_f, blend_c, blend_v = read_predictions(os.path.join(
+        work, "predictions", "blend_submission.csv"))
+    if (sorted(blend_f) != sorted(layout["test"]) or blend_c != classes
+            or not np.isfinite(blend_v).all()):
+        raise RuntimeError(f"blend submission: {blend_c} x {len(blend_f)}")
+    log(f"recipe kit: exit 0 in {steps[-1][1]:.1f} s, every artifact "
+        f"checked; {summary} on {smi}")
+    launches = recipe_launches(launch_log)
+    log(f"recipe launches, counted in the kit's processes ({RECIPE_EPOCHS} "
+        f"epochs x 5 folds a round): {launches} on {smi}")
+    needed = {"curated round": ("K1", "K2", "K3"),
+              "noisy round": ("K1", "K2", "K3"), "noisy scoring": ("K1",)}
+    missed = [(step, k) for step, ks in needed.items() for k in ks
+              if launches[step][k] <= 0]
+    if missed:
+        raise RuntimeError(f"the kit's run missed a kernel: {missed}")
+    return launches
+
+
 def phase_probe(smi: str) -> int:
     """The probe's two programs at the bench shape (64 clip-like waves x
     10 s, the bench's 5 random bf16 folds): V1 (log-mel frontend, K1) and
@@ -2044,6 +2393,7 @@ def phase_f32_step() -> None:
 def main() -> None:
     from freesound_classification_tpu_torch.ops import kernels
 
+    t_start = time.time()
     smi = phase_device()
     phase_build()
     k1 = phase_k1()
@@ -2057,6 +2407,7 @@ def main() -> None:
     phase_no_sync()
     phase_domain()
     phase_step_split(smi)
+    phase_ablation(smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.time()
         inputs = write_inputs(root)
@@ -2076,13 +2427,16 @@ def main() -> None:
         k6["launches"] = phase_hier_predict(root, inputs, host, smi)
         k7["launches"] = phase_backbone_predict(root, inputs, host, smi)
         train = phase_train(root, train_inputs, smi)
+        phase_profile(root, train_inputs, smi)
         pretrained, _ = phase_hier_train(root, train_inputs, smi)
         phase_hier_finetune(root, train_inputs, pretrained, smi)
         phase_backbone_train(root, train_inputs, smi)
+        phase_recipe(root, train_inputs, smi)
     k2["launches"], k3["launches"] = train["K2"], train["K3"]
     k9["launches"] = phase_probe(smi)
     phase_bench(smi)
     phase_f32_step()
+    log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [k1, k2, k3, k45, k6, k7, k8, k9]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,4 +144,5 @@ def main(argv=None) -> None:
 
 
 if __name__ == "__main__":
+    common.log_launches_at_exit()
     main()

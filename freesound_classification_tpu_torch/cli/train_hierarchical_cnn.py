@@ -30,4 +30,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    common.log_launches_at_exit()
     main()

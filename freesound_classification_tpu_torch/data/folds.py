@@ -100,11 +100,13 @@ def multilabel_stratified_splits(y: np.ndarray, n_folds: int,
 
 
 def binarize_label_strings(label_strings, classmap: dict) -> np.ndarray:
-    """Comma-separated class-name strings -> (N, C) binary float32."""
+    """Comma-separated class-name strings -> (N, C) binary float32; empty
+    names (``"a,,b"``, a trailing comma) are skipped."""
     out = np.zeros((len(label_strings), len(classmap)), dtype=np.float32)
     for k, item in enumerate(label_strings):
         for label in str(item).split(","):
-            out[k, classmap[label]] = 1.0
+            if label:
+                out[k, classmap[label]] = 1.0
     return out
 
 

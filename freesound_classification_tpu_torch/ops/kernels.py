@@ -1180,3 +1180,11 @@ def mel_log_split(spec: torch.Tensor, fb_t: torch.Tensor, n_freq: int,
 
 
 mel_log_split.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every wrapper's ``launches`` so far in this process, by its name."""
+    return {fn.__name__: fn.launches for fn in (
+        mel_project_log, resample_linear, pv_resynth, resnet_block_2d_fused,
+        resnet_block_1d_fused, basic_block_fused, conv_head_fused,
+        mel_log_split)}

@@ -10,20 +10,25 @@ frontend take no gradient.
 Around it, as the JAX engine: the epoch switch-off of augmentation
 (``switch_off_augmentations_on``; scale 0 skips the augmenter), the MixUp
 partner pool (the previous clean batch of the same bucket shape), full-set
-validation lwlrap, ``fit_validate`` saving ``best_model.npz`` per fold, and
-the warm start of the finetune CLI (``warm_start_path``: every fold's fit
-starts from that ``best_model.npz``'s weights and BatchNorm statistics, with
-a fresh optimizer and step count).
+validation lwlrap, ``fit_validate`` saving ``best_model.npz`` per fold and
+``model_on_epoch_{epoch}.npz`` every ``_save_every`` epochs (the newest
+``_keep_checkpoints`` kept; 0 keeps all), the warm start of the finetune CLI
+(``warm_start_path``: every fold's fit starts from that ``best_model.npz``'s
+weights and BatchNorm statistics, with a fresh optimizer and step count),
+and with ``profile_dir`` a ``torch.profiler`` trace of epoch 1 (the first
+after the warm-up epoch 0) into that directory. While it traces, each
+step's stages are named ranges in the trace (``augment``, ``frontend``,
+``forward``, ``backward``, ``optimizer``); untraced steps open none.
 
 Not ported yet, and refused with the ROADMAP item named: gradient
-accumulation, resume bundles, tensorboard summaries, profiling,
-fold-parallel and multi-device training.
+accumulation, resume bundles, tensorboard summaries, fold-parallel and
+multi-device training.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -40,6 +45,16 @@ from freesound_classification_tpu_torch.training.optimizers import (
     set_lr,
 )
 from freesound_classification_tpu_torch.utils.device import resolve_device
+from freesound_classification_tpu_torch.utils.profiling import (
+    StepTimer,
+    annotate,
+    maybe_trace,
+)
+
+
+def _no_range(name: str) -> contextlib.nullcontext:
+    del name
+    return contextlib.nullcontext()
 
 
 class Engine:
@@ -51,8 +66,9 @@ class Engine:
     function or None. ``seed`` seeds the generator of every random draw of
     the augmenter; dropout draws from PyTorch's default generator.
     ``warm_start_path``, a fold ``.npz`` of the same architecture, seeds
-    the model at the start of every ``fit_validate``. ``device`` is the
-    card unless the caller passes "cpu"; without a card it raises.
+    the model at the start of every ``fit_validate``. ``profile_dir``, where
+    set, receives a trace of each fit's epoch 1. ``device`` is the card
+    unless the caller passes "cpu"; without a card it raises.
     """
 
     def __init__(self, model: nn.Module, frontend: Frontend, train_config,
@@ -60,7 +76,8 @@ class Engine:
                  augment: Optional[Callable] = None,
                  checkpoint_dir: Optional[str] = None, seed: int = 42,
                  device: torch.device | str = "cuda",
-                 warm_start_path: Optional[str] = None):
+                 warm_start_path: Optional[str] = None,
+                 profile_dir: Optional[str] = None):
         accum = int(getattr(train_config, "accumulation_steps", 1))
         if accum > 1:
             raise NotImplementedError(
@@ -74,6 +91,8 @@ class Engine:
         self.augment = augment
         self.checkpoint_dir = checkpoint_dir
         self.warm_start_path = warm_start_path
+        self.profile_dir = profile_dir
+        self._stage = _no_range  # ``annotate`` while an epoch is traced
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.schedule = None
@@ -105,17 +124,22 @@ class Engine:
         self.model.train()
         with torch.no_grad():
             if self.augment is not None and aug_scale > 0.0:
-                wave, lengths, labels = self.augment(
-                    wave, lengths, labels, self.generator, aug_scale,
-                    partner=partner)
-            inputs, frame_lengths = self.frontend(wave, lengths)
-        logits = self.model(inputs, frame_lengths)
-        per_sample = self.loss_fn(logits, labels, average=False)
-        loss = per_sample.mean()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        set_lr(self.optimizer, self.schedule(self.global_step))
-        self.optimizer.step()
+                with self._stage("augment"):
+                    wave, lengths, labels = self.augment(
+                        wave, lengths, labels, self.generator, aug_scale,
+                        partner=partner)
+            with self._stage("frontend"):
+                inputs, frame_lengths = self.frontend(wave, lengths)
+        with self._stage("forward"):
+            logits = self.model(inputs, frame_lengths)
+            per_sample = self.loss_fn(logits, labels, average=False)
+            loss = per_sample.mean()
+        with self._stage("backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with self._stage("optimizer"):
+            set_lr(self.optimizer, self.schedule(self.global_step))
+            self.optimizer.step()
         self.global_step += 1
         with torch.no_grad():
             metric = metrics_lib.lwlrap_torch(labels,
@@ -140,7 +164,8 @@ class Engine:
                     log_interval: int = 25) -> dict:
         losses, batch_metrics = [], []
         n_clips = 0
-        t0 = time.time()
+        timer = StepTimer()
+        timer.start()
         for batch_idx, batch in enumerate(loader):
             wave, lengths, labels = self.to_device(batch)
             # MixUp partners: the previous clean batch of the same bucket
@@ -161,10 +186,11 @@ class Engine:
                       f"{float(out['metric']):.4f}")
         losses = torch.stack(losses).float().cpu().numpy()
         batch_metrics = torch.stack(batch_metrics).float().cpu().numpy()
-        dt = time.time() - t0
+        # the epoch as one timed span, closed after the losses' readback
+        dt = timer.stop(n_clips)
         return {"loss": float(losses.mean()),
                 "metric": float(np.nanmean(batch_metrics)),
-                "losses": losses, "clips_per_sec": n_clips / max(dt, 1e-9),
+                "losses": losses, "clips_per_sec": timer.clips_per_sec,
                 "steps": len(losses), "seconds": dt}
 
     def predict(self, loader) -> np.ndarray:
@@ -200,8 +226,10 @@ class Engine:
     def fit_validate(self, train_loader, valid_loader, epochs: int,
                      fold: int, log_interval: int = 25) -> list:
         """Train ``epochs`` epochs, validating after each; save
-        ``best_model.npz`` whenever validation lwlrap improves. Returns the
-        per-epoch scores."""
+        ``model_on_epoch_{epoch}.npz`` when ``epoch % _save_every == 0``
+        (then prune to the newest ``_keep_checkpoints``) and
+        ``best_model.npz`` whenever validation lwlrap improves. Epoch 1 runs
+        under ``maybe_trace(profile_dir)``. Returns the per-epoch scores."""
         steps_per_epoch = len(train_loader)
         if steps_per_epoch == 0:
             raise ValueError(
@@ -215,22 +243,36 @@ class Engine:
         if self.warm_start_path:
             print(f"warm start from {self.warm_start_path}")
             self.warm_start(self.warm_start_path)
-        switch_off = int(getattr(self.train_config,
-                                 "switch_off_augmentations_on", 10**9))
+        cfg = self.train_config
+        switch_off = int(getattr(cfg, "switch_off_augmentations_on", 10**9))
+        save_every = int(getattr(cfg, "_save_every", 10**9))
+        keep = int(getattr(cfg, "_keep_checkpoints", 0))
         scores, best = [], -np.inf
         self.epoch_stats = []
         for epoch in range(epochs):
-            stats = self.train_epoch(
-                train_loader, 0.0 if epoch >= switch_off else 1.0,
-                log_interval)
+            traced = self.profile_dir if epoch == 1 else None
+            self._stage = annotate if traced else _no_range
+            try:
+                with maybe_trace(traced):
+                    stats = self.train_epoch(
+                        train_loader, 0.0 if epoch >= switch_off else 1.0,
+                        log_interval)
+            finally:
+                self._stage = _no_range
             self.epoch_stats.append(stats)
             print(f"Epoch {epoch}: loss {stats['loss']:.4f} metric "
                   f"{stats['metric']:.4f} ({stats['clips_per_sec']:.1f} "
                   "clips/s)")
             score = self.evaluate(valid_loader, verbose=True)
             scores.append(score)
-            if self.checkpoint_dir is not None and score > best:
-                self.save_model(fold, "best_model")
+            if self.checkpoint_dir is not None:
+                if epoch % save_every == 0:
+                    self.save_model(fold, f"model_on_epoch_{epoch}")
+                    checkpoints.prune_epoch_checkpoints(
+                        os.path.join(self.checkpoint_dir, f"fold_{fold}"),
+                        keep)
+                if score > best:
+                    self.save_model(fold, "best_model")
             best = max(best, score)
         return scores
 

@@ -115,6 +115,11 @@ class Experiment:
         except FileNotFoundError:
             return {}
 
+    @property
+    def results(self) -> dict:
+        """The nested results registered so far (a copy)."""
+        return json.loads(json.dumps(self._results))
+
     def register_result(self, key: str, value: Any) -> None:
         """Dotted key -> nested results.json."""
         flat = flatten(self._results)

@@ -76,7 +76,11 @@ REQUIRED = ("cli.train_hierarchical_cnn", "cli.finetune_hierarchical_cnn",
             "ops.backbone_infer", "ops.head_infer", "ops.kernels",
             "models.backbone", "models.blocks", "models.classifiers",
             "models.frontend", "training.engine", "bench",
-            "ops.fast_featurize", "probes.dft_context")
+            "ops.fast_featurize", "probes.dft_context",
+            "probes.train_step_split", "probes.model_ablation",
+            "utils.profiling", "data.tables", "cli.create_class_map",
+            "cli.relabel_noisy_data", "cli.linear_blend",
+            "cli.compare_to_baseline")
 
 
 def test_every_port_module_imports_with_the_jax_stack_blocked():

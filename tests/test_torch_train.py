@@ -447,8 +447,10 @@ def test_train_cli_end_to_end_then_predict(tmp_path):
         "--log_interval", "1"])
     fold_dir = os.path.join(experiment.experiment_dir, "checkpoints",
                             "fold_1")
-    assert sorted(os.listdir(fold_dir)) == ["best_model.npz",
-                                            "final_model.npz"]
+    # --save_every defaults to 1 and --keep_checkpoints to 0, as in JAX
+    assert sorted(os.listdir(fold_dir)) == [
+        "best_model.npz", "final_model.npz", "model_on_epoch_0.npz",
+        "model_on_epoch_1.npz"]
     results = json.load(open(os.path.join(experiment.experiment_dir,
                                           "results.json")))
     assert 0.0 <= results["fold1"]["metric"] <= 1.0
@@ -499,37 +501,10 @@ def train_2d_cnn_args(root, exp_dir):
 def test_train_cli_refuses_what_waits_and_a_missing_card(tmp_path):
     args = train_2d_cnn_args(str(tmp_path), str(tmp_path))
     for flag, value in (("accumulation_steps", 2), ("resume", True),
-                        ("holdout_size", 0.1), ("fold_parallel", True)):
+                        ("fold_parallel", True), ("mesh_devices", 2)):
         bad = type(args)(**dict(vars(args), **{flag: value}))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             common.refuse_unported(bad)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             common.resolve_device("cuda")
-
-
-def test_train_cli_refuses_sample_submission(tmp_path):
-    """The JAX CLI writes test predictions and submission.csv from
-    --sample_submission; the port cannot yet, so it refuses the flag."""
-    args = train_2d_cnn_args(str(tmp_path), str(tmp_path))
-    bad = type(args)(**dict(vars(args), sample_submission="sub.csv"))
-    with pytest.raises(NotImplementedError, match="ROADMAP M2.3"):
-        common.refuse_unported(bad)
-
-
-@pytest.mark.parametrize("flag,value", [("test_data_dir", "test"),
-                                        ("save_every", 20),
-                                        ("keep_checkpoints", 3)])
-def test_train_cli_warns_on_flags_without_effect(tmp_path, flag, value):
-    """--test_data_dir alone, and --save_every or --keep_checkpoints away
-    from their defaults, are accepted with a warning that names what waits;
-    the defaults warn of nothing."""
-    import warnings
-
-    args = train_2d_cnn_args(str(tmp_path), str(tmp_path))
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        common.refuse_unported(args)
-    given = type(args)(**dict(vars(args), **{flag: value}))
-    with pytest.warns(UserWarning, match=f"--{flag} .*ROADMAP M2"):
-        common.refuse_unported(given)
