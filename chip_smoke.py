@@ -35,6 +35,10 @@ The paths, each driven through the CLI a user would call:
   FSDKaggle2019-layout mini dataset, and the train CLI's ``--profile``.
 - the profiling probes (``probes/train_step_split.py``,
   ``probes/model_ablation.py``).
+- the rest of the engine: the 2d train CLI with ``--accumulation_steps 2``
+  killed after its first epoch and resumed with ``--resume``; test-time
+  augmentation through the predict CLI; ``evaluate_2d_cnn`` on the recipe
+  kit's curated experiment.
 
 Phases, each of which raises on failure (none catches its own):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
@@ -56,7 +60,8 @@ Phases, each of which raises on failure (none catches its own):
      torch.profiler
   K6 (the hierarchical path's six block shapes, on the maps' channels-
      contiguous layout, with the layout the path hands it and the cost of
-     a time-major one), K4/K5, K7 (the backbone's four stage shapes) and K8
+     a time-major one), K4/K5 (the 2d path's six block shapes), K7 (the
+     backbone's four stage shapes) and K8
      (the 2d block0 head): each against its plain version at the paths'
      shapes, and three wrong inputs failing by far (shifted frames, another
      fold's weights, and padding the wrong tensor: x instead of h1, or x
@@ -87,6 +92,17 @@ Phases, each of which raises on failure (none catches its own):
   7. train path: the train CLI with the counts reset just before it; K1, K2
      and K3 launched; losses finite; parameters moved; best_model.npz
      predicts finite probabilities through the predict CLI; steps/s
+  TTA: the predict CLI on the train path's fold over its labelled clips,
+     bf16: --n_tta 1 bit for bit the clean pass; --n_tta 3 with the shift,
+     noise and shuffle knobs, and with 5 s crops: K1 once a batch and pass,
+     probabilities in [0, 1] whose mean difference from the clean ones is
+     more than 0 and less than TTA_MEAN_DIFF; clips/s of each
+  resume: the train CLI at the recipe's width (MixUp off), fold 0 of 125
+     clips, 2 epochs of 5 steps, accumulation 2: straight; as a child
+     SIGKILLed once its epoch-0 bundle (a partial mean in it) is on disk,
+     then resumed with --resume (K1, K2 and K3 launched, epoch 1 only,
+     the same global_step and epoch-0 score, final weights within
+     RESUME_WEIGHT_TOL and 10x nearer than a run on other folds)
   profile: the train CLI at the recipe's width with ``--profile``, 2
      epochs of fold 0 apart from the train path: a trace of epoch 1 under
      ``summaries/profile`` that names K1, K2 and K3
@@ -108,6 +124,9 @@ Phases, each of which raises on failure (none catches its own):
      8 classes for the 20 test clips; each step's wall time. Launches on
      its two rounds are estimated from the train path's counts per fold
      and epoch (the kit's children cannot report theirs)
+  evaluate: evaluate_2d_cnn on the kit's curated experiment: its overall
+     OOF lwlrap against results.json within one rank swap, K1 launched;
+     then --n_tta 2 --tta_shift_max_s 0.5
   probe: V1 and V3 once each with the counts reset just before each; K1
      launched once in V1, K9 once in V3; V3 within its tolerance of V1 while
      neighbouring clips differ by more than twice it; ms per call in turns
@@ -193,11 +212,11 @@ STEP_TOL_LOSS = 1e-4
 STEP_TOL_GRAD = 1e-2  # each gradient over the model's largest
 # the fused blocks' shapes on the paths: every block of the hierarchical
 # model over 10 s (215 frames after block0's pool, halved by each block), and
-# block0 and the deepest block of the 2d predict model (128 mels x 215
-# frames, halved)
+# every block of the 2d predict model (128 mels x 215 frames, halved)
 K6_SHAPES = ((128, 64, 215), (128, 96, 107), (128, 144, 53),
              (128, 216, 26), (128, 324, 13), (128, 486, 6))
-K45_SHAPES = ((128, 64, 64, 215), (128, 486, 2, 6))
+K45_SHAPES = ((128, 64, 64, 215), (128, 96, 32, 107), (128, 144, 16, 53),
+              (128, 216, 8, 26), (128, 324, 4, 13), (128, 486, 2, 6))
 # the backbone path's identity blocks over 10 s (431 frames -> 216 after
 # conv1 -> 108 after the max-pool), one shape per stage; and the 2d path's
 # block0 head
@@ -255,6 +274,24 @@ RECIPE_TEST = 20
 RECIPE_EPOCHS = 2
 RECIPE_BATCH = 20
 RECIPE_TIMEOUT = 900
+# the resume phase: the recipe's 2d train CLI on fold 0 of 125 of the
+# labelled clips (100 train clips: 5 steps of 20 an epoch, odd, so that a
+# partial accumulation of 2 crosses the epoch's end), 2 epochs
+RESUME_SAMPLES = 125
+RESUME_TIMEOUT = 600
+# final weights of the resumed run against the uninterrupted one, relative
+# L2 over every parameter: the card's reductions are not bitwise
+# repeatable, and a bf16 model rounds at 2^-8 relative, so the two runs may
+# part by about that; an order of magnitude below a run on other folds is
+# demanded besides
+RESUME_WEIGHT_TOL = 1e-2
+# TTA: the averaged probabilities of 3 passes, one of them clean, against
+# one clean pass, as the mean |difference| over every clip and class: more
+# than 0 (the passes were perturbed) and under a quarter of the range. Not
+# the largest difference: the trained fold's bf16 sigmoids saturate at 0
+# and 1, so one logit that changes sign in both perturbed passes moves an
+# entry by 2/3, the most the average can move
+TTA_MEAN_DIFF = 0.25
 WRAPPER_KERNEL = {  # ops/kernels.launch_counts' names, as the kernels line
     "mel_project_log": "K1", "resample_linear": "K2", "pv_resynth": "K3",
     "resnet_block_2d_fused": "K4/K5", "resnet_block_1d_fused": "K6",
@@ -803,11 +840,21 @@ def phase_k6() -> dict:
 
 
 def phase_k45() -> dict:
-    """K4/K5 at the 2d predict path's first and deepest block shapes."""
-    first, _ = (check_fused_block("K4/K5", "2d_cnn", shape, 30 + 2 * i)
-                for i, shape in enumerate(K45_SHAPES))
-    for key in ("folded_ms", "x", "wts"):
-        first.pop(key)
+    """K4/K5 at every block shape of the 2d predict path."""
+    outs = [check_fused_block("K4/K5", "2d_cnn", shape, 30 + 2 * i)
+            for i, shape in enumerate(K45_SHAPES)]
+    gap = sum(25 * (o["ms"] - o["bound_ms"]) for o in outs)
+    log("K4/K5 at the six block shapes, ms: kernel "
+        + " / ".join(f"{o['ms']:.4f}" for o in outs)
+        + f" (sum {sum(o['ms'] for o in outs):.4f}); bound "
+        + " / ".join(f"{o['bound_ms']:.4f}" for o in outs)
+        + "; bf16 folded twin "
+        + " / ".join(f"{o['folded_ms']:.4f}" for o in outs)
+        + f"; gap at 25 launches a shape {gap:.2f} ms")
+    for o in outs:
+        for key in ("folded_ms", "x", "wts"):
+            o.pop(key, None)
+    first = outs[0]
     return {"name": "resnet_block_2d_kernel", "route": "cuda",
             "source": "freesound_classification_tpu_torch/csrc/"
                       "conv_blocks.cu",
@@ -1467,7 +1514,7 @@ def write_train_inputs(root: str) -> dict:
             "classes": classes}
 
 
-def phase_train(root: str, inputs: dict, smi: str) -> dict:
+def phase_train(root: str, inputs: dict, smi: str) -> tuple:
     from freesound_classification_tpu_torch import interop
     from freesound_classification_tpu_torch.cli import (
         predict_2d_cnn,
@@ -1545,7 +1592,7 @@ def phase_train(root: str, inputs: dict, smi: str) -> dict:
                            f"{header[:3]} {probs.shape}")
     log(f"best_model.npz through the predict CLI: {probs.shape} finite "
         f"probabilities in [{probs.min():.4g}, {probs.max():.4g}]")
-    return launches
+    return launches, experiment.experiment_dir
 
 
 def phase_profile(root: str, inputs: dict, smi: str) -> None:
@@ -2213,6 +2260,290 @@ def phase_recipe(root: str, curated: dict, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# resume, TTA and evaluate (slice 11)
+# ---------------------------------------------------------------------------
+
+
+def resume_argv(inputs: dict, experiments_dir: str, seed: int = 42) -> list:
+    """The 2d train CLI at the recipe's width on fold 0 of
+    ``RESUME_SAMPLES`` labelled clips, 2 epochs, accumulation 2, MixUp off:
+    its partner pool restarts empty on resume (as in JAX), so a resumed run
+    with MixUp is another run by design; the effects chain (K2, K3) and
+    chunk shuffle stay on."""
+    return ["--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE, *RECIPE,
+            "--p_mixup", "0.0",
+            "--folds", "0", "--n_folds", "5", "--epochs", "2",
+            "--max_samples", str(RESUME_SAMPLES), "--accumulation_steps", "2",
+            "--kfold_seed", str(seed), "--num_workers", "4",
+            "--log_interval", "10", "--label", "resume",
+            "--experiments_dir", experiments_dir]
+
+
+def fold0_files(experiments_dir: str) -> tuple:
+    """(fold 0's checkpoint dir, the experiment dir) of the one experiment
+    under ``experiments_dir``, or (None, None) before it exists."""
+    names = (os.listdir(experiments_dir) if os.path.isdir(experiments_dir)
+             else [])
+    if len(names) != 1:
+        return None, None
+    exp = os.path.join(experiments_dir, names[0])
+    return os.path.join(exp, "checkpoints", "fold_0"), exp
+
+
+def final_params(fold_dir: str) -> np.ndarray:
+    from freesound_classification_tpu_torch import interop
+
+    params, _ = interop.load_fold_npz(os.path.join(fold_dir,
+                                                   "final_model.npz"))
+    return np.concatenate([v.ravel() for _, v in sorted(_leaves(params))])
+
+
+def phase_resume(root: str, inputs: dict, smi: str) -> None:
+    """Three runs of the 2d train CLI (``resume_argv``): (i) straight
+    through; (ii) a child process SIGKILLed once its epoch-0 bundle is on
+    disk, then run again with ``--resume``; (iii) straight through on other
+    folds (``--kfold_seed 43``), the yardstick of "different". The resumed
+    run must start at epoch 1, launch K1, K2 and K3, end with (i)'s
+    ``global_step`` and epoch-0 score, and its final weights must lie
+    within ``RESUME_WEIGHT_TOL`` of (i)'s and 10x nearer to them than to
+    (iii)'s."""
+    from freesound_classification_tpu_torch.cli import train_2d_cnn
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.training import checkpoints
+
+    base = os.path.join(root, "resume")
+    t0 = time.time()
+    train_2d_cnn.main(resume_argv(inputs, os.path.join(base, "straight")))
+    torch.cuda.synchronize()
+    straight_s = time.time() - t0
+    straight_dir, _ = fold0_files(os.path.join(base, "straight"))
+    want = checkpoints.load_bundle(os.path.join(straight_dir,
+                                                "last_model.pt"))
+
+    killed = os.path.join(base, "killed")
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()  # leave the card's memory to the child
+    t0 = time.time()
+    with open(os.path.join(root, "resume_child.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "freesound_classification_tpu_torch.cli.train_2d_cnn",
+             *resume_argv(inputs, killed)],
+            cwd=here, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            bundle_path = None
+            while time.time() - t0 < RESUME_TIMEOUT:
+                fold_dir, _ = fold0_files(killed)
+                if fold_dir and os.path.isfile(
+                        os.path.join(fold_dir, "last_model.pt")):
+                    bundle_path = os.path.join(fold_dir, "last_model.pt")
+                    break
+                if proc.poll() is not None:
+                    break
+                time.sleep(0.02)
+        finally:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    kill_s = time.time() - t0
+    if bundle_path is None:
+        with open(os.path.join(root, "resume_child.log")) as f:
+            raise RuntimeError("the killed run wrote no bundle:\n"
+                               + f.read()[-4000:])
+    at_kill = checkpoints.load_bundle(bundle_path)
+    if at_kill["meta"]["epoch"] != 0 or at_kill["micro_step"] != 1:
+        raise RuntimeError(f"the kill came late: the bundle holds epoch "
+                           f"{at_kill['meta']['epoch']}, micro-step "
+                           f"{at_kill['micro_step']}")
+
+    counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
+               "K3": kernels.pv_resynth}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.time()
+    resumed_exp = train_2d_cnn.main(resume_argv(inputs, killed)
+                                    + ["--resume"])
+    torch.cuda.synchronize()
+    resumed_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    got = checkpoints.load_bundle(bundle_path)
+    epochs_run = len(resumed_exp.results["fold0"]["train_steps"])
+
+    t0 = time.time()
+    train_2d_cnn.main(resume_argv(inputs, os.path.join(base, "other"), 43))
+    torch.cuda.synchronize()
+    other_s = time.time() - t0
+    other_dir, _ = fold0_files(os.path.join(base, "other"))
+
+    w_straight = final_params(straight_dir)
+    w_resumed = final_params(os.path.dirname(bundle_path))
+    w_other = final_params(other_dir)
+    d_same = float(np.linalg.norm(w_resumed - w_straight)
+                   / np.linalg.norm(w_straight))
+    d_other = float(np.linalg.norm(w_resumed - w_other)
+                    / np.linalg.norm(w_other))
+    log(f"resume: (i) {straight_s:.1f} s; (ii) killed at {kill_s:.1f} s "
+        f"with its epoch-0 bundle (micro-step {at_kill['micro_step']} of 2, "
+        f"global_step {at_kill['global_step']}), resumed in "
+        f"{resumed_s:.1f} s ({epochs_run} epoch), launches {launches}; "
+        f"(iii) {other_s:.1f} s on {smi}")
+    log(f"resume: global_step {got['global_step']} against "
+        f"{want['global_step']}; epoch-0 score {got['meta']['scores'][0]!r} "
+        f"against {want['meta']['scores'][0]!r}; final weights, relative "
+        f"L2: resumed to (i) {d_same:.3e} (tolerance {RESUME_WEIGHT_TOL:g}),"
+        f" resumed to (iii) {d_other:.3e}")
+    if epochs_run != 1:
+        raise RuntimeError(f"the resumed run trained {epochs_run} epochs")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"the resumed run missed a kernel: {launches}")
+    if got["global_step"] != want["global_step"]:
+        raise RuntimeError("the resumed run's global_step differs")
+    if got["meta"]["scores"][0] != want["meta"]["scores"][0]:
+        raise RuntimeError("the resumed run's epoch-0 score differs")
+    if not (d_same <= RESUME_WEIGHT_TOL and 10 * d_same <= d_other):
+        raise RuntimeError(f"resumed weights: {d_same} from the straight "
+                           f"run, {d_other} from another run")
+
+
+def phase_tta(root: str, inputs: dict, experiment: str, smi: str) -> None:
+    """The predict CLI on ``phase_train``'s fold over its own labelled
+    clips, bf16: ``--n_tta 1`` bit for bit the ensemble's clean pass as the
+    CLI ran it before TTA (rows put back in dataset order); then ``--n_tta
+    3`` with the shift, noise and shuffle knobs, and ``--n_tta 3
+    --tta_max_audio_length 5``: K1 launches once a batch and pass,
+    probabilities in [0, 1] whose mean |difference| from the clean ones is
+    more than 0 and under ``TTA_MEAN_DIFF``; clips/s of each."""
+    from freesound_classification_tpu_torch.cli import common, predict_2d_cnn
+    from freesound_classification_tpu_torch.data.dataset import ClipDataset
+    from freesound_classification_tpu_torch.data.loader import make_loader
+    from freesound_classification_tpu_torch.ops import kernels
+
+    files = [os.path.join(inputs["train_dir"], f) for f in inputs["fnames"]]
+    base = ["--experiment", experiment, "--test_df", inputs["train_csv"],
+            "--test_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE, "--bf16",
+            "--folds", "0", "--num_workers", "4"]
+
+    def batches(max_audio_length=None) -> int:
+        return len(make_loader(
+            ClipDataset(files, sr=SR, max_audio_length=max_audio_length),
+            common.default_ladder(None), batch_size=64))
+
+    runs = {"n_tta 1": (["--n_tta", "1"], 1, batches()),
+            "n_tta 3 shift, noise, shuffle": (
+                ["--n_tta", "3", "--tta_shift_max_s", "0.5",
+                 "--tta_noise_snr_db", "20", "--tta_shuffle_p", "0.5"], 3,
+                batches()),
+            "n_tta 3 crops of 5 s": (
+                ["--n_tta", "3", "--tta_max_audio_length", "5"], 3,
+                batches(5))}
+    probs = {}
+    for name, (extra, passes, n_batches) in runs.items():
+        out_csv = os.path.join(root, f"tta_{passes}_{len(extra)}.csv")
+        kernels.mel_project_log.launches = 0
+        t0 = time.time()
+        predict_2d_cnn.main(base + ["--output_df", out_csv, *extra])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = kernels.mel_project_log.launches
+        _, fnames, probs[name] = read_predictions(out_csv)
+        log(f"TTA {name}: {len(files) / wall:.2f} clips/s ({wall:.2f} s, "
+            f"{passes} pass(es) of {n_batches} batches, decode included), "
+            f"K1 {launches} launches on {smi}")
+        if fnames != inputs["fnames"] or launches != passes * n_batches:
+            raise RuntimeError(f"TTA {name}: rows or K1 launches "
+                               f"({launches})")
+    # the clean pass as the CLI computed it before TTA: the ensemble over
+    # the loader, rows put back by index
+    predictor = predict_2d_cnn.build_predictor(
+        experiment, torch.device(DEVICE), dtype=torch.bfloat16, folds=[0])
+    chunks, index = [], []
+    for batch in make_loader(ClipDataset(files, sr=SR),
+                             common.default_ladder(None), batch_size=64,
+                             num_workers=4):
+        chunks.append(predictor.predict_batch(batch["signal"],
+                                              batch["lengths"]).cpu().numpy())
+        index.append(batch["index"])
+    clean = np.zeros((len(files), chunks[0].shape[1]), np.float32)
+    clean[np.concatenate(index)] = np.concatenate(chunks)
+    # the CSV holds 9 significant digits of each float32
+    written = np.array([[float(f"{v:.9g}") for v in row] for row in clean])
+    if not np.array_equal(probs["n_tta 1"], written):
+        raise RuntimeError("--n_tta 1 is not the clean pass bit for bit")
+    for name, p in probs.items():
+        diff = np.abs(p - probs["n_tta 1"])
+        log(f"TTA {name}: probabilities in [{p.min():.4g}, {p.max():.4g}], "
+            f"|difference| from --n_tta 1: mean {diff.mean():.4g} (bound "
+            f"{TTA_MEAN_DIFF}), largest {diff.max():.4g}, "
+            f"{100 * (diff > 0.1).mean():.2f}% of entries above 0.1")
+        if p.min() < 0 or p.max() > 1 or not np.isfinite(p).all():
+            raise RuntimeError(f"TTA {name}: probabilities out of [0, 1]")
+        if name != "n_tta 1" and not 0 < diff.mean() < TTA_MEAN_DIFF:
+            raise RuntimeError(f"TTA {name}: mean difference {diff.mean()}")
+
+
+def phase_evaluate(root: str, smi: str) -> None:
+    """``evaluate_2d_cnn`` on the recipe phase's curated experiment (5
+    folds, float32, the kit's batch): its overall OOF lwlrap within one
+    rank swap (1 / the labels' count, twice the most one swap of near-equal
+    scores can move it) of the experiment's ``results.json`` metric,
+    computed by the train CLI from its own OOF predictions of the same
+    weights (bucket-invariant to 1e-5 on logits,
+    ``test_logits_do_not_depend_on_the_bucket``, the only room for the two
+    to differ); then ``--n_tta 2 --tta_shift_max_s 0.5``."""
+    from freesound_classification_tpu_torch.cli import evaluate_2d_cnn
+    from freesound_classification_tpu_torch.data.dataset import (
+        read_csv_columns,
+    )
+    from freesound_classification_tpu_torch.ops import kernels
+
+    work = os.path.join(root, "recipe_work")
+    data = os.path.join(root, "fsd")
+    exp_root = os.path.join(work, "experiments")
+    curated = None
+    for name in os.listdir(exp_root):
+        with open(os.path.join(exp_root, name, "config.json")) as f:
+            if json.load(f)["label"] == "parity_2d_cnn":
+                curated = os.path.join(exp_root, name)
+    with open(os.path.join(curated, "results.json")) as f:
+        metric = json.load(f)["metric"]
+    _, labels = read_csv_columns(os.path.join(data, "train_curated.csv"),
+                                 ["fname", "labels"])
+    tol = 1.0 / sum(len(cell.split(",")) for cell in labels)
+    argv = ["--experiment", curated,
+            "--train_df", os.path.join(data, "train_curated.csv"),
+            "--train_data_dir", os.path.join(data, "train_curated"),
+            "--classmap", os.path.join(work, "classmap.json"),
+            "--batch_size", str(RECIPE_BATCH), "--num_workers", "4",
+            "--device", DEVICE]
+    kernels.mel_project_log.launches = 0
+    t0 = time.time()
+    got = evaluate_2d_cnn.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = kernels.mel_project_log.launches
+    t0 = time.time()
+    tta = evaluate_2d_cnn.main(argv + ["--n_tta", "2",
+                                       "--tta_shift_max_s", "0.5"])
+    torch.cuda.synchronize()
+    tta_wall = time.time() - t0
+    log(f"evaluate_2d_cnn: overall OOF lwlrap {got['overall']!r} against "
+        f"results.json {metric!r} (|difference| "
+        f"{abs(got['overall'] - metric):.3e}, tolerance {tol:.3e}); folds "
+        f"{[round(m, 6) for m in got['folds']]}; {wall:.2f} s, K1 "
+        f"{launches} launches; --n_tta 2 --tta_shift_max_s 0.5: "
+        f"{tta['overall']!r} in {tta_wall:.2f} s on {smi}")
+    if launches <= 0:
+        raise RuntimeError("evaluate_2d_cnn launched no K1")
+    if not abs(got["overall"] - metric) <= tol:
+        raise RuntimeError("evaluate_2d_cnn disagrees with results.json")
+    if not 0.0 <= tta["overall"] <= 1.0:
+        raise RuntimeError(f"TTA evaluate lwlrap {tta['overall']}")
+
+
 def phase_probe(smi: str) -> int:
     """The probe's two programs at the bench shape (64 clip-like waves x
     10 s, the bench's 5 random bf16 folds): V1 (log-mel frontend, K1) and
@@ -2426,12 +2757,15 @@ def main() -> None:
             kernels.conv_head_fused, smi, per_model=1, option="fused_head")
         k6["launches"] = phase_hier_predict(root, inputs, host, smi)
         k7["launches"] = phase_backbone_predict(root, inputs, host, smi)
-        train = phase_train(root, train_inputs, smi)
+        train, train_experiment = phase_train(root, train_inputs, smi)
+        phase_tta(root, train_inputs, train_experiment, smi)
+        phase_resume(root, train_inputs, smi)
         phase_profile(root, train_inputs, smi)
         pretrained, _ = phase_hier_train(root, train_inputs, smi)
         phase_hier_finetune(root, train_inputs, pretrained, smi)
         phase_backbone_train(root, train_inputs, smi)
         phase_recipe(root, train_inputs, smi)
+        phase_evaluate(root, smi)
     k2["launches"], k3["launches"] = train["K2"], train["K3"]
     k9["launches"] = phase_probe(smi)
     phase_bench(smi)

@@ -18,9 +18,17 @@ writes ``checkpoints/fold_k/{best,final,model_on_epoch_N}_model.npz``,
 ``predictions/test_preds_fold_k.csv``. ``finalize_results`` then registers
 the global out-of-fold lwlrap as ``metric`` once every fold has its result,
 and writes the mean-of-folds ``submission.csv`` once every fold's test
-predictions exist. ``refuse_unported`` raises on the flags of parts not
-ported yet. ``log_launches_at_exit`` lets a run of several CLI processes
-(the recipe kit) count each one's kernel launches.
+predictions exist. ``--resume`` enters an existing experiment and continues
+each fold from its ``last_model.pt`` bundle; each fold's summaries go to
+``summaries/fold_k/{train,valid}`` through tensorboardX where it imports.
+``refuse_unported`` raises on the flags of parts not ported yet.
+``log_launches_at_exit`` lets a run of several CLI processes (the recipe
+kit) count each one's kernel launches.
+
+The inference CLIs' test-time augmentation: ``reject_degenerate_tta``
+refuses ``--n_tta > 1`` with every stochastic knob off, and
+``make_tta_fn`` builds the on-device perturbation of the later passes
+(chunk shuffle, then ``augment.tta_perturb``'s shift and noise).
 """
 
 from __future__ import annotations
@@ -61,6 +69,10 @@ from freesound_classification_tpu_torch.models.frontend import (
 from freesound_classification_tpu_torch.ops import kernels
 from freesound_classification_tpu_torch.ops.augment import (
     AugmentConfig,
+    apply_shuffle_chunks,
+    apply_tta_perturb,
+    draw_shuffle_chunks,
+    draw_tta_perturb,
     make_augmenter,
 )
 from freesound_classification_tpu_torch.ops.dsp import parse_features
@@ -115,7 +127,8 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
     add("--share_noisy", action="store_true", default=False,
         help="every noisy row in every fold's train set")
     add("--resume", action="store_true", default=False,
-        help="not ported yet (ROADMAP M2.2)")
+        help="enter an existing experiment and continue each fold from "
+             "its last_model.pt bundle")
     add("--test_data_dir", type=str, help="path to test data")
     add("--sample_submission", type=str,
         help="path to the sample submission CSV (the test set)")
@@ -173,8 +186,6 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
 def refuse_unported(args) -> None:
     """Raise on a flag whose part of the train CLI is not ported yet."""
     waits = [
-        (args.resume, "--resume", "M2.2"),
-        (args.accumulation_steps > 1, "--accumulation_steps > 1", "M2.2"),
         (args.fold_parallel, "--fold_parallel", "M5.2"),
         (args.mesh_devices is not None, "--mesh_devices", "M5.1"),
     ]
@@ -240,7 +251,9 @@ def build_engine(args, experiment: Experiment, n_classes: int,
     mel features), the augmenter (K2, K3) and the engine for one fold;
     ``args.warm_start_path``, where the finetune CLI sets it, seeds every
     fold's model. With ``args.profile`` the engine traces epoch 1 into
-    ``<experiment>/summaries/profile``."""
+    ``<experiment>/summaries/profile``. Each fit's summaries go to
+    ``<experiment>/summaries/fold_k/{train,valid}`` where tensorboardX
+    imports, and nowhere where it does not (JAX ``build_engine``)."""
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = create_model(experiment.config.network, n_classes, dtype, seed,
                          device, model_kind=model_kind,
@@ -252,16 +265,24 @@ def build_engine(args, experiment: Experiment, n_classes: int,
         # chunk shuffle only for non-rnn models, as the reference
         p_shuffle=0.5 if args.aggregation_type != "rnn" else 0.0,
         mixup_quirk_replace=not args.mixup_exact_add, sr=SR))
-    profile_dir = None
-    if args.profile:
-        profile_dir = os.path.join(
-            experiment.register_directory("summaries"), "profile")
+    summaries = experiment.register_directory("summaries")
+    profile_dir = os.path.join(summaries, "profile") if args.profile else None
+
+    def writer_factory(fold: int, split: str):
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            return None
+        return SummaryWriter(
+            log_dir=os.path.join(summaries, f"fold_{fold}", split))
+
     return Engine(model, frontend, experiment.config.train, loss=args.loss,
                   augment=augment,
                   checkpoint_dir=experiment.register_directory("checkpoints"),
                   seed=seed, device=device,
                   warm_start_path=getattr(args, "warm_start_path", None),
-                  profile_dir=profile_dir)
+                  profile_dir=profile_dir,
+                  summary_writer_factory=writer_factory)
 
 
 def write_predictions(path: str, fnames, class_names, probs) -> None:
@@ -373,7 +394,8 @@ def fold_train_manifest(args, sets: TrainingSets, fold: int) -> tuple:
 
 def run_training(args, model_kind: str = "2d_cnn",
                  extra_network: Optional[dict] = None) -> Experiment:
-    """Train a ``model_kind`` model on each of ``args.folds``: fit and
+    """Train a ``model_kind`` model on each of ``args.folds`` (with
+    ``--resume``, from each fold's bundle where it has one): fit and
     validate, save the final model, reload the best, write its out-of-fold
     predictions (and test predictions, and register the holdout's lwlrap);
     then ``finalize_results``. ``extra_network`` goes into the config's
@@ -385,8 +407,8 @@ def run_training(args, model_kind: str = "2d_cnn",
     config = experiment_config(args, n_classes,
                                parse_features(args.features).n_features,
                                extra_network)
-    with Experiment(config, experiments_dir=args.experiments_dir) \
-            as experiment:
+    with Experiment(config, implicit_resuming=args.resume,
+                    experiments_dir=args.experiments_dir) as experiment:
         print(experiment.config)
         sets = training_sets(args, class_map)
         ladder = default_ladder(args.max_audio_length)
@@ -421,7 +443,8 @@ def run_training(args, model_kind: str = "2d_cnn",
                                   model_kind=model_kind)
             scores = engine.fit_validate(train_loader, valid_loader,
                                          epochs=args.epochs, fold=fold,
-                                         log_interval=args.log_interval)
+                                         log_interval=args.log_interval,
+                                         resume=args.resume)
             experiment.register_result(f"fold{fold}.metric", max(scores))
             for key in ("loss", "clips_per_sec", "steps", "seconds"):
                 experiment.register_result(
@@ -485,3 +508,60 @@ def finalize_results(experiment: Experiment, train: Manifest,
         write_predictions(os.path.join(pred_dir, "submission.csv"),
                           folds[0][0], class_names,
                           np.mean([v for _, _, v in folds], axis=0))
+
+
+def reject_degenerate_tta(parser: argparse.ArgumentParser, args) -> None:
+    """Error out when ``--n_tta > 1`` with every stochastic knob of
+    ``add_tta_arguments`` off (JAX ``reject_degenerate_tta``): inference is
+    deterministic, so such passes would all be the same."""
+    stochastic = (args.tta_max_audio_length is not None
+                  or args.tta_noise_snr_db > 0.0
+                  or args.tta_shift_max_s > 0.0
+                  or args.tta_shuffle_p > 0.0)
+    if args.n_tta > 1 and not stochastic:
+        parser.error(
+            "--n_tta > 1 requires a stochastic TTA mode "
+            "(--tta_max_audio_length, --tta_noise_snr_db, "
+            "--tta_shift_max_s or --tta_shuffle_p): inference is "
+            "deterministic, so TTA without one would average identical "
+            "passes")
+
+
+def add_tta_arguments(parser: argparse.ArgumentParser) -> None:
+    """The inference CLIs' TTA flags, with JAX's defaults and help."""
+    add = parser.add_argument
+    add("--n_tta", type=int, default=1)
+    add("--tta_max_audio_length", type=int, default=None,
+        help="with --n_tta > 1, random-crop clips to this many seconds per "
+             "TTA pass (the reference's only TTA mode)")
+    add("--tta_noise_snr_db", type=float, default=0.0,
+        help="with --n_tta > 1, add white noise this many dB below each "
+             "clip's RMS on passes > 0 (on-device TTA; 0 = off)")
+    add("--tta_shift_max_s", type=float, default=0.0,
+        help="with --n_tta > 1, random right time-shift up to this many "
+             "seconds on passes > 0 (on-device TTA; 0 = off)")
+    add("--tta_shuffle_p", type=float, default=0.0,
+        help="with --n_tta > 1, shuffle 0.5 s chunks with this probability "
+             "on passes > 0 (the reference's intended ShuffleAudio TTA; "
+             "0 = off)")
+
+
+def make_tta_fn(noise_snr_db: float, shift_max_s: float,
+                shuffle_p: float = 0.0):
+    """The on-device TTA perturbation of the CLI knobs, ``fn(wave,
+    lengths, generator) -> (wave, lengths)``: chunk shuffle at
+    ``shuffle_p``, then ``tta_perturb``'s shift and noise (JAX
+    ``make_tta_fn``). None when every knob is off."""
+    if noise_snr_db <= 0.0 and shift_max_s <= 0.0 and shuffle_p <= 0.0:
+        return None
+
+    def fn(wave, lengths, gen):
+        b, l = wave.shape
+        if shuffle_p > 0.0:
+            wave = apply_shuffle_chunks(
+                wave, lengths, draw_shuffle_chunks(gen, b, l, shuffle_p,
+                                                   sr=SR), sr=SR)
+        draws = draw_tta_perturb(gen, b, l, noise_snr_db, shift_max_s, SR)
+        return apply_tta_perturb(wave, lengths, draws, noise_snr_db)
+
+    return fn

@@ -11,7 +11,14 @@ from a JAX checkpoint by ``scripts/export_fold_weights.py``), runs the fold
 ensemble over the test CSV, and writes ``fname`` plus the sorted class
 columns. ``--model_kind`` picks the family: ``2d_cnn`` (the default),
 ``hierarchical_cnn`` or ``backbone_cnn``. On CUDA a log-mel frontend always
-runs the hand-written kernel K1. ``build_predictor(..., fused_infer=True)``
+runs the hand-written kernel K1, once a batch and pass.
+
+Test-time augmentation (JAX's flags): ``--n_tta`` passes averaged, each
+later pass perturbed once on the card and fed to every fold
+(``--tta_noise_snr_db``, ``--tta_shift_max_s``, ``--tta_shuffle_p``), or
+every pass a fresh random crop of ``--tta_max_audio_length`` seconds read
+by a train-mode loader in dataset order. ``--n_tta > 1`` with every knob
+off is refused. ``build_predictor(..., fused_infer=True)``
 runs the eval resnet blocks through the fused kernels (K4/K5 in 2d, K6 in
 1d, K7 in the backbone) and ``fused_head=True`` the 2d block0 head through
 K8; they are library options with no flag, off by default, as in the JAX
@@ -68,6 +75,7 @@ def add_predict_arguments(parser: argparse.ArgumentParser) -> None:
                         help="bfloat16 model compute (params stay float32)")
     parser.add_argument("--folds", type=int, nargs="+", default=None,
                         help="folds to ensemble (default: all n_folds)")
+    common.add_tta_arguments(parser)
 
 
 def fold_weight_paths(experiment: Experiment, folds=None) -> list:
@@ -124,21 +132,34 @@ def main(argv=None) -> None:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     add_predict_arguments(parser)
     args = parser.parse_args(argv)
+    common.reject_degenerate_tta(parser, args)
     device = common.resolve_device(args.device)
 
     class_names = class_names_from_classmap(load_classmap(args.classmap))
     fnames, files = read_manifest(args.test_df, args.test_data_dir)
+    tta = args.n_tta > 1
     loader = make_loader(
-        ClipDataset(files, sr=common.SR), common.default_ladder(None),
+        ClipDataset(files, sr=common.SR,
+                    max_audio_length=args.tta_max_audio_length if tta
+                    else None),
+        common.default_ladder(None),
         batch_size=(None if args.max_batch_elems else args.batch_size),
         max_batch_elems=args.max_batch_elems,
+        # train mode draws a fresh crop every TTA pass
+        train=tta, shuffle=False, drop_last=False,
         num_workers=args.num_workers,
     )
     predictor = build_predictor(
         args.experiment, device,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         folds=args.folds, model_kind=args.model_kind)
-    probs = predictor.predict_loader(loader)
+    tta_fn = (common.make_tta_fn(args.tta_noise_snr_db, args.tta_shift_max_s,
+                                 shuffle_p=args.tta_shuffle_p)
+              if tta else None)
+    probs = predictor.predict_loader(
+        loader, tta_fn=tta_fn,
+        generator=torch.Generator(device=device).manual_seed(0),
+        n_tta=args.n_tta)
     common.write_predictions(args.output_df, fnames, class_names, probs)
     print(f"wrote {args.output_df}")
 

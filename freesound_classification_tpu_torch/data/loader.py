@@ -108,14 +108,19 @@ class DataLoader:
 def make_loader(dataset: ClipDataset, ladder,
                 batch_size: Optional[int] = None,
                 max_batch_elems: Optional[int] = None,
-                train: bool = False, seed: int = 42,
+                train: bool = False, shuffle: Optional[bool] = None,
+                seed: int = 42, drop_last: Optional[bool] = None,
                 size_multiple: int = 1,
                 num_workers: int = 0) -> DataLoader:
     """Give exactly one of ``batch_size`` and ``max_batch_elems``. A train
     loader shuffles per epoch and drops short batches; an inference loader
-    yields every clip once, in bucket order."""
+    yields every clip once, in bucket order. ``shuffle`` and ``drop_last``
+    default to ``train``; crop TTA takes a train loader (a fresh crop every
+    pass) with both off."""
     sampler = BucketBatchSampler(
         dataset.lengths, ladder, batch_size=batch_size,
-        max_batch_elems=max_batch_elems, shuffle=train, seed=seed,
-        drop_last=train, size_multiple=size_multiple)
+        max_batch_elems=max_batch_elems,
+        shuffle=train if shuffle is None else shuffle, seed=seed,
+        drop_last=train if drop_last is None else drop_last,
+        size_multiple=size_multiple)
     return DataLoader(dataset, sampler, train=train, num_workers=num_workers)

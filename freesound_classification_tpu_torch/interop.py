@@ -27,7 +27,7 @@ with ``load_fold_npz``.
 from __future__ import annotations
 
 import os
-from typing import Mapping, Tuple
+from typing import BinaryIO, Callable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -226,20 +226,26 @@ def _fsync_dir(directory: str) -> None:
         os.close(fd)
 
 
-def save_fold_npz(path: str, params: Mapping, batch_stats: Mapping) -> None:
-    """Write one fold's variables as a flat ``.npz`` at ``path``, durably:
-    to a temporary file, fsynced, then renamed over ``path`` (one atomic
-    step) and the directory fsynced, so that a kill at any point leaves a
-    complete file at ``path``."""
-    flat: dict = {}
-    _flatten({"params": params, "batch_stats": batch_stats}, "", flat)
+def write_durably(path: str, write: Callable[[BinaryIO], None]) -> None:
+    """``write(f)`` into a temporary file beside ``path``, fsynced, then
+    renamed over ``path`` (one atomic step) and the directory fsynced, so
+    that a kill at any point leaves the previous file or the new one, whole,
+    at ``path``."""
     tmp = f"{path}.tmp-{os.getpid()}"
     with open(tmp, "wb") as f:
-        np.savez(f, **flat)
+        write(f)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
     _fsync_dir(os.path.dirname(os.path.abspath(path)))
+
+
+def save_fold_npz(path: str, params: Mapping, batch_stats: Mapping) -> None:
+    """Write one fold's variables as a flat ``.npz`` at ``path``, durably
+    (``write_durably``)."""
+    flat: dict = {}
+    _flatten({"params": params, "batch_stats": batch_stats}, "", flat)
+    write_durably(path, lambda f: np.savez(f, **flat))
 
 
 def load_fold_npz(path: str) -> Tuple[dict, dict]:

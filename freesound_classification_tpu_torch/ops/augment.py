@@ -16,6 +16,10 @@ ops are compared on injected draws and the draws on their distributions.
 - ``effects_chain``: reverb -> phase-vocoder stretch 1/f -> overdrive ->
   resample by speed * f (f = 2^(cents/1200)), on round(p * B) chosen rows;
   the stretch runs K3 and the resample K2
+- ``sample_segment``: crop a random sub-segment of the valid region to the
+  row's start
+- ``tta_perturb``: the test-time perturbation, a random right shift and
+  white noise below each clip's RMS
 """
 
 from __future__ import annotations
@@ -129,6 +133,33 @@ def apply_cutout(wave: torch.Tensor, lengths: torch.Tensor, d: CutoutDraws,
     idx = _positions(wave)
     window = (idx >= start[:, None]) & (idx < (start + width)[:, None])
     return torch.where(window & d.apply[:, None], 0.0, wave)
+
+
+class SegmentDraws(NamedTuple):
+    apply: torch.Tensor  # (B,) bool
+    ratio: torch.Tensor  # (B,) U(ratio)
+    start: torch.Tensor  # (B,) uniform in [0, 1)
+
+
+def draw_sample_segment(gen: torch.Generator, b: int, p: float,
+                        ratio=(0.3, 0.9)) -> SegmentDraws:
+    return SegmentDraws(_bernoulli(gen, b, p), _uniform(gen, b, *ratio),
+                        _uniform(gen, b))
+
+
+def apply_sample_segment(wave: torch.Tensor, lengths: torch.Tensor,
+                         d: SegmentDraws):
+    """Keep a random sub-segment of ``ratio`` x the valid length, moved to
+    the row's start, on the rows where ``d.apply`` holds (JAX
+    ``augment.sample_segment``); returns (wave, lengths)."""
+    new_len = torch.clamp(lengths.float() * d.ratio, min=1.0).to(
+        torch.int32)
+    span = torch.clamp(lengths - new_len, min=1)
+    start = (d.start * span).to(torch.int32)
+    shifted = _shift_rows(wave, -start)
+    cropped = torch.where(_positions(wave) < new_len[:, None], shifted, 0.0)
+    return (torch.where(d.apply[:, None], cropped, wave),
+            torch.where(d.apply, new_len, lengths).to(lengths.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +316,52 @@ def apply_effects(wave: torch.Tensor, lengths: torch.Tensor,
     wave[rows] = out
     lengths[rows] = new_len.to(lengths.dtype)
     return wave, lengths
+
+
+# ---------------------------------------------------------------------------
+# test-time perturbation
+# ---------------------------------------------------------------------------
+
+
+class TTADraws(NamedTuple):
+    shift: Optional[torch.Tensor]  # (B,) int64 in [0, max shift], or None
+    noise: Optional[torch.Tensor]  # (B, L) standard normal, or None
+
+
+def draw_tta_perturb(gen: torch.Generator, b: int, l: int,
+                     noise_snr_db: float = 0.0, shift_max_s: float = 0.0,
+                     sr: int = SR) -> TTADraws:
+    shift = noise = None
+    if shift_max_s > 0.0:
+        max_shift = max(int(shift_max_s * sr), 1)
+        shift = torch.randint(0, max_shift + 1, (b,), generator=gen,
+                              device=gen.device)
+    if noise_snr_db > 0.0:
+        noise = torch.randn(b, l, generator=gen, device=gen.device)
+    return TTADraws(shift, noise)
+
+
+def apply_tta_perturb(wave: torch.Tensor, lengths: torch.Tensor,
+                      d: TTADraws, noise_snr_db: float = 0.0):
+    """A light perturbation of an inference batch (JAX
+    ``augment.tta_perturb``): each row's content shifted right by
+    ``d.shift`` samples into its padding (what passes the buffer's end is
+    dropped), then white noise ``noise_snr_db`` dB below the row's RMS over
+    its valid samples, on those samples only. Returns (wave, lengths)."""
+    out, out_len = wave, lengths
+    idx = _positions(wave)
+    if d.shift is not None:
+        end = torch.clamp(out_len.long() + d.shift, max=wave.shape[1])
+        keep = (idx >= d.shift[:, None]) & (idx < end[:, None])
+        out = torch.where(keep, _shift_rows(out, d.shift), 0.0)
+        out_len = end.to(lengths.dtype)
+    if d.noise is not None:
+        valid = (idx < out_len[:, None]).to(out.dtype)
+        rms = torch.sqrt((out * out * valid).sum(dim=1)
+                         / torch.clamp(out_len.to(out.dtype), min=1.0))
+        sigma = rms * 10.0 ** (-noise_snr_db / 20.0)
+        out = out + d.noise * sigma[:, None] * valid
+    return out, out_len
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ descriptors is plain PyTorch, as it is plain XLA in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -186,6 +187,26 @@ def featurize(
     return x[:, None, :]
 
 
+@functools.lru_cache(maxsize=None)
+def iir_matrices(a: float, chunk: int, nc: int, device: torch.device
+                 ) -> tuple:
+    """``iir_first_order``'s constants on ``device``, built once per key:
+    the (chunk, chunk) Toeplitz T[n, k] = a^(n-k), the (nc, nc) block-carry
+    Toeplitz in a^chunk, and the decay a^(n+1), each in float64 numpy, then
+    float32. The keys are the (coefficient, chunk, number of blocks,
+    device) the callers give (one ``nc`` per bucket length), so the cache is
+    bounded by them and never evicts."""
+    n = np.arange(chunk)
+    delta = n[:, None] - n[None, :]
+    tri = np.where(delta >= 0, a ** np.maximum(delta, 0), 0.0)
+    i = np.arange(nc)
+    di = i[:, None] - i[None, :]
+    tri2 = np.where(di >= 0, (a ** chunk) ** np.maximum(di, 0), 0.0)
+    decay = a ** (n + 1)
+    return tuple(torch.from_numpy(m.astype(np.float32)).to(device)
+                 for m in (tri, tri2, decay))
+
+
 def iir_first_order(u: torch.Tensor, a: float,
                     chunk: int = 512) -> torch.Tensor:
     """y[n] = u[n] + a * y[n-1] along the last axis of (B, L), y[-1] = 0,
@@ -194,7 +215,9 @@ def iir_first_order(u: torch.Tensor, a: float,
     Solved in float32 blocks: inside each block of ``chunk`` samples
     y = T u with the lower-triangular Toeplitz T[n, k] = a^(n-k); the block
     ends then carry into the next blocks through a second such product over
-    the block index, weighted by a^(k+1). The products must run in full
+    the block index, weighted by a^(k+1). The matrices stay on the device
+    (``iir_matrices``), so a call after the first copies nothing from the
+    host. The products must run in full
     float32: a TF32 product (about 3 decimal digits) puts ~5e-2 absolute
     error into the overdrive's DC-blocking filter, so a CUDA input raises
     unless PyTorch's float32 matmul precision is "highest" (its default).
@@ -206,20 +229,11 @@ def iir_first_order(u: torch.Tensor, a: float,
             f"{torch.get_float32_matmul_precision()!r} (TF32)")
     b, length = u.shape
     nc = -(-length // chunk)
+    tri, tri2, decay = iir_matrices(float(a), chunk, nc, u.device)
     uc = torch.nn.functional.pad(u.float(), (0, nc * chunk - length))
     uc = uc.view(b, nc, chunk)
-    n = np.arange(chunk)
-    delta = n[:, None] - n[None, :]
-    tri = np.where(delta >= 0, float(a) ** np.maximum(delta, 0), 0.0)
-    tri = torch.from_numpy(tri.astype(np.float32)).to(u.device)
     y_local = uc @ tri.T  # (B, NC, C)
-    i = np.arange(nc)
-    di = i[:, None] - i[None, :]
-    tri2 = np.where(di >= 0, (float(a) ** chunk) ** np.maximum(di, 0), 0.0)
-    tri2 = torch.from_numpy(tri2.astype(np.float32)).to(u.device)
     ends = y_local[:, :, -1] @ tri2.T  # (B, NC): each block's final y
     carry_in = torch.nn.functional.pad(ends[:, :-1], (1, 0))
-    decay = torch.from_numpy(
-        (float(a) ** (n + 1)).astype(np.float32)).to(u.device)
     y = y_local + carry_in[:, :, None] * decay
     return y.reshape(b, nc * chunk)[:, :length]

@@ -3,12 +3,13 @@
 
 The JAX package stacks the fold weights and vmaps one program over them. Here
 each batch is featurized once, the K fold models run in a loop over the shared
-features, and their sigmoids are averaged.
+features, and their sigmoids are averaged; test-time augmentation averages
+such passes.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,19 +39,39 @@ class EnsemblePredictor:
         probs = [torch.sigmoid(m(inputs, frame_lengths)) for m in self.models]
         return torch.stack(probs).mean(dim=0)
 
-    def predict_loader(self, loader, n_tta: int = 1) -> np.ndarray:
+    def predict_loader(self, loader, tta_fn: Optional[Callable] = None,
+                       generator: Optional[torch.Generator] = None,
+                       n_tta: int = 1) -> np.ndarray:
         """Fold-averaged probabilities over a bucketed loader, with rows put
-        back in dataset order by ``batch["index"]``."""
-        if n_tta > 1:
-            raise NotImplementedError(
-                "n_tta > 1: test-time augmentation needs the augmentation "
-                "ops, which the port does not have yet (ROADMAP M1.6)")
-        probs_chunks, idx_chunks = [], []
-        for batch in loader:
-            probs = self.predict_batch(batch["signal"], batch["lengths"])
-            probs_chunks.append(probs.cpu().numpy())
-            idx_chunks.append(batch["index"])
-        probs = np.concatenate(probs_chunks)
-        out = np.zeros_like(probs)
-        out[np.concatenate(idx_chunks)] = probs
-        return out
+        back in dataset order by ``batch["index"]`` on every pass, averaged
+        over ``n_tta`` passes (JAX ``EnsemblePredictor.predict_loader``).
+
+        Pass 0 is clean; on each later pass ``tta_fn(wave, lengths,
+        generator) -> (wave, lengths)`` perturbs each batch once, on the
+        device, and the perturbed batch feeds every fold (crop TTA happens
+        in the loader itself when it was built with train=True). As in JAX,
+        the draws are per pass, not per fold: n_tta draws rather than
+        n_folds * n_tta, a divergence from the reference's sequential
+        folds."""
+        if tta_fn is not None and n_tta > 1 and generator is None:
+            raise ValueError(
+                "predict_loader: tta_fn with n_tta > 1 needs a "
+                "torch.Generator for the perturbation passes")
+        total = None
+        for t in range(max(n_tta, 1)):
+            probs_chunks, idx_chunks = [], []
+            for batch in loader:
+                wave = torch.as_tensor(batch["signal"], device=self.device)
+                lengths = torch.as_tensor(batch["lengths"],
+                                          device=self.device)
+                if tta_fn is not None and t > 0:
+                    with torch.inference_mode():
+                        wave, lengths = tta_fn(wave, lengths, generator)
+                probs = self.predict_batch(wave, lengths)
+                probs_chunks.append(probs.cpu().numpy())
+                idx_chunks.append(batch["index"])
+            probs = np.concatenate(probs_chunks)
+            out = np.zeros_like(probs)
+            out[np.concatenate(idx_chunks)] = probs
+            total = out if total is None else total + out
+        return total / max(n_tta, 1)

@@ -5,7 +5,8 @@ A directory named from the config's values holds ``config.json``,
 ``register_directory`` adds ``checkpoints``/``predictions``/...;
 ``register_result("fold0.metric", v)`` writes dotted keys into
 ``results.json``; ``Experiment(resume_from=path)`` reloads a config for
-inference.
+inference. A config whose directory exists raises unless
+``implicit_resuming`` (the train CLIs' ``--resume``) enters it again.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ class Experiment:
         self,
         config: Optional[Mapping[str, Any]] = None,
         resume_from: Optional[str] = None,
+        implicit_resuming: bool = False,
         experiments_dir: str = "experiments",
     ):
         if (config is None) == (resume_from is None):
@@ -73,7 +75,7 @@ class Experiment:
             self._config = json.loads(json.dumps(dict(config)))
             self.experiment_dir = os.path.abspath(os.path.join(
                 experiments_dir, config_name(self._config)))
-            if os.path.exists(self.experiment_dir):
+            if os.path.exists(self.experiment_dir) and not implicit_resuming:
                 raise FileExistsError(
                     f"experiment already exists: {self.experiment_dir} "
                     "(pass --resume to continue into it)")

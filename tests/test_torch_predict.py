@@ -169,8 +169,13 @@ def test_predict_loader_restores_dataset_order(synth):
         direct = predictor.predict_batch(batch["signal"], batch["lengths"])
         np.testing.assert_allclose(ordered[batch["index"]], direct.numpy(),
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predictor.predict_loader(loader, n_tta=2)
+    # TTA passes are averaged in dataset order too: two clean passes are
+    # the clean pass; a perturbation needs a generator for its draws
+    np.testing.assert_array_equal(predictor.predict_loader(loader, n_tta=2),
+                                  ordered)
+    with pytest.raises(ValueError, match="Generator"):
+        predictor.predict_loader(loader, tta_fn=lambda w, n, g: (w, n),
+                                 n_tta=2)
 
 
 def _read_csv(path):

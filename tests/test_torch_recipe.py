@@ -510,7 +510,7 @@ def test_periodic_checkpoints_and_pruning(tmp_path, monkeypatch, save_every,
     saved = [e for e in range(epochs) if e % save_every == 0]
     kept = saved[-keep:] if keep else saved
     assert sorted(os.listdir(tmp_path / "fold_2")) == sorted(
-        ["best_model.npz", "final_model.npz"]
+        ["best_model.npz", "final_model.npz", "last_model.pt"]
         + [f"model_on_epoch_{e}.npz" for e in kept])
 
 

@@ -109,7 +109,8 @@ def test_port_kit_runs_end_to_end(fsd_layout, tmp_path):
         for k in range(5):
             # --save_every 20 with one epoch: epoch 0's periodic model
             assert sorted(os.listdir(exp / "checkpoints" / f"fold_{k}")) == [
-                "best_model.npz", "final_model.npz", "model_on_epoch_0.npz"]
+                "best_model.npz", "final_model.npz", "last_model.pt",
+                "model_on_epoch_0.npz"]
     assert proc.stdout.count("global OOF lwlrap") == 2
 
     noisy = pd.read_csv(work / "predictions" / "noisy_probabilities.csv")

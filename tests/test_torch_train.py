@@ -449,8 +449,8 @@ def test_train_cli_end_to_end_then_predict(tmp_path):
                             "fold_1")
     # --save_every defaults to 1 and --keep_checkpoints to 0, as in JAX
     assert sorted(os.listdir(fold_dir)) == [
-        "best_model.npz", "final_model.npz", "model_on_epoch_0.npz",
-        "model_on_epoch_1.npz"]
+        "best_model.npz", "final_model.npz", "last_model.pt",
+        "model_on_epoch_0.npz", "model_on_epoch_1.npz"]
     results = json.load(open(os.path.join(experiment.experiment_dir,
                                           "results.json")))
     assert 0.0 <= results["fold1"]["metric"] <= 1.0
@@ -500,8 +500,7 @@ def train_2d_cnn_args(root, exp_dir):
 
 def test_train_cli_refuses_what_waits_and_a_missing_card(tmp_path):
     args = train_2d_cnn_args(str(tmp_path), str(tmp_path))
-    for flag, value in (("accumulation_steps", 2), ("resume", True),
-                        ("fold_parallel", True), ("mesh_devices", 2)):
+    for flag, value in (("fold_parallel", True), ("mesh_devices", 2)):
         bad = type(args)(**dict(vars(args), **{flag: value}))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             common.refuse_unported(bad)
