@@ -39,6 +39,10 @@ The paths, each driven through the CLI a user would call:
   killed after its first epoch and resumed with ``--resume``; test-time
   augmentation through the predict CLI; ``evaluate_2d_cnn`` on the recipe
   kit's curated experiment.
+- fold-parallel training (``--fold_parallel``, ``training/multifold.py``):
+  the recipe's 2d train CLI over the five folds as one stacked model; the
+  stacked step against the five single-fold steps in turns
+  (``probes/fold_parallel.py``); its float32 truth; its resume.
 
 Phases, each of which raises on failure (none catches its own):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
@@ -103,6 +107,21 @@ Phases, each of which raises on failure (none catches its own):
      then resumed with --resume (K1, K2 and K3 launched, epoch 1 only,
      the same global_step and epoch-0 score, final weights within
      RESUME_WEIGHT_TOL and 10x nearer than a run on other folds)
+  fold parallel: the train CLI at the recipe's width with
+     ``--fold_parallel`` over folds 0-4 of the 150 labelled clips, 2
+     epochs: every fold's best and final models and OOF CSV, five fold
+     metrics and the global one, each fold moved from the init and apart
+     from the others, fold 0 predicts; K1 once per stacked step and K2
+     and K3 per fold within the stacked epochs; stacked steps/s and
+     fold-steps/s; peak memory. Then the stacked step over 5 x 20 x 15 s
+     against 5 single-fold steps, 3 warm-ups and 10 calls each in turns
+     (ms by events, busy ms and launches by torch.profiler, peak memory);
+     the first float32 step's per-fold losses (1e-4) and gradients (1e-2
+     of each fold's largest) against the single-fold steps', from
+     ``phase_f32_step``'s weights on 5 of its batches, each beside the
+     single step's own spread on reversed rows; and the resume phase's
+     runs over the five folds stacked (every fold's final weights within
+     RESUME_WEIGHT_TOL of the straight run's)
   profile: the train CLI at the recipe's width with ``--profile``, 2
      epochs of fold 0 apart from the train path: a trace of epoch 1 under
      ``summaries/profile`` that names K1, K2 and K3
@@ -2408,6 +2427,337 @@ def phase_resume(root: str, inputs: dict, smi: str) -> None:
                            f"run, {d_other} from another run")
 
 
+def fold_parallel_argv(argv: list) -> list:
+    """A train CLI's argv with the five folds trained together."""
+    return [*argv, "--folds", *map(str, range(N_FOLDS)), "--fold_parallel"]
+
+
+def fold_finals(experiment_dir: str) -> list:
+    """``final_params`` of each of the experiment's ``N_FOLDS`` folds."""
+    return [final_params(os.path.join(experiment_dir, "checkpoints",
+                                      f"fold_{k}"))
+            for k in range(N_FOLDS)]
+
+
+def fold_parallel_cli(root: str, inputs: dict, smi: str) -> dict:
+    """The 2d train CLI at the recipe's width with ``--fold_parallel`` over
+    the five folds, ``TRAIN_EPOCHS`` epochs; K1-K3 counted over the run
+    and within the stacked epochs; the artifacts of every fold; fold 0's
+    best model through the predict CLI. Returns the run's launches."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.cli import (
+        predict_2d_cnn,
+        train_2d_cnn,
+    )
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.training import multifold
+    from freesound_classification_tpu_torch.training.state import (
+        create_model,
+    )
+
+    counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
+               "K3": kernels.pv_resynth}
+    epochs = []
+    train_epoch = multifold.MultiFoldEngine.train_epoch
+
+    def counted_epoch(self, *args, **kwargs):
+        before = {k: fn.launches for k, fn in counted.items()}
+        stats = train_epoch(self, *args, **kwargs)
+        epochs.append(({k: fn.launches - before[k]
+                        for k, fn in counted.items()}, stats["steps"]))
+        return stats
+
+    stack_batches = multifold.stack_batches
+    stack_s = []
+
+    def timed_stack(batches):
+        t0 = time.perf_counter()
+        out = stack_batches(batches)
+        stack_s.append(time.perf_counter() - t0)
+        return out
+
+    argv = fold_parallel_argv([
+        "--train_df", inputs["train_csv"],
+        "--train_data_dir", inputs["train_dir"],
+        "--classmap", inputs["classmap"], "--device", DEVICE, *RECIPE,
+        "--n_folds", str(N_FOLDS), "--epochs", str(TRAIN_EPOCHS),
+        "--num_workers", "4", "--log_interval", "1",
+        "--label", "fold_parallel",
+        "--experiments_dir", os.path.join(root, "fp_experiments")])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    multifold.MultiFoldEngine.train_epoch = counted_epoch
+    multifold.stack_batches = timed_stack
+    try:
+        t0 = time.time()
+        experiment = train_2d_cnn.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        multifold.MultiFoldEngine.train_epoch = train_epoch
+        multifold.stack_batches = stack_batches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: fn.launches for k, fn in counted.items()}
+    steps = sum(n for _, n in epochs)
+    in_epochs = {k: sum(e[k] for e, _ in epochs) for k in counted}
+    log(f"fold-parallel CLI: {wall:.2f} s for {TRAIN_EPOCHS} epochs of "
+        f"{N_FOLDS} folds together (validation and checkpoints included); "
+        f"launches over the run {launches}, within the stacked epochs "
+        f"{in_epochs} over {steps} stacked steps (K1 once a stacked step; "
+        f"K2 and K3 once a fold's chain: {N_FOLDS * steps} if every fold "
+        f"draws effect rows); peak memory {peak:.2f} GB on {smi}")
+    if in_epochs["K1"] != steps:
+        raise RuntimeError(f"K1 ran {in_epochs['K1']} times in {steps} "
+                           "stacked steps")
+    if not min(in_epochs["K2"], in_epochs["K3"]) > steps:
+        raise RuntimeError(f"K2/K3 not launched per fold: {in_epochs}")
+
+    exp = experiment.experiment_dir
+    with open(os.path.join(exp, "results.json")) as f:
+        results = json.load(f)
+    missing = [
+        path for k in range(N_FOLDS) for path in (
+            os.path.join(exp, "checkpoints", f"fold_{k}", "best_model.npz"),
+            os.path.join(exp, "checkpoints", f"fold_{k}", "final_model.npz"),
+            os.path.join(exp, "predictions", f"val_preds_fold_{k}.csv"))
+        if not os.path.isfile(path)]
+    metrics = [results.get(f"fold{k}", {}).get("metric")
+               for k in range(N_FOLDS)]
+    if missing or None in metrics or "metric" not in results:
+        raise RuntimeError(f"fold-parallel artifacts missing: {missing}, "
+                           f"fold metrics {metrics}, keys {list(results)}")
+    losses = [results[f"fold{k}"]["train_loss"] for k in range(N_FOLDS)]
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"fold-parallel losses not finite: {losses}")
+    fold = results["fold0"]
+    n, secs = fold["train_steps"][-1], fold["train_seconds"][-1]
+    log(f"fold-parallel epochs: validation lwlrap per fold "
+        f"{np.round(metrics, 4).tolist()}, global OOF "
+        f"{results['metric']:.4f}; last epoch {n:g} stacked steps in "
+        f"{secs:.3f} s = {n / secs:.3f} stacked steps/s = "
+        f"{N_FOLDS * n / secs:.3f} fold-steps/s (5 x batch 20, 15 s bucket, "
+        f"bf16, decode and augmentation included); the host's "
+        f"stack_batches {1e3 * np.median(stack_s):.1f} ms a stacked step "
+        f"(median of {len(stack_s)}) on {smi}")
+
+    final = fold_finals(exp)
+    fresh_params, _ = interop.to_jax_variables(create_model(
+        experiment.config.network, TRAIN_CLASSES, torch.bfloat16, 42,
+        torch.device("cpu")).state_dict())
+    fresh = np.concatenate([v.ravel() for _, v in
+                            sorted(_leaves(fresh_params))])
+    moved = [float(np.abs(w - fresh).max()) for w in final]
+    apart = min(float(np.abs(final[i] - final[j]).max())
+                for i in range(N_FOLDS) for j in range(i))
+    log(f"fold-parallel parameters: moved from their init by (max |dw|) "
+        f"{np.round(moved, 5).tolist()}; the closest two folds apart by "
+        f"{apart:.4g}")
+    if not (min(moved) > 0 and apart > 0):
+        raise RuntimeError("the folds did not train, or not apart")
+
+    test_csv = os.path.join(root, "fp_test.csv")
+    with open(test_csv, "w") as f:
+        f.write("fname\n" + "".join(n + "\n" for n in inputs["fnames"][:8]))
+    out_csv = os.path.join(root, "fp_preds.csv")
+    predict_2d_cnn.main([
+        "--experiment", exp, "--test_df", test_csv,
+        "--test_data_dir", inputs["train_dir"],
+        "--classmap", inputs["classmap"], "--output_df", out_csv,
+        "--device", DEVICE, "--bf16", "--folds", "0"])
+    header, _, probs = read_predictions(out_csv)
+    if (header != ["fname", *inputs["classes"]]
+            or probs.shape != (8, TRAIN_CLASSES)
+            or not np.isfinite(probs).all()
+            or probs.min() < 0 or probs.max() > 1):
+        raise RuntimeError(f"bad predictions from fold 0 of the stacked "
+                           f"run: {header[:3]} {probs.shape}")
+    log(f"fold 0's best_model.npz through the predict CLI: {probs.shape} "
+        f"finite probabilities in [{probs.min():.4g}, {probs.max():.4g}]")
+    return launches
+
+
+def fold_parallel_turns(smi: str) -> None:
+    """The stacked step over 5 folds against 5 single-fold steps on the
+    same batches at the recipe's shapes, and against itself with cuDNN
+    free of the engine's determinism (``probes/fold_parallel.py``): ms by
+    CUDA events in turns, busy ms and launches by torch.profiler, and
+    peak memory, for each."""
+    from freesound_classification_tpu_torch.probes import fold_parallel
+
+    torch.cuda.empty_cache()
+    out = fold_parallel.compare(DEVICE)
+    for name, row in out.items():
+        if not (np.isfinite(row["ms"]) and row["ms"] > 0
+                and row["launches"] > 0):
+            raise RuntimeError(f"fold-parallel turns: {name} {row}")
+        log(f"fold-parallel turns, {name}: {row['ms']:.3f} ms by events "
+            f"(runs {np.round(row['runs'], 3).tolist()}), busy "
+            f"{row['busy_ms']:.3f} ms ({row['busy_ms'] / row['ms']:.3f}), "
+            f"{row['launches']:.1f} launches, peak {row['peak_gb']:.2f} GB "
+            f"(5 folds x 20 x 15 s, bf16, augmented) on {smi}")
+    stacked, free = out["stacked"], out["stacked, cuDNN free"]
+    log(f"fold-parallel turns: stacked / sequential = "
+        f"{stacked['ms'] / out['sequential']['ms']:.3f} by events, "
+        f"{stacked['busy_ms'] / out['sequential']['busy_ms']:.3f} busy; "
+        f"deterministic / free stacked = {stacked['ms'] / free['ms']:.3f} "
+        f"by events, {stacked['busy_ms'] / free['busy_ms']:.3f} busy")
+
+
+def fold_parallel_truth() -> None:
+    """The stacked step's first float32 step against each fold's
+    single-fold step on the card, from ``phase_f32_step``'s weights and on
+    its kind of batch (5 folds of 6 synthetic clips x 5 s, the first
+    ``phase_f32_step``'s own; no augmentation, dropout 0, TF32 off):
+    losses within ``STEP_TOL_LOSS``; each fold's gradients within
+    ``STEP_TOL_GRAD`` of that fold's largest gradient, as
+    ``phase_f32_step`` holds the card against the CPU. Beside each fold,
+    the single step's own spread with its rows reversed (the same
+    function, other float32 sums): the global max-pools pass a channel's
+    whole gradient to one frame, so a near-tie that rounding flips moves
+    it."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.probes import fold_parallel
+
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(12)
+    folds = [f32_step_batch(rng) for _ in range(N_FOLDS)]
+    state = interop.from_jax_variables(*interop.random_jax_variables(
+        **F32_NET, n_classes=TRAIN_CLASSES, seed=11))
+    truth = fold_parallel.first_step_truth(
+        DEVICE, dict(F32_NET, aggregation_type="max"), N_FOLDS,
+        n_classes=TRAIN_CLASSES, data=tuple(np.stack(a) for a in
+                                            zip(*folds)), state=state)
+    grad, spread = truth["grad"], truth["rounding"]
+
+    def fmt(rows, key):
+        return [f"{row[key]:.2e}" for row in rows]
+
+    log(f"fold-parallel truth (float32, recipe width, 5 folds x 6 x 5 s): "
+        f"loss |d| per fold {[f'{d:.2e}' for d in truth['loss']]} "
+        f"(tolerance {STEP_TOL_LOSS:g}); gradients over each fold's "
+        f"largest: {fmt(grad, 'max')} at {[d['at'] for d in grad]} "
+        f"(tolerance {STEP_TOL_GRAD:g}), relative L2 {fmt(grad, 'l2')}; "
+        f"the single step against itself on reversed rows: "
+        f"{fmt(spread, 'max')}, relative L2 {fmt(spread, 'l2')}")
+    if not max(truth["loss"]) <= STEP_TOL_LOSS:
+        raise RuntimeError("fold-parallel truth: the losses disagree")
+    if not max(d["max"] for d in grad) <= STEP_TOL_GRAD:
+        raise RuntimeError("fold-parallel truth: the gradients disagree")
+
+
+def fold_parallel_resume(root: str, inputs: dict, smi: str) -> None:
+    """``resume_argv`` over the five folds with ``--fold_parallel``: (i)
+    straight through; (ii) a child SIGKILLed once its epoch-0 stacked
+    bundle (a partial mean in it) is on disk, then run again with
+    ``--resume``: epoch 1 only, K1-K3 launched, (i)'s ``global_step``,
+    every fold's final weights within ``RESUME_WEIGHT_TOL`` of (i)'s."""
+    from freesound_classification_tpu_torch.cli import train_2d_cnn
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.training import (
+        checkpoints,
+        multifold,
+    )
+
+    base = os.path.join(root, "fp_resume")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    straight = train_2d_cnn.main(fold_parallel_argv(
+        resume_argv(inputs, os.path.join(base, "straight"))))
+    torch.cuda.synchronize()
+    straight_s = time.time() - t0
+    want = checkpoints.load_bundle(os.path.join(
+        straight.experiment_dir, "checkpoints", multifold.BUNDLE))
+
+    killed = os.path.join(base, "killed")
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with open(os.path.join(root, "fp_resume_child.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "freesound_classification_tpu_torch.cli.train_2d_cnn",
+             *fold_parallel_argv(resume_argv(inputs, killed))],
+            cwd=here, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            bundle_path = None
+            while time.time() - t0 < RESUME_TIMEOUT:
+                _, exp = fold0_files(killed)
+                path = exp and os.path.join(exp, "checkpoints",
+                                            multifold.BUNDLE)
+                if path and os.path.isfile(path):
+                    bundle_path = path
+                    break
+                if proc.poll() is not None:
+                    break
+                time.sleep(0.02)
+        finally:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    kill_s = time.time() - t0
+    if bundle_path is None:
+        with open(os.path.join(root, "fp_resume_child.log")) as f:
+            raise RuntimeError("the killed stacked run wrote no bundle:\n"
+                               + f.read()[-4000:])
+    at_kill = checkpoints.load_bundle(bundle_path)
+    if at_kill["meta"]["epoch"] != 0 or at_kill["micro_step"] != 1:
+        raise RuntimeError(f"the kill came late: the stacked bundle holds "
+                           f"epoch {at_kill['meta']['epoch']}, micro-step "
+                           f"{at_kill['micro_step']}")
+
+    counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
+               "K3": kernels.pv_resynth}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.time()
+    resumed = train_2d_cnn.main(fold_parallel_argv(
+        resume_argv(inputs, killed)) + ["--resume"])
+    torch.cuda.synchronize()
+    resumed_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    got = checkpoints.load_bundle(bundle_path)
+    epochs_run = len(resumed.results["fold0"]["train_steps"])
+    d_same = [float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in
+              zip(fold_finals(resumed.experiment_dir),
+                  fold_finals(straight.experiment_dir))]
+    log(f"fold-parallel resume: (i) {straight_s:.1f} s; (ii) killed at "
+        f"{kill_s:.1f} s with its epoch-0 bundle (micro-step "
+        f"{at_kill['micro_step']} of 2, global_step "
+        f"{at_kill['global_step']}, loader epochs "
+        f"{at_kill['loader_epochs']}), resumed in {resumed_s:.1f} s "
+        f"({epochs_run} epoch), launches {launches}; global_step "
+        f"{got['global_step']} against {want['global_step']}; final "
+        f"weights per fold, relative L2 to (i): "
+        f"{[f'{d:.3e}' for d in d_same]} (tolerance "
+        f"{RESUME_WEIGHT_TOL:g}) on {smi}")
+    if epochs_run != 1:
+        raise RuntimeError(f"the resumed stacked run trained {epochs_run} "
+                           "epochs")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"the resumed stacked run missed a kernel: "
+                           f"{launches}")
+    if got["global_step"] != want["global_step"]:
+        raise RuntimeError("the resumed stacked run's global_step differs")
+    if not max(d_same) <= RESUME_WEIGHT_TOL:
+        raise RuntimeError(f"resumed stacked weights: {d_same}")
+
+
+def phase_fold_parallel(root: str, inputs: dict, smi: str) -> dict:
+    """M5.2's one-device layout at the recipe's width: the five folds
+    through the train CLI together, the stacked step against the
+    sequential ones in turns, its per-fold truth in float32, and the
+    stacked resume. Returns the CLI run's K1-K3 launches."""
+    t0 = time.time()
+    launches = fold_parallel_cli(root, inputs, smi)
+    fold_parallel_turns(smi)
+    fold_parallel_truth()
+    fold_parallel_resume(root, inputs, smi)
+    log(f"fold-parallel phase: {time.time() - t0:.1f} s")
+    return launches
+
+
 def phase_tta(root: str, inputs: dict, experiment: str, smi: str) -> None:
     """The predict CLI on ``phase_train``'s fold over its own labelled
     clips, bf16: ``--n_tta 1`` bit for bit the ensemble's clean pass as the
@@ -2632,6 +2982,26 @@ def phase_bench(smi: str) -> dict:
     return record
 
 
+F32_NET = dict(num_conv_blocks=5, start_deep_supervision_on=1,
+               conv_base_depth=100, growth_rate=1.5)
+
+
+def f32_step_batch(rng: np.random.RandomState, b: int = 6,
+                   seconds: int = 5) -> tuple:
+    """The float32 step's batch: ``b`` synthetic clips of ``seconds``, the
+    odd rows a quarter shorter (zero past their lengths), and labels of
+    ``TRAIN_CLASSES`` at 0.3 with class 0 always on; numpy."""
+    length = seconds * SR
+    wave = np.stack([synthetic_clip(length, rng)
+                     for _ in range(b)]).astype(np.float32)
+    lengths = np.full(b, length, np.int32)
+    lengths[1::2] = length * 3 // 4
+    wave[np.arange(length)[None] >= lengths[:, None]] = 0.0
+    labels = (rng.rand(b, TRAIN_CLASSES) < 0.3).astype(np.float32)
+    labels[:, 0] = 1.0
+    return wave, lengths, labels
+
+
 def phase_f32_step() -> None:
     """One float32 train step at the recipe's width (dropout 0, no
     augmentation, TF32 off) on the card and on the CPU from the same
@@ -2652,19 +3022,11 @@ def phase_f32_step() -> None:
     from freesound_classification_tpu_torch.models.frontend import Frontend
     from freesound_classification_tpu_torch.ops import losses
 
-    net = dict(num_conv_blocks=5, start_deep_supervision_on=1,
-               conv_base_depth=100, growth_rate=1.5)
     params, stats = interop.random_jax_variables(
-        **net, n_classes=TRAIN_CLASSES, seed=11)
+        **F32_NET, n_classes=TRAIN_CLASSES, seed=11)
     rng = np.random.RandomState(12)
-    b, length = 6, 5 * SR
-    wave = np.stack([synthetic_clip(length, rng)
-                     for _ in range(b)]).astype(np.float32)
-    lengths = np.full(b, length, np.int32)
-    lengths[1::2] = length * 3 // 4
-    wave[np.arange(length)[None] >= lengths[:, None]] = 0.0
-    labels = (rng.rand(b, TRAIN_CLASSES) < 0.3).astype(np.float32)
-    labels[:, 0] = 1.0
+    wave, lengths, labels = f32_step_batch(rng)
+    b = len(wave)
 
     def features(device):
         frontend = Frontend(FEATURES, "2d", sr=SR, device=device)
@@ -2672,7 +3034,7 @@ def phase_f32_step() -> None:
                         torch.from_numpy(lengths).to(device))
 
     def step(device, x, fl):
-        model = TwoDimensionalCNN(**net, aggregation_type="max",
+        model = TwoDimensionalCNN(**F32_NET, aggregation_type="max",
                                   n_classes=TRAIN_CLASSES)
         model.load_state_dict(interop.from_jax_variables(params, stats))
         model = model.to(device).train()
@@ -2760,6 +3122,7 @@ def main() -> None:
         train, train_experiment = phase_train(root, train_inputs, smi)
         phase_tta(root, train_inputs, train_experiment, smi)
         phase_resume(root, train_inputs, smi)
+        phase_fold_parallel(root, train_inputs, smi)
         phase_profile(root, train_inputs, smi)
         pretrained, _ = phase_hier_train(root, train_inputs, smi)
         phase_hier_finetune(root, train_inputs, pretrained, smi)

@@ -12,16 +12,20 @@ the train and the test CSV) and ``--holdout_size`` as sklearn's
 order). It splits the curated folds with the port's stratification and the
 noisy set (``--noisy_train_df``) with plain KFold, adds to each fold's train
 set the noisy split's validation part (every noisy row with
-``--share_noisy``), trains each requested fold with the ``Engine``, and
+``--share_noisy``), trains each requested fold with the ``Engine`` (with
+``--fold_parallel``, all of them together with the ``MultiFoldEngine``
+of ``training/multifold.py``, one stacked model on the card), and
 writes ``checkpoints/fold_k/{best,final,model_on_epoch_N}_model.npz``,
 ``predictions/val_preds_fold_k.csv`` and, with ``--sample_submission``,
 ``predictions/test_preds_fold_k.csv``. ``finalize_results`` then registers
 the global out-of-fold lwlrap as ``metric`` once every fold has its result,
 and writes the mean-of-folds ``submission.csv`` once every fold's test
 predictions exist. ``--resume`` enters an existing experiment and continues
-each fold from its ``last_model.pt`` bundle; each fold's summaries go to
+each fold from its ``last_model.pt`` bundle (the stacked run from
+``checkpoints/multifold_resume.pt``); each fold's summaries go to
 ``summaries/fold_k/{train,valid}`` through tensorboardX where it imports.
-``refuse_unported`` raises on the flags of parts not ported yet.
+``refuse_unported`` raises on ``--mesh_devices`` (ROADMAP M5.1), the one
+flag of a part not ported yet.
 ``log_launches_at_exit`` lets a run of several CLI processes (the recipe
 kit) count each one's kernel launches.
 
@@ -78,6 +82,9 @@ from freesound_classification_tpu_torch.ops.augment import (
 from freesound_classification_tpu_torch.ops.dsp import parse_features
 from freesound_classification_tpu_torch.ops.metrics import lwlrap
 from freesound_classification_tpu_torch.training.engine import Engine
+from freesound_classification_tpu_torch.training.multifold import (
+    MultiFoldEngine,
+)
 from freesound_classification_tpu_torch.training.state import create_model
 from freesound_classification_tpu_torch.utils.device import resolve_device
 from freesound_classification_tpu_torch.utils.experiment import Experiment
@@ -115,8 +122,9 @@ def default_ladder(max_audio_length: Optional[float], sr: int = SR):
 def add_train_arguments(parser: argparse.ArgumentParser) -> None:
     """The JAX train CLI's flag surface (the reference's train_2d_cnn
     flags plus --loss, --bf16, --max_batch_elems, --experiments_dir,
-    --mixup_exact_add and --profile). Flags of parts not ported yet are
-    accepted and refused at run time with the ROADMAP item named.
+    --mixup_exact_add, --profile and --fold_parallel). ``--mesh_devices``,
+    whose part is not ported yet, is accepted and refused at run time with
+    the ROADMAP item named.
     ``--sample_submission`` and ``--test_data_dir``, which the JAX CLI
     requires, are optional: without them no test predictions are written."""
     add = parser.add_argument
@@ -178,21 +186,18 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
         help="trace epoch 1 with torch.profiler into "
              "<experiment>/summaries/profile")
     add("--fold_parallel", action="store_true", default=False,
-        help="not ported yet (ROADMAP M5.2)")
+        help="train every fold of --folds together as one stacked model "
+             "on the card (training/multifold.py)")
     add("--mesh_devices", type=int, default=None,
         help="not ported yet (ROADMAP M5.1)")
 
 
 def refuse_unported(args) -> None:
-    """Raise on a flag whose part of the train CLI is not ported yet."""
-    waits = [
-        (args.fold_parallel, "--fold_parallel", "M5.2"),
-        (args.mesh_devices is not None, "--mesh_devices", "M5.1"),
-    ]
-    for given, flag, item in waits:
-        if given:
-            raise NotImplementedError(
-                f"{flag}: not ported yet (ROADMAP {item})")
+    """Raise on a flag whose part of the train CLI is not ported yet:
+    ``--mesh_devices`` (the fold-sharded and fold x data layouts, M5.1)."""
+    if args.mesh_devices is not None:
+        raise NotImplementedError(
+            "--mesh_devices: not ported yet (ROADMAP M5.1)")
 
 
 def experiment_config(args, n_classes: int, input_dim: int,
@@ -398,8 +403,9 @@ def run_training(args, model_kind: str = "2d_cnn",
     ``--resume``, from each fold's bundle where it has one): fit and
     validate, save the final model, reload the best, write its out-of-fold
     predictions (and test predictions, and register the holdout's lwlrap);
-    then ``finalize_results``. ``extra_network`` goes into the config's
-    network section."""
+    then ``finalize_results``. With ``--fold_parallel`` and more than one
+    fold the folds train together (``run_folds_parallel``).
+    ``extra_network`` goes into the config's network section."""
     refuse_unported(args)
     device = resolve_device(args.device)
     class_map = load_classmap(args.classmap)
@@ -425,32 +431,30 @@ def run_training(args, model_kind: str = "2d_cnn",
                 [os.path.join(data_dir, f) for f in manifest.fnames],
                 raw_labels=manifest.labels, classmap=class_map, sr=SR)
 
-        for fold in args.folds:
-            print(f"\n   -----  Fold {fold}\n")
+        def fold_loaders(fold: int) -> tuple:
+            """(train loader, valid loader, valid manifest) of ``fold``."""
             files, labels = fold_train_manifest(args, sets, fold)
             train_ds = ClipDataset(
                 files, raw_labels=labels, classmap=class_map,
                 max_audio_length=args.max_audio_length, sr=SR,
                 seed=args.kfold_seed + fold)
             valid = sets.train.take(sets.splits[fold][1])
-            train_loader = make_loader(train_ds, ladder, train=True,
-                                       seed=args.kfold_seed, **batching)
-            valid_loader = make_loader(dataset(valid, args.train_data_dir),
-                                       full_ladder, **batching)
-            # the head's dropout draws from PyTorch's default generator
-            torch.manual_seed(args.kfold_seed + fold)
-            engine = build_engine(args, experiment, n_classes, device,
-                                  model_kind=model_kind)
-            scores = engine.fit_validate(train_loader, valid_loader,
-                                         epochs=args.epochs, fold=fold,
-                                         log_interval=args.log_interval,
-                                         resume=args.resume)
-            experiment.register_result(f"fold{fold}.metric", max(scores))
+            return (make_loader(train_ds, ladder, train=True,
+                                seed=args.kfold_seed, **batching),
+                    make_loader(dataset(valid, args.train_data_dir),
+                                full_ladder, **batching),
+                    valid)
+
+        def register_train_stats(fold: int, epoch_stats: list) -> None:
             for key in ("loss", "clips_per_sec", "steps", "seconds"):
                 experiment.register_result(
                     f"fold{fold}.train_{key}",
-                    [float(e[key]) for e in engine.epoch_stats])
-            engine.save_model(fold, "final_model")
+                    [float(e[key]) for e in epoch_stats])
+
+        def emit_fold_artifacts(engine: Engine, fold: int, valid_loader,
+                                valid: Manifest) -> None:
+            """From ``fold``'s best model: its out-of-fold and test
+            predictions and its holdout lwlrap."""
             engine.load_model(fold, "best_model")
             write_predictions(
                 os.path.join(predictions, f"val_preds_fold_{fold}.csv"),
@@ -471,6 +475,45 @@ def run_training(args, model_kind: str = "2d_cnn",
                 experiment.register_result(f"fold{fold}.holdout_metric",
                                            holdout_metric)
                 print(f"\nHoldout metric: {holdout_metric:.4f}")
+
+        if args.fold_parallel and len(args.folds) > 1:
+            folds = list(args.folds)
+            print(f"\n   -----  Folds {folds} (parallel)\n")
+            loaders = [fold_loaders(fold) for fold in folds]
+            # the head's dropout draws from PyTorch's default generator
+            torch.manual_seed(args.kfold_seed + folds[0])
+            template = build_engine(args, experiment, n_classes, device,
+                                    model_kind=model_kind)
+            stack = MultiFoldEngine(template, folds)
+            best = stack.fit([t for t, _, _ in loaders],
+                             [v for _, v, _ in loaders], epochs=args.epochs,
+                             log_interval=args.log_interval,
+                             resume=args.resume)
+            stack.save_fold_models("final_model")
+            for k, fold in enumerate(folds):
+                experiment.register_result(f"fold{fold}.metric", best[k])
+                register_train_stats(fold, [
+                    dict(e, loss=e["loss"][k],
+                         clips_per_sec=e["clips"][k] / e["seconds"])
+                    for e in stack.epoch_stats])
+                emit_fold_artifacts(template, fold, *loaders[k][1:])
+        else:
+            for fold in args.folds:
+                print(f"\n   -----  Fold {fold}\n")
+                train_loader, valid_loader, valid = fold_loaders(fold)
+                # the head's dropout draws from PyTorch's default generator
+                torch.manual_seed(args.kfold_seed + fold)
+                engine = build_engine(args, experiment, n_classes, device,
+                                      model_kind=model_kind)
+                scores = engine.fit_validate(
+                    train_loader, valid_loader, epochs=args.epochs,
+                    fold=fold, log_interval=args.log_interval,
+                    resume=args.resume)
+                experiment.register_result(f"fold{fold}.metric",
+                                           max(scores))
+                register_train_stats(fold, engine.epoch_stats)
+                engine.save_model(fold, "final_model")
+                emit_fold_artifacts(engine, fold, valid_loader, valid)
         finalize_results(experiment, sets.train, class_map, args.n_folds)
         return experiment
 

@@ -12,7 +12,8 @@ features come from the pretrained experiment's ``config.json``, whatever
 the flags say; every fold then warm-starts from the pretrained fold's
 ``checkpoints/fold_<pretrained_fold>/best_model.npz`` (weights and
 BatchNorm statistics; the optimizer and step start fresh) and trains as
-``train_hierarchical_cnn`` does.
+``train_hierarchical_cnn`` does; with ``--fold_parallel`` every fold of the
+stacked model starts from those weights.
 """
 
 from __future__ import annotations

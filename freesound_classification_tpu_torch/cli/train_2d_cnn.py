@@ -9,7 +9,9 @@ Per fold: train with on-device augmentation (K2, K3 in the effects chain)
 and the log-mel frontend (K1), validate each epoch, and write
 ``checkpoints/fold_k/{best,final}_model.npz`` (which the port's predict CLI
 reads) and ``predictions/val_preds_fold_k.csv`` under
-``<experiments_dir>/<config name>/``.
+``<experiments_dir>/<config name>/``. With ``--fold_parallel`` the folds
+train together as one stacked model (``training/multifold.py``) and write
+the same files.
 """
 
 from __future__ import annotations

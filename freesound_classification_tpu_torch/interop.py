@@ -15,7 +15,9 @@ variables have ``trunk``) keeps the JAX names as its module names
 per-leaf conversion by name.
 
 ``to_jax_variables`` is the reverse map; ``model_kind_of`` tells the family
-from the variables.
+from the variables. ``stack_jax_fold_states`` and ``unstack_jax_fold_states``
+do the same for K folds stacked along a leading axis (JAX's fold-parallel
+states, the port's ``training/multifold.FoldStack``).
 
 A fold is stored as a flat ``.npz`` of those arrays keyed by ``/``-joined
 paths (``params/block0/conv/kernel``, ...): ``scripts/export_fold_weights.py``
@@ -202,6 +204,47 @@ def to_jax_variables(
     head["bn2"], head_stats["bn2"] = bn("head.bn2")
     params["head"], stats["head"] = head, head_stats
     return params, stats
+
+
+def _fold_slice(tree: Mapping, k: int) -> dict:
+    return {name: (_fold_slice(value, k) if isinstance(value, Mapping)
+                   else np.asarray(value)[k])
+            for name, value in tree.items()}
+
+
+def _stack_trees(trees: list) -> dict:
+    return {name: (_stack_trees([t[name] for t in trees])
+                   if isinstance(value, Mapping)
+                   else np.stack([t[name] for t in trees]))
+            for name, value in trees[0].items()}
+
+
+def stack_jax_fold_states(params: Mapping, batch_stats: Mapping
+                          ) -> dict[str, torch.Tensor]:
+    """JAX's stacked fold variables (``MultiFoldEngine.states.params`` and
+    ``.batch_stats`` as numpy arrays, a leading fold axis on every leaf) ->
+    the port's stacked state_dict {name: (K, ...) tensor}, each fold's
+    slice ``from_jax_variables`` of that fold's variables."""
+    flat: dict = {}
+    _flatten(params, "", flat)
+    n_folds = len(next(iter(flat.values())))
+    folds = [from_jax_variables(_fold_slice(params, k),
+                                _fold_slice(batch_stats, k))
+             for k in range(n_folds)]
+    return {name: torch.stack([sd[name] for sd in folds])
+            for name in folds[0]}
+
+
+def unstack_jax_fold_states(
+        state: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """The inverse of ``stack_jax_fold_states``: the port's stacked
+    state_dict -> JAX's stacked (params, batch_stats), numpy arrays with a
+    leading fold axis."""
+    n_folds = len(next(iter(state.values())))
+    folds = [to_jax_variables({name: t[k] for name, t in state.items()})
+             for k in range(n_folds)]
+    return (_stack_trees([p for p, _ in folds]),
+            _stack_trees([s for _, s in folds]))
 
 
 def _subtree(tree: dict, path) -> dict:

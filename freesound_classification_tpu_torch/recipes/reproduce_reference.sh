@@ -23,6 +23,8 @@
 #   BATCH_SIZE=20        reference batch size (lower for smoke datasets
 #                        whose folds hold fewer than 20 clips per bucket)
 #   DEVICE=cuda          cuda|cpu
+#   FOLD_PARALLEL=1      train all 5 folds as one stacked model on the card
+#                        (set 0 for the reference's sequential fold loop)
 #   REFERENCE_LWLRAP=x.y a reference-run global OOF lwlrap to diff against
 #   REFERENCE_OOF_DIR=   a reference experiment's predictions/ dir (val_preds
 #                        CSVs) for a per-class lwlrap comparison
@@ -30,8 +32,6 @@
 #   WORK=<repo>/parity_run  working directory (class map, experiments/,
 #                        predictions/)
 #   PY=python            the interpreter
-# The JAX kit's FOLD_PARALLEL has no counterpart: fold-parallel training is
-# not ported (ROADMAP M5.2), so the folds run one after another.
 set -euo pipefail
 
 DATA_DIR=${DATA_DIR:?set DATA_DIR to the FSDKaggle2019 root}
@@ -39,6 +39,7 @@ EPOCHS=${EPOCHS:-100}
 NOISY_EPOCHS=${NOISY_EPOCHS:-150}
 BATCH_SIZE=${BATCH_SIZE:-20}
 DEVICE=${DEVICE:-cuda}
+FOLD_PARALLEL=${FOLD_PARALLEL:-0}
 REPO=$(cd "$(dirname "$0")/../.." && pwd)
 export PYTHONPATH="$REPO${PYTHONPATH:+:$PYTHONPATH}"
 WORK=${WORK:-"$REPO/parity_run"}
@@ -47,6 +48,8 @@ cd "$WORK"
 
 PY=${PY:-python}
 CLI=freesound_classification_tpu_torch.cli
+FP_FLAG=""
+[ "$FOLD_PARALLEL" = "1" ] && FP_FLAG="--fold_parallel"
 
 echo "== step 0: classmap =="
 $PY -m $CLI.create_class_map \
@@ -84,7 +87,7 @@ $PY -m $CLI.train_2d_cnn \
   --features mel_2048_1024_128 \
   --max_audio_length 15 \
   --p_aug 0.75 \
-  --label parity_2d_cnn
+  --label parity_2d_cnn $FP_FLAG
 
 EXP=$(ls -dt experiments/* | head -1)
 echo "curated experiment: $EXP"
@@ -149,7 +152,7 @@ $PY -m $CLI.train_2d_cnn \
   --features mel_2048_1024_128 \
   --max_audio_length 15 \
   --p_aug 0.75 \
-  --label parity_2d_cnn_noisy_1k
+  --label parity_2d_cnn_noisy_1k $FP_FLAG
 
 EXP2=$(ls -dt experiments/* | head -1)
 echo "noisy-round experiment: $EXP2"

@@ -202,18 +202,31 @@ class Engine:
         an update is due; returns 0-d tensors ``loss`` and ``metric`` and
         the (B,) ``per_sample`` losses."""
         self.model.train()
+        if self.augment is not None and aug_scale > 0.0:
+            with torch.no_grad(), self._stage("augment"):
+                wave, lengths, labels = self.augment(
+                    wave, lengths, labels, self.generator, aug_scale,
+                    partner=partner)
+        logits, per_sample, loss = self._learn(
+            wave, lengths, labels, lambda per_sample: (per_sample.mean(),) * 2)
         with torch.no_grad():
-            if self.augment is not None and aug_scale > 0.0:
-                with self._stage("augment"):
-                    wave, lengths, labels = self.augment(
-                        wave, lengths, labels, self.generator, aug_scale,
-                        partner=partner)
-            with self._stage("frontend"):
-                inputs, frame_lengths = self.frontend(wave, lengths)
+            metric = metrics_lib.lwlrap_torch(labels, torch.sigmoid(logits))
+        return {"loss": loss, "metric": metric, "per_sample": per_sample}
+
+    def _learn(self, wave: torch.Tensor, lengths: torch.Tensor,
+               labels: torch.Tensor, reduce: Callable) -> tuple:
+        """The step after augmentation, shared with the fold-parallel step
+        (``training/multifold.py``): the frontend, the forward and the loss,
+        the backward, the gradient mean and the optimizer step where an
+        update is due. ``reduce(per_sample)`` gives (the loss to
+        differentiate, the loss to report). Returns the detached logits,
+        per-sample losses and reported loss."""
+        with torch.no_grad(), self._stage("frontend"):
+            inputs, frame_lengths = self.frontend(wave, lengths)
         with self._stage("forward"):
             logits = self.model(inputs, frame_lengths)
             per_sample = self.loss_fn(logits, labels, average=False)
-            loss = per_sample.mean()
+            loss, reported = reduce(per_sample)
         with self._stage("backward"):
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -226,11 +239,7 @@ class Engine:
                 if self._accumulated is not None:
                     torch._foreach_zero_(self._accumulated)
         self.global_step += 1
-        with torch.no_grad():
-            metric = metrics_lib.lwlrap_torch(labels,
-                                              torch.sigmoid(logits.detach()))
-        return {"loss": loss.detach(), "metric": metric,
-                "per_sample": per_sample.detach()}
+        return logits.detach(), per_sample.detach(), reported.detach()
 
     @torch.inference_mode()
     def eval_step(self, wave: torch.Tensor, lengths: torch.Tensor,

@@ -500,7 +500,7 @@ def train_2d_cnn_args(root, exp_dir):
 
 def test_train_cli_refuses_what_waits_and_a_missing_card(tmp_path):
     args = train_2d_cnn_args(str(tmp_path), str(tmp_path))
-    for flag, value in (("fold_parallel", True), ("mesh_devices", 2)):
+    for flag, value in (("mesh_devices", 2),):
         bad = type(args)(**dict(vars(args), **{flag: value}))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             common.refuse_unported(bad)
