@@ -43,6 +43,10 @@ The paths, each driven through the CLI a user would call:
   the recipe's 2d train CLI over the five folds as one stacked model; the
   stacked step against the five single-fold steps in turns
   (``probes/fold_parallel.py``); its float32 truth; its resume.
+- the ``rnn`` aggregation: the recipe's train CLI with
+  ``--aggregation_type rnn``, sequential and ``--fold_parallel``, and the
+  5-fold predict CLI on it; the self-supervised CLIs ``train_apc`` and
+  ``train_cpc`` at their default widths; ``adversarial_test``.
 
 Phases, each of which raises on failure (none catches its own):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
@@ -152,6 +156,25 @@ Phases, each of which raises on failure (none catches its own):
   bench: the bench as a subprocess; its last line parses and every number
      in it is finite and positive; K1 launched in each workload, K2 and K3
      in the augmented train step
+  rnn: the GRU's cuDNN route against its step-by-step twin at the 2d
+     recipe's four GRU shapes (20 x 161 / 80 / 40 / 20 frames, float32,
+     TF32 off; ``probes/rnn_step.ROUTE_TOL``), and what vmap does with the
+     cuDNN route; the recipe's train CLI with ``--aggregation_type rnn``
+     over 2 epochs of fold 0, and with ``--fold_parallel`` over folds 0-4,
+     each a child whose K1-K3 launches come back through
+     ``$FSC_LAUNCH_LOG``: every kernel launched, losses finite, every
+     fold's files, last-epoch steps/s; the 5-fold bf16 predict CLI on the
+     stacked run (K1 launched, probabilities in [0, 1]); the rnn train
+     step against the max one in turns at B = 64 x 10 s, and the stacked
+     rnn step alone (``rnn_step.compare``)
+  ssl: ``train_apc`` and ``train_cpc`` (mel_2048_1024_128, batch 32, 10 s,
+     the chain at 0.75) over 2 epochs of fold 0 with K1-K3 counted: every
+     fold file of the family, a finite validation score, steps/s, the KNN
+     accuracy; each family's step on the card against the CPU on the same
+     features, float32 and float64 (``ssl_f32_step``)
+  adversarial: ``adversarial_test`` over the labelled clips against the
+     predict path's clips, 2 epochs, K1 counted: an AUC in [0, 1] printed
+     each epoch, a class table of 80 rows
   8. float32 step: one train step (no augmentation, TF32 off) on the card
      against the same step on the CPU: loss 1e-4, gradients over the
      model's largest gradient 1e-2
@@ -2835,6 +2858,336 @@ def phase_tta(root: str, inputs: dict, experiment: str, smi: str) -> None:
             raise RuntimeError(f"TTA {name}: mean difference {diff.mean()}")
 
 
+def rnn_argv(inputs: dict, experiments_dir: str, label: str,
+             *extra: str) -> list:
+    """The train CLI at the recipe's width with ``--aggregation_type rnn``
+    over ``TRAIN_EPOCHS`` epochs."""
+    recipe = [a if a != "max" else "rnn" for a in RECIPE]
+    return ["--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE, *recipe,
+            "--n_folds", "5", "--epochs", str(TRAIN_EPOCHS),
+            "--num_workers", "4", "--log_interval", "10", "--label", label,
+            "--experiments_dir", experiments_dir, *extra]
+
+
+def logged_cli(module: str, argv: list, timeout: float) -> tuple:
+    """``python -m <module> argv`` as a child with ``$FSC_LAUNCH_LOG`` set:
+    (its output, its kernel launches by K name, its wall seconds). A
+    non-zero exit raises."""
+    log_path = os.path.join(tempfile.mkdtemp(prefix="launch_log_"),
+                            "launches.jsonl")
+    env = dict(os.environ, FSC_LAUNCH_LOG=log_path)
+    t0 = time.time()
+    rc, out, _ = run_logged([sys.executable, "-m", module, *argv], env,
+                            timeout)
+    wall = time.time() - t0
+    if rc != 0:
+        raise RuntimeError(f"{module} exited {rc}:\n{out[-4000:]}")
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    if len(records) != 1:
+        raise RuntimeError(f"{module}: {len(records)} launch records")
+    return out, {WRAPPER_KERNEL[k]: n
+                 for k, n in records[0]["launches"].items() if n}, wall
+
+
+def last_epoch_rate(experiment_dir: str, fold: int) -> tuple:
+    """(steps, seconds) of ``fold``'s last train epoch in results.json."""
+    with open(os.path.join(experiment_dir, "results.json")) as f:
+        result = json.load(f)[f"fold{fold}"]
+    if not np.isfinite(result["train_loss"]).all():
+        raise RuntimeError(f"fold {fold}: train losses not finite")
+    return result["train_steps"][-1], result["train_seconds"][-1]
+
+
+def phase_rnn(root: str, inputs: dict, smi: str) -> dict:
+    """The ``rnn`` aggregation at the recipe's width: the GRU's cuDNN route
+    against its step-by-step twin at the 2d model's four GRU shapes
+    (float32, TF32 off; ``probes/rnn_step.route_check``), the train CLI
+    with ``--aggregation_type rnn`` over 2 epochs of fold 0 and with
+    ``--fold_parallel`` over folds 0-4 (the stacked step runs the GRUs'
+    vmap route), each a child counting K1-K3 through ``$FSC_LAUNCH_LOG``,
+    the 5-fold bf16 predict CLI on the stacked run's folds, and the rnn
+    train step against the max one in turns (``rnn_step.compare``).
+    Returns the launches of the two train runs."""
+    from freesound_classification_tpu_torch.cli import predict_2d_cnn
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.probes import rnn_step
+
+    for row in rnn_step.route_check(DEVICE):
+        log(f"rnn: GRU block {row['block']} {row['shape']} float32, cuDNN "
+            f"route against the step-by-step one: outputs max |d| "
+            f"{row['out']:.3e}, gradients {row['grad']:.3e} of each "
+            f"parameter's largest (tolerance {rnn_step.ROUTE_TOL:g}); cuDNN "
+            f"in bf16 against float32 {row['bf16']:.3e} of the largest")
+        if not max(row["out"], row["grad"]) <= rnn_step.ROUTE_TOL:
+            raise RuntimeError("rnn: the GRU's two routes disagree")
+    log(f"rnn: torch.func.vmap of the cuDNN route: "
+        f"{rnn_step.vmap_of_fused(DEVICE)}")
+
+    experiments = os.path.join(root, "experiments")
+    module = "freesound_classification_tpu_torch.cli.train_2d_cnn"
+    launches = {}
+    for name, extra in (("sequential", ("--folds", "0")),
+                        ("fold-parallel", ("--folds", "0", "1", "2", "3",
+                                           "4", "--fold_parallel"))):
+        label = f"rnn_{name}"
+        _, launches[name], wall = logged_cli(
+            module, rnn_argv(inputs, experiments, label, *extra),
+            RESUME_TIMEOUT)
+        found = [d for d in os.listdir(experiments) if label in d]
+        if len(found) != 1:
+            raise RuntimeError(f"rnn: experiments {found}")
+        experiment = os.path.join(experiments, found[0])
+        steps, seconds = last_epoch_rate(experiment, 0)
+        log(f"rnn: train CLI {name}, {wall:.2f} s as a child for "
+            f"{TRAIN_EPOCHS} epochs; launches {launches[name]}; last epoch "
+            f"{steps:g} {'stacked ' if 'parallel' in name else ''}steps in "
+            f"{seconds:.3f} s = {steps / seconds:.3f} steps/s on {smi}")
+        if any(launches[name].get(k, 0) <= 0 for k in ("K1", "K2", "K3")):
+            raise RuntimeError(f"rnn: the train run missed a kernel: "
+                               f"{launches[name]}")
+    for fold in range(5):
+        fold_dir = os.path.join(experiment, "checkpoints", f"fold_{fold}")
+        for name in ("best_model.npz", "final_model.npz"):
+            if not os.path.isfile(os.path.join(fold_dir, name)):
+                raise RuntimeError(f"rnn: fold {fold} has no {name}")
+
+    test_csv = os.path.join(root, "rnn_test.csv")
+    fnames = inputs["fnames"][:40]
+    with open(test_csv, "w") as f:
+        f.write("fname\n" + "".join(n + "\n" for n in fnames))
+    out_csv = os.path.join(root, "rnn_preds.csv")
+    kernels.mel_project_log.launches = 0
+    predict_2d_cnn.main([
+        "--experiment", experiment, "--test_df", test_csv,
+        "--test_data_dir", inputs["train_dir"],
+        "--classmap", inputs["classmap"], "--output_df", out_csv,
+        "--device", DEVICE, "--bf16"])
+    torch.cuda.synchronize()
+    k1 = kernels.mel_project_log.launches
+    header, _, probs = read_predictions(out_csv)
+    if (header != ["fname", *inputs["classes"]]
+            or probs.shape != (len(fnames), TRAIN_CLASSES)
+            or not np.isfinite(probs).all()
+            or probs.min() < 0 or probs.max() > 1 or k1 <= 0):
+        raise RuntimeError(f"rnn: bad 5-fold predictions {probs.shape}, "
+                           f"K1 {k1}")
+    log(f"rnn: predict CLI, 5 folds bf16: {probs.shape} probabilities in "
+        f"[{probs.min():.4g}, {probs.max():.4g}], K1 {k1} launches")
+
+    steps = rnn_step.compare(DEVICE)
+    for name, row in steps.items():
+        shape = "5 x 20 x 15 s" if name.startswith("stacked") \
+            else "B=64 x 10 s"
+        log(f"rnn: {name} train step ({shape}, bf16, no augmentation) "
+            f"{row['ms']:.3f} ms by events, busy {row['busy_ms']:.3f} ms, "
+            f"{row['launches']:.1f} launches on {smi}")
+    return launches
+
+
+SSL_ARGS = ["--features", FEATURES, "--batch_size", "32",
+            "--max_audio_length", "10", "--p_aug", "0.75",
+            "--optimizer", "adam", "--lr", "0.001", "--folds", "0",
+            "--n_folds", "5", "--epochs", "2", "--num_workers", "4",
+            "--log_interval", "10"]
+
+
+# the families whose float32 step is held to the step tolerances; CPC's
+# float32 gradient moves by ~1.3e-2 of its largest entry between any two
+# summation orders of its input BatchNorm's statistics (see ssl_f32_step),
+# so CPC's float64 step is held instead and its float32 one printed
+SSL_F32_HELD = ("apc",)
+
+
+def ssl_f32_step(kind: str) -> None:
+    """One self-supervised step of ``kind`` at its default width (no
+    augmentation, TF32 off) on the card and on the CPU from the same
+    weights and the same features (the card's K1 log-mel of 4 synthetic
+    clips of 5 s), in float32 and in float64: loss STEP_TOL_LOSS,
+    gradients STEP_TOL_GRAD of the model's largest; the float32 CPU step
+    on its own features beside it.
+
+    The float64 step is held for every family, the float32 one for those
+    of ``SSL_F32_HELD``. CPC's input BatchNorm takes flax's fast variance,
+    E[x^2] - E[x]^2, in float32: over log-mel features (a band's mean near
+    -9, its variance near 0.15) both terms are near 80 and their
+    difference cancels, so the card's sums, in another order than the
+    CPU's, move the normalized input by ~6e-5 of its largest value, and
+    CPC's gradient, whose sensitivity to its input is ~200 there, by
+    ~1.3e-2 of its largest entry (my chip runs, PR 13; the same with the
+    model in float64 and the statistics in float32). In float64 the
+    statistics are float64 too."""
+    import argparse
+
+    from freesound_classification_tpu_torch.cli import ssl_common
+    from freesound_classification_tpu_torch.models.frontend import Frontend
+
+    parser = argparse.ArgumentParser()
+    ssl_common.add_ssl_arguments(parser)
+    args = parser.parse_args(["--train_df", "x", "--train_data_dir", "x",
+                              "--classmap", "x", *SSL_ARGS])
+    rng = np.random.RandomState(13)
+    wave = np.stack([synthetic_clip(5 * SR, rng)
+                     for _ in range(4)]).astype(np.float32)
+    lengths = np.full(4, 5 * SR, np.int32)
+
+    def features(device):
+        frontend = Frontend(FEATURES, "1d", sr=SR, device=device)
+        return frontend(torch.from_numpy(wave).to(device),
+                        torch.from_numpy(lengths).to(device))
+
+    def step(device, feats, dtype):
+        x, fl = (t.to(device) for t in feats)
+        model = ssl_common.build_ssl_model(kind, args, x.shape[-1])
+        model = model.to(device=device, dtype=dtype).train()
+        model.dtype = dtype  # the compute dtype the model casts inputs to
+        loss = sum(model(x, fl)["loss_terms"])
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().double().cpu().numpy()
+                             for n, p in model.named_parameters()}
+
+    def worst(got, want):
+        top = max(np.abs(g).max() for g in want.values())
+        diffs = {n: float(np.abs(got[n] - g).max() / top)
+                 for n, g in want.items()}
+        name = max(diffs, key=diffs.get)
+        return diffs[name], name
+
+    card_feats = features(DEVICE)
+    for dtype in (torch.float32, torch.float64):
+        loss_gpu, g_gpu = step(DEVICE, card_feats, dtype)
+        loss_cpu, g_cpu = step("cpu", card_feats, dtype)
+        err, at = worst(g_gpu, g_cpu)
+        held = dtype == torch.float64 or kind in SSL_F32_HELD
+        line = (f"ssl: {kind} {str(dtype)[6:]} step, card against CPU on "
+                f"the card's features (B=4 x 5 s): loss {loss_gpu:.6f} vs "
+                f"{loss_cpu:.6f} (|d| {abs(loss_gpu - loss_cpu):.2e}); "
+                f"gradients over the model's largest: max |d| {err:.2e} at "
+                f"{at}; " + (f"held to {STEP_TOL_LOSS:g} and {STEP_TOL_GRAD:g}"
+                             if held else "printed, not held"))
+        if dtype == torch.float32:
+            _, g_own = step("cpu", features("cpu"), dtype)
+            spread, spread_at = worst(g_own, g_cpu)
+            line += (f"; the CPU step on its own features moves by "
+                     f"{spread:.2e} at {spread_at}")
+        log(line)
+        if not np.isfinite(loss_gpu) or (held and not (
+                abs(loss_gpu - loss_cpu) <= STEP_TOL_LOSS
+                and err <= STEP_TOL_GRAD)):
+            raise RuntimeError(f"ssl: the {kind} {dtype} step disagrees")
+
+
+def phase_ssl(root: str, inputs: dict, smi: str) -> dict:
+    """``train_apc`` and ``train_cpc`` at their default widths over 2
+    epochs of fold 0 of the labelled clips (mel_2048_1024_128, batch 32,
+    10 s crops, the effects chain at 0.75) with K1-K3 counted: every fold
+    file, a finite validation score, steps/s and the KNN line; then each
+    family's float32 step on the card against the CPU. Returns the two
+    runs' launches."""
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.cli import train_apc, train_cpc
+    from freesound_classification_tpu_torch.ops import kernels
+
+    counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
+               "K3": kernels.pv_resynth}
+    launches = {}
+    for kind, cli in (("apc", train_apc), ("cpc", train_cpc)):
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.time()
+        experiment = cli.main([
+            "--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE,
+            *SSL_ARGS, "--label", kind,
+            "--experiments_dir", os.path.join(root, "experiments")])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches[kind] = {k: fn.launches for k, fn in counted.items()}
+        with open(os.path.join(experiment.experiment_dir,
+                               "results.json")) as f:
+            fold = json.load(f)["fold0"]
+        fold_dir = os.path.join(experiment.experiment_dir, "checkpoints",
+                                "fold_0")
+        for name in ("best_model", "final_model", "model_on_epoch_0",
+                     "model_on_epoch_1"):
+            params, _ = interop.load_fold_npz(
+                os.path.join(fold_dir, f"{name}.npz"))
+            if interop.model_kind_of(params) != kind:
+                raise RuntimeError(f"ssl: {kind} {name} holds "
+                                   f"{interop.model_kind_of(params)}")
+        steps, seconds = last_epoch_rate(experiment.experiment_dir, 0)
+        log(f"ssl: train_{kind}, {wall:.2f} s for 2 epochs of fold 0; "
+            f"launches {launches[kind]}; validation score (-loss) "
+            f"{fold['metric']:.4f}; train losses {fold['train_loss']}; last "
+            f"epoch {steps:g} steps in {seconds:.3f} s = "
+            f"{steps / seconds:.3f} steps/s (batch 32, 10 s, augmentation "
+            f"included); KNN accuracy {fold.get('knn_accuracy')} on {smi}")
+        if not np.isfinite(fold["metric"]) or min(
+                launches[kind].values()) <= 0:
+            raise RuntimeError(f"ssl: {kind}: score {fold['metric']}, "
+                               f"launches {launches[kind]}")
+        if "knn_accuracy" not in fold:
+            raise RuntimeError(f"ssl: {kind}: no projection summary")
+    for kind in ("apc", "cpc"):
+        ssl_f32_step(kind)
+    return launches
+
+
+def phase_adversarial(root: str, train_inputs: dict, inputs: dict,
+                      smi: str) -> int:
+    """``adversarial_test`` over the labelled clips (train) and the
+    predict path's clips (test), 2 epochs, mel_2048_1024_128, the 80-class
+    map, with K1 counted: an AUC in [0, 1] printed each epoch and a
+    per-class table of 80 rows. Returns K1's launches."""
+    import contextlib
+    import io
+
+    from freesound_classification_tpu_torch.cli import adversarial_test
+    from freesound_classification_tpu_torch.ops import kernels
+
+    # the labelled clips' classes named as in the 80-class map
+    train_csv = os.path.join(root, "adversarial_train.csv")
+    with open(train_inputs["train_csv"]) as f:
+        rows = list(csv.reader(f))[1:]
+    with open(train_csv, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["fname", "labels"])
+        for fname, labels in rows:
+            writer.writerow([fname, ",".join(
+                f"class_{int(c.split('_')[1]):02d}"
+                for c in labels.split(","))])
+    kernels.mel_project_log.launches = 0
+    printed = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        out = adversarial_test.main([
+            "--train_df", train_csv,
+            "--train_data_dir", train_inputs["train_dir"],
+            "--test_df", inputs["test_csv"],
+            "--test_data_dir", inputs["test_dir"],
+            "--classmap", inputs["classmap"], "--features", FEATURES,
+            "--epochs", "2", "--device", DEVICE, "--num_workers", "4",
+            "--plots_dir", os.path.join(root, "plots")])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    k1 = kernels.mel_project_log.launches
+    text = printed.getvalue()
+    aucs = [float(line.split("AUC: ")[1]) for line in text.splitlines()
+            if "AUC: " in line]
+    table = [line for line in text.splitlines()
+             if line.startswith("class_")]
+    log(f"adversarial: {wall:.2f} s for 2 epochs over {len(rows)} train and "
+        f"{len(inputs['fnames'])} test clips; AUC by epoch {aucs}; "
+        f"{len(table)} table rows; K1 {k1} launches on {smi}")
+    if (len(aucs) != 2 or not all(0.0 <= a <= 1.0 for a in aucs)
+            or aucs != out["auc"] or len(table) != N_CLASSES or k1 <= 0):
+        raise RuntimeError("adversarial: bad AUCs, table or launches")
+    return k1
+
+
 def phase_evaluate(root: str, smi: str) -> None:
     """``evaluate_2d_cnn`` on the recipe phase's curated experiment (5
     folds, float32, the kit's batch): its overall OOF lwlrap within one
@@ -3129,6 +3482,11 @@ def main() -> None:
         phase_backbone_train(root, train_inputs, smi)
         phase_recipe(root, train_inputs, smi)
         phase_evaluate(root, smi)
+        rnn = phase_rnn(root, train_inputs, smi)
+        ssl = phase_ssl(root, train_inputs, smi)
+        adversarial_k1 = phase_adversarial(root, train_inputs, inputs, smi)
+        log(f"new paths' launches: rnn {rnn}, ssl {ssl}, adversarial K1 "
+            f"{adversarial_k1}")
     k2["launches"], k3["launches"] = train["K2"], train["K3"]
     k9["launches"] = phase_probe(smi)
     phase_bench(smi)

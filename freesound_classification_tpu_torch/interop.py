@@ -12,7 +12,18 @@ weight/bias/running_mean/running_var. The backbone (``CNNBackbone``, whose
 variables have ``trunk``) keeps the JAX names as its module names
 (``input_norm``, ``trunk/conv1``, ``trunk/stage{s}_block{b}/downsample_bn``,
 ``head/fc1``, ...; its convolutions have no bias), so its map is the same
-per-leaf conversion by name.
+per-leaf conversion by name. So are the GRUs of the CNNs' ``rnn``
+aggregation (``rnn{k}/ln``, ``rnn{k}/GRUCell_0`` forward and
+``GRUCell_1`` backward) and the models without a CNN tower: APC
+(``OptimizedLSTMCell_{l}``, ``output_norm``, ``prediction_{s}``), CPC
+(``input_bn``, ``enc{k}/conv``, ``prelu{k}``, ``output_bn``,
+``GRUCell_0``, ``coupling_{s}``) and the adversarial test's
+``DomainDiscriminator`` (``bn0``, ``conv0``, ``res0``, ..., ``head``).
+A flax ``GRUCell`` {ir, iz, in, hr, hz, hn} becomes the port's
+``blocks.GRUCell`` (torch's gate order r, z, n; flax has no hidden-side
+bias but the candidate's, ``bias_hn``), an ``OptimizedLSTMCell`` {ii, if,
+ig, io, hi, hf, hg, ho} a ``blocks.LSTMCell`` (gates i, f, g, o, biases on
+the hidden side only) and a LayerNorm's scale/bias its weight/bias.
 
 ``to_jax_variables`` is the reverse map; ``model_kind_of`` tells the family
 from the variables. ``stack_jax_fold_states`` and ``unstack_jax_fold_states``
@@ -39,6 +50,7 @@ from freesound_classification_tpu_torch.models.backbone import (
     TRUNK_WIDTH,
 )
 from freesound_classification_tpu_torch.models.blocks import block_depths
+from freesound_classification_tpu_torch.models.classifiers import RNN_SIZE
 
 _COLLECTIONS = ("params", "batch_stats")
 # the random backbone's conditioning (random_jax_variables)
@@ -76,11 +88,43 @@ def _map_prelu(sd: dict, key: str, p: Mapping) -> None:
     sd[f"{key}.weight"] = _t(p["alpha"])
 
 
+def _map_layer_norm(sd: dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _gates(p: Mapping, names: str, side: str, leaf: str) -> np.ndarray:
+    """The ``side`` ("i" or "h") denses of a flax cell's gates ``names``
+    stacked on dim 0 as torch does: kernels transposed, or biases."""
+    if leaf == "kernel":
+        return np.concatenate([np.asarray(p[side + g]["kernel"]).T
+                               for g in names])
+    return np.concatenate([np.asarray(p[side + g]["bias"]) for g in names])
+
+
+def _map_gru(sd: dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight_ih"] = _t(_gates(p, "rzn", "i", "kernel"))
+    sd[f"{key}.weight_hh"] = _t(_gates(p, "rzn", "h", "kernel"))
+    sd[f"{key}.bias_ih"] = _t(_gates(p, "rzn", "i", "bias"))
+    sd[f"{key}.bias_hn"] = _t(p["hn"]["bias"])
+
+
+def _map_lstm(sd: dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight_ih"] = _t(_gates(p, "ifgo", "i", "kernel"))
+    sd[f"{key}.weight_hh"] = _t(_gates(p, "ifgo", "h", "kernel"))
+    sd[f"{key}.bias_hh"] = _t(_gates(p, "ifgo", "h", "bias"))
+
+
 def model_kind_of(params: Mapping) -> str:
-    """The family of JAX variables: "backbone_cnn" (a ``trunk``),
-    "2d_cnn" (a 4-d block0 conv kernel) or "hierarchical_cnn"."""
-    if "trunk" in params:
-        return "backbone_cnn"
+    """The family of JAX variables: "backbone_cnn" (a ``trunk``), "apc"
+    (LSTM cells), "cpc" (an encoder ``enc0``), "adversarial" (the domain
+    discriminator's ``res0``), "2d_cnn" (a 4-d block0 conv kernel) or
+    "hierarchical_cnn"."""
+    for name, kind in (("trunk", "backbone_cnn"),
+                       ("OptimizedLSTMCell_0", "apc"), ("enc0", "cpc"),
+                       ("res0", "adversarial")):
+        if name in params:
+            return kind
     if np.ndim(params["block0"]["conv"]["kernel"]) == 4:
         return "2d_cnn"
     return "hierarchical_cnn"
@@ -89,17 +133,26 @@ def model_kind_of(params: Mapping) -> str:
 def _from_jax_by_name(sd: dict, prefix: str, params: Mapping,
                       stats: Mapping) -> None:
     """Every leaf module of ``params`` under its own name: a dict with a
-    kernel is a conv (rank 3-4) or a dense layer (rank 2), one with a scale
-    a BatchNorm (statistics from ``stats``), one with an alpha a PReLU."""
+    kernel is a conv (rank 3-4) or a dense layer (rank 2), one with an
+    ``hn`` a GRU cell, one with an ``hi`` an LSTM cell, one with a scale a
+    BatchNorm (statistics from ``stats``) or, without statistics, a
+    LayerNorm, one with an alpha a PReLU."""
     for name, p in params.items():
         key = f"{prefix}{name}"
-        if "kernel" in p:
+        if "hn" in p:
+            _map_gru(sd, key, p)
+        elif "hi" in p:
+            _map_lstm(sd, key, p)
+        elif "kernel" in p:
             if np.ndim(p["kernel"]) == 2:
                 _map_linear(sd, key, p)
             else:
                 _map_conv(sd, key, p)
         elif "scale" in p:
-            _map_bn(sd, key, p, stats[name])
+            if name in stats:
+                _map_bn(sd, key, p, stats[name])
+            else:
+                _map_layer_norm(sd, key, p)
         elif "alpha" in p:
             _map_prelu(sd, key, p)
         else:
@@ -108,12 +161,14 @@ def _from_jax_by_name(sd: dict, prefix: str, params: Mapping,
 
 def from_jax_variables(params: Mapping,
                        batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """JAX ``TwoDimensionalCNN``, ``HierarchicalCNN`` or ``CNNBackbone``
-    variables -> the port's state_dict of the same family."""
+    """JAX variables of any family ``model_kind_of`` tells -> the port's
+    state_dict of the same family."""
     sd: dict[str, torch.Tensor] = {}
-    if model_kind_of(params) == "backbone_cnn":
+    if model_kind_of(params) not in ("2d_cnn", "hierarchical_cnn"):
         _from_jax_by_name(sd, "", params, batch_stats)
         return sd
+    _from_jax_by_name(sd, "", {name: p for name, p in params.items()
+                               if name.startswith("rnn")}, {})
     k = 0
     while f"block{k}" in params:
         p, s = params[f"block{k}"], batch_stats[f"block{k}"]
@@ -139,9 +194,9 @@ def from_jax_variables(params: Mapping,
 
 def to_jax_variables(
         state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
-    """The port's ``TwoDimensionalCNN``, ``HierarchicalCNN`` or
-    ``CNNBackbone`` state_dict -> JAX (params, batch_stats) as nested dicts
-    of float32 numpy arrays: the inverse of ``from_jax_variables``."""
+    """The port's state_dict of any family -> JAX (params, batch_stats) as
+    nested dicts of float32 numpy arrays: the inverse of
+    ``from_jax_variables``."""
     def a(key: str) -> np.ndarray:
         return state_dict[key].detach().to("cpu", torch.float32).numpy()
 
@@ -165,22 +220,50 @@ def to_jax_variables(
     def prelu(key: str) -> dict:
         return {"alpha": a(f"{key}.weight")}
 
-    params: dict = {}
-    stats: dict = {}
-    if any(key.startswith("trunk.") for key in state_dict):
-        # the backbone: every module under its own (JAX) name
-        for key in sorted({k.rsplit(".", 1)[0] for k in state_dict}):
+    def cell(key: str, names: str) -> dict:
+        """A GRU (names "rzn") or LSTM ("ifgo") cell's gate denses."""
+        w_ih = np.split(a(f"{key}.weight_ih"), len(names))
+        w_hh = np.split(a(f"{key}.weight_hh"), len(names))
+        out = {}
+        for g, wi, wh in zip(names, w_ih, w_hh):
+            out["i" + g] = {"kernel": np.ascontiguousarray(wi.T)}
+            out["h" + g] = {"kernel": np.ascontiguousarray(wh.T)}
+        if names == "rzn":
+            for g, b in zip(names, np.split(a(f"{key}.bias_ih"), 3)):
+                out["i" + g]["bias"] = b
+            out["hn"]["bias"] = a(f"{key}.bias_hn")
+        else:
+            for g, b in zip(names, np.split(a(f"{key}.bias_hh"), 4)):
+                out["h" + g]["bias"] = b
+        return out
+
+    def by_name(keys) -> None:
+        """Every module of ``keys`` under its own (JAX) name."""
+        for key in sorted({k.rsplit(".", 1)[0] for k in keys}):
             *path, leaf = key.split(".")
             p_node = _subtree(params, path)
             if f"{key}.running_mean" in state_dict:
                 p_node[leaf], _subtree(stats, path)[leaf] = bn(key)
-            elif state_dict[f"{key}.weight"].dim() == 4:
+            elif f"{key}.bias_hn" in state_dict:
+                p_node[leaf] = cell(key, "rzn")
+            elif f"{key}.weight_ih" in state_dict:
+                p_node[leaf] = cell(key, "ifgo")
+            elif state_dict[f"{key}.weight"].dim() >= 3:
                 p_node[leaf] = conv(key)
             elif state_dict[f"{key}.weight"].dim() == 2:
                 p_node[leaf] = linear(key)
+            elif f"{key}.bias" in state_dict:
+                p_node[leaf] = {"scale": a(f"{key}.weight"),
+                                "bias": a(f"{key}.bias")}
             else:
                 p_node[leaf] = prelu(key)
+
+    params: dict = {}
+    stats: dict = {}
+    if "blocks.0.conv.weight" not in state_dict:
+        by_name(state_dict)
         return params, stats
+    by_name([k for k in state_dict if k.startswith("rnn")])
     k = 0
     while f"blocks.{k}.conv.weight" in state_dict:
         pre = f"blocks.{k}"
@@ -316,13 +399,15 @@ def random_jax_variables(
     model_kind: str = "2d_cnn",
     input_dim: int | None = None,
     backbone: str = "resnet18",
+    aggregation_type: str = "max",
 ) -> Tuple[dict, dict]:
     """Random ``TwoDimensionalCNN`` (``model_kind`` "2d_cnn"),
     ``HierarchicalCNN`` ("hierarchical_cnn", over ``input_dim`` features
     per frame) or ``CNNBackbone`` ("backbone_cnn", the ``backbone`` arch;
     the tower's widths do not apply) variables in the JAX package's layout,
     from a numpy seed: (params, batch_stats) as nested dicts of float32
-    arrays.
+    arrays. With ``aggregation_type="rnn"`` the CNNs carry an ``rnn{k}``
+    GRU pair (hidden ``RNN_SIZE``) after each deep-supervised block.
 
     Kernels are LeCun-normal like flax's default init. Biases, BatchNorm
     statistics and PReLU slopes get small random offsets from flax's
@@ -423,6 +508,24 @@ def random_jax_variables(
             r[f"prelu{i}"] = prelu(d)
         p["resnet"], s["resnet"] = r, rs
         params[f"block{k}"], stats[f"block{k}"] = p, s
-    params["head"], stats["head"] = head(
-        sum(depths[start_deep_supervision_on:]))
+    supervised = depths[start_deep_supervision_on:]
+    if aggregation_type == "max":
+        params["head"], stats["head"] = head(sum(supervised))
+        return params, stats
+
+    def gru(c_in):
+        out = {}
+        for g in "rzn":
+            out["i" + g] = dense(c_in, RNN_SIZE)
+            out["h" + g] = {"kernel": normal((RNN_SIZE, RNN_SIZE),
+                                             RNN_SIZE ** -0.5)}
+        out["hn"]["bias"] = normal((RNN_SIZE,), 0.1)
+        return out
+
+    for k, d in enumerate(supervised, start=start_deep_supervision_on):
+        params[f"rnn{k}"] = {
+            "ln": {"scale": 1.0 + normal((d,), 0.1),
+                   "bias": normal((d,), 0.1)},
+            "GRUCell_0": gru(d), "GRUCell_1": gru(d)}
+    params["head"], stats["head"] = head(2 * RNN_SIZE * len(supervised))
     return params, stats

@@ -44,9 +44,10 @@ class BatchNorm(nn.Module):
 
     Eval: the affine of the running statistics, folded in float32 and
     applied in the input's dtype. Train: the batch mean and variance over
-    every dim but 1, in float32 for any input dtype, with flax's fast
-    variance ``max(E[x^2] - E[x]^2, 0)``; the output is computed in float32
-    and cast back. The running statistics move by 0.1 towards the batch's,
+    every dim but 1, in float32 for a float32 or narrower input and in
+    float64 for a float64 one (flax promotes to at least float32), with
+    flax's fast variance ``max(E[x^2] - E[x]^2, 0)``; the output is
+    computed in that dtype and cast back. The running statistics move by 0.1 towards the batch's,
     with the *biased* variance as flax does; ``F.batch_norm`` would use the
     unbiased one (n/(n-1) times larger, 20/19 for the head's 20 rows).
     """
@@ -63,7 +64,7 @@ class BatchNorm(nn.Module):
             scale = self.weight * torch.rsqrt(self.running_var + BN_EPS)
             shift = self.bias - self.running_mean * scale
             return x * _per_channel(scale, x) + _per_channel(shift, x)
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         dims = [d for d in range(x.dim()) if d != 1]
         mean = xf.mean(dim=dims)
         var = torch.clamp(
@@ -287,6 +288,202 @@ class MLPHead(nn.Module):
         return self.fc2(h)
 
 
+LN_EPS = 1e-6  # flax's nn.LayerNorm default
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last dim: eps 1e-6, statistics and
+    output in float32 (float64 for a float64 input), cast back to the
+    input's dtype; ``affine=False`` is
+    flax's ``use_scale=False, use_bias=False``."""
+
+    def __init__(self, width: int, affine: bool = True):
+        super().__init__()
+        self.width = width
+        if affine:
+            self.weight = nn.Parameter(torch.ones(width))
+            self.bias = nn.Parameter(torch.zeros(width))
+        else:
+            self.weight = self.bias = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x if x.dtype == torch.float64 else x.float()
+        return F.layer_norm(xf, (self.width,), self.weight, self.bias,
+                            LN_EPS).to(x.dtype)
+
+
+def _uniform_like_torch_rnn(cell: nn.Module) -> None:
+    """torch's RNN default: every parameter U(-1/sqrt(H), 1/sqrt(H)), until
+    ``init_like_flax`` or a checkpoint replaces it."""
+    bound = cell.hidden ** -0.5
+    with torch.no_grad():
+        for p in cell.parameters():
+            p.uniform_(-bound, bound)
+
+
+class GRUCell(nn.Module):
+    """The parameters of flax's ``nn.GRUCell``: input projections with
+    biases (``weight_ih`` (3H, C), ``bias_ih``) and recurrent ones with
+    only the candidate's bias (``weight_hh`` (3H, H), ``bias_hn`` (H,)),
+    gates stacked r, z, n as in torch's GRU. So the cell is flax's
+    function exactly; torch's ``bias_hh`` is ``[0, 0, bias_hn]``."""
+
+    def __init__(self, input_dim: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden, input_dim))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden, hidden))
+        self.bias_ih = nn.Parameter(torch.zeros(3 * hidden))
+        self.bias_hn = nn.Parameter(torch.zeros(hidden))
+        _uniform_like_torch_rnn(self)
+
+    def bias_hh(self) -> torch.Tensor:
+        return torch.cat([self.bias_hn.new_zeros(2 * self.hidden),
+                          self.bias_hn])
+
+    def weights(self, dtype: torch.dtype) -> list:
+        """[w_ih, w_hh, b_ih, b_hh] in ``dtype``, torch's GRU layout,
+        contiguous as cuDNN's weight buffer needs them (a state_dict may
+        hold transposed views)."""
+        return [t.to(dtype).contiguous() for t in (
+            self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh())]
+
+
+def gru_sequence(x: torch.Tensor, cell: GRUCell) -> torch.Tensor:
+    """A forward GRU from a zero state over (B, T, C) -> outputs (B, T, H),
+    as one ``torch._VF.gru`` call (cuDNN on the card) with the cell's
+    float32 weights cast to x's dtype. cuDNN keeps what its backward needs
+    only in train mode, so the call trains wherever gradients are on; its
+    inference mode takes only a contiguous input."""
+    x = x.contiguous()
+    h0 = x.new_zeros(1, x.shape[0], cell.hidden)
+    out, _ = torch._VF.gru(x, h0, cell.weights(x.dtype), True, 1, 0.0,
+                           torch.is_grad_enabled(), False, True)
+    return out
+
+
+def flip_within_lengths(x: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse each row of (B, T, ...) within its own length, the padding
+    kept at the end (flax's ``flip_sequences``): position t takes
+    ``(lengths - 1 - t) mod T``. One gather, no host sync."""
+    t = x.shape[1]
+    idx = (torch.arange(t - 1, -1, -1, device=x.device)[None, :]
+           + lengths[:, None]) % t
+    return torch.gather(
+        x, 1, idx.view(*idx.shape, *([1] * (x.dim() - 2))).expand_as(x))
+
+
+def at_lengths(out: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(..., B, T, H) outputs -> (..., B, H) at each row's last valid step."""
+    idx = (lengths - 1).view(-1, 1, 1).expand(-1, 1, out.shape[-1])
+    idx = idx.expand(*out.shape[:-3], *idx.shape)
+    return torch.gather(out, -2, idx).squeeze(-2)
+
+
+def _gru_scan(gi: torch.Tensor, w_hh: torch.Tensor,
+              b_hh: torch.Tensor) -> torch.Tensor:
+    """D GRUs at once, step by step: gi (D, B, T, 3H) input projections
+    (with their biases), w_hh (D, 3H, H), b_hh (D, 3H) -> outputs
+    (D, B, T, H) from zero states. Matrix products and elementwise ops
+    only, so ``torch.func.vmap`` batches it."""
+    d, b, t, h3 = gi.shape
+    hid = h3 // 3
+    h = gi.new_zeros(d, b, hid)
+    w_t = w_hh.transpose(1, 2)
+    outs = []
+    for step in range(t):
+        gh = torch.baddbmm(b_hh[:, None, :], h, w_t)
+        g = gi[:, :, step]
+        r, z = torch.sigmoid(g[..., :2 * hid] + gh[..., :2 * hid]).chunk(
+            2, dim=-1)
+        n = torch.tanh(g[..., 2 * hid:] + r * gh[..., 2 * hid:])
+        h = n + z * (h - n)
+        outs.append(h)
+    return torch.stack(outs, dim=2)
+
+
+class LSTMCell(nn.Module):
+    """The parameters of flax's ``nn.OptimizedLSTMCell``: input projections
+    without bias (``weight_ih`` (4H, C)) and recurrent ones with
+    (``weight_hh`` (4H, H), ``bias_hh``), gates stacked i, f, g, o as in
+    torch's LSTM, whose ``bias_ih`` is then 0."""
+
+    def __init__(self, input_dim: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden, input_dim))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
+        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
+        _uniform_like_torch_rnn(self)
+
+    def weights(self, dtype: torch.dtype) -> list:
+        """[w_ih, w_hh, b_ih, b_hh] in ``dtype``, torch's LSTM layout,
+        contiguous as ``GRUCell.weights``'."""
+        return [t.to(dtype).contiguous() for t in (
+            self.weight_ih, self.weight_hh, torch.zeros_like(self.bias_hh),
+            self.bias_hh)]
+
+
+def lstm_sequence(x: torch.Tensor, cells) -> torch.Tensor:
+    """A stack of forward LSTMs from zero states over (B, T, C) -> the
+    last layer's outputs (B, T, H), as one ``torch._VF.lstm`` call (cuDNN
+    on the card), weights cast to x's dtype as in ``gru_sequence``."""
+    x = x.contiguous()
+    h0 = x.new_zeros(len(cells), x.shape[0], cells[0].hidden)
+    weights = [w for cell in cells for w in cell.weights(x.dtype)]
+    out, _, _ = torch._VF.lstm(x, (h0, h0), weights, True, len(cells), 0.0,
+                               torch.is_grad_enabled(), False, True)
+    return out
+
+
+class MaskedBiGRU(nn.Module):
+    """LayerNorm -> a forward and a backward GRU over (B, T, C) with
+    per-row valid lengths -> (B, 2H), both directions' final states (JAX
+    ``blocks.MaskedBiGRU``, flax ``nn.RNN`` with ``seq_lengths``).
+
+    The forward state is the forward GRU's output at ``lengths - 1``; the
+    backward one runs its weights forward over each row reversed within
+    its own length (``flip_within_lengths``) and takes the same position,
+    so bucket padding reaches neither state.
+
+    ``route`` "fused" runs each direction as one ``torch._VF.gru`` call
+    (cuDNN on the card), which ``torch.func.vmap`` cannot batch; "scan"
+    runs both directions together as one matrix product for every frame's
+    input projections and a per-step recurrence of matrix products and
+    elementwise ops, which it can (``training/multifold.FoldStack`` selects
+    it). Both compute the same function."""
+
+    def __init__(self, input_dim: int, hidden: int = 128):
+        super().__init__()
+        self.route = "fused"
+        self.ln = LayerNorm(input_dim)
+        self.GRUCell_0 = GRUCell(input_dim, hidden)  # forward (flax names)
+        self.GRUCell_1 = GRUCell(input_dim, hidden)  # backward
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        x = self.ln(x)
+        x_b = flip_within_lengths(x, lengths)
+        if self.route == "fused":
+            outs = torch.stack([gru_sequence(x, self.GRUCell_0),
+                                gru_sequence(x_b, self.GRUCell_1)])
+        elif self.route == "scan":
+            outs = self._scan(torch.stack([x, x_b]))
+        else:
+            raise ValueError(f"unknown GRU route {self.route!r}")
+        last = at_lengths(outs, lengths)  # (2, B, H)
+        return torch.cat([last[0], last[1]], dim=-1)
+
+    def _scan(self, xs: torch.Tensor) -> torch.Tensor:
+        cells = (self.GRUCell_0, self.GRUCell_1)
+        w_ih, w_hh, b_ih, b_hh = (torch.stack(ts) for ts in zip(
+            *(c.weights(xs.dtype) for c in cells)))
+        d, b, t, c = xs.shape
+        gi = torch.baddbmm(b_ih[:, None, :], xs.reshape(d, b * t, c),
+                           w_ih.transpose(1, 2))
+        return _gru_scan(gi.view(d, b, t, -1), w_hh, b_hh)
+
+
 def block_depths(num_conv_blocks: int, conv_base_depth: int,
                  growth_rate: float) -> Sequence[int]:
     """Per-stage channel widths: int(growth_rate**k * conv_base_depth)."""
@@ -298,7 +495,8 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     """Re-initialize ``model`` in place as flax initializes the JAX model:
     conv and dense kernels LeCun-normal (normal truncated at 2 std, scaled
     to variance 1/fan_in), biases 0, BatchNorm scale 1 / bias 0 / mean 0 /
-    var 1, PReLU 0.25. The draws come from ``generator``."""
+    var 1, LayerNorm scale 1 / bias 0, PReLU 0.25, and the GRU and LSTM
+    cells as flax's. The draws come from ``generator``."""
     # std of a unit normal truncated to [-2, 2], which flax divides out
     trunc_std = 0.87962566103423978
     with torch.no_grad():
@@ -318,3 +516,18 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
                 module.running_var.fill_(1.0)
             elif isinstance(module, PReLU):
                 module.weight.fill_(0.25)
+            elif isinstance(module, LayerNorm) and module.weight is not None:
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+            elif isinstance(module, (GRUCell, LSTMCell)):
+                # flax's cells: LeCun-normal input kernels, orthogonal
+                # recurrent kernels (each gate's own), zero biases
+                w = module.weight_ih
+                std = w.shape[1] ** -0.5 / trunc_std
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                for gate in module.weight_hh.split(module.hidden):
+                    nn.init.orthogonal_(gate, generator=generator)
+                for name, p in module.named_parameters():
+                    if name.startswith("bias"):
+                        p.zero_()

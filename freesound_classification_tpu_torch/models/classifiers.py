@@ -10,7 +10,11 @@
 Public layouts are the JAX package's: the 2d model takes (B, H=n_features,
 W=n_frames, 1), the 1d model (B, T, F), each with per-clip valid frame
 counts, and all return (B, n_classes) float32 logits. Inside, tensors are
-NCHW and (B, C, T). ``fused_infer`` runs the eval-mode resnet blocks through
+NCHW and (B, C, T). The two CNNs aggregate each deep-supervised block by a
+masked max over time (``aggregation_type="max"``) or by the final states of
+a length-aware bidirectional GRU (``"rnn"``, ``blocks.MaskedBiGRU``, named
+``rnn{k}`` after block k as in JAX; the 2d model first takes the mean over
+frequency). ``fused_infer`` runs the eval-mode resnet blocks through
 the fused kernels (K4/K5 in 2d, K6 in 1d, K7 in the backbone) and
 ``fused_head`` the 2d CNN's block0 head through K8; training and the
 weights are the same either way.
@@ -26,6 +30,7 @@ from freesound_classification_tpu_torch.models.blocks import (
     ConvBlock1d,
     ConvBlock2d,
     MLPHead,
+    MaskedBiGRU,
     block_depths,
     mask_time,
     mask_time_2d,
@@ -34,14 +39,26 @@ from freesound_classification_tpu_torch.models.blocks import (
 )
 
 
+RNN_SIZE = 128  # the GRUs' hidden width (JAX ``classifiers.RNN_SIZE``)
+
+
 def _check_aggregation(aggregation_type: str) -> None:
-    if aggregation_type == "rnn":
-        raise NotImplementedError(
-            "aggregation_type='rnn' needs MaskedBiGRU, which the port "
-            "does not have yet (ROADMAP M1.5)")
-    if aggregation_type != "max":
+    if aggregation_type not in ("max", "rnn"):
         raise ValueError(
             f"unknown aggregation_type {aggregation_type!r}")
+
+
+def _aggregators(model: nn.Module, aggregation_type: str, depths,
+                 start: int) -> int:
+    """Give ``model`` an ``rnn{k}`` GRU for every supervised block k where
+    the aggregation is "rnn"; returns the head's input width."""
+    _check_aggregation(aggregation_type)
+    model.aggregation_type = aggregation_type
+    if aggregation_type == "max":
+        return sum(depths[start:])
+    for k in range(start, len(depths)):
+        setattr(model, f"rnn{k}", MaskedBiGRU(depths[k], RNN_SIZE))
+    return 2 * RNN_SIZE * (len(depths) - start)
 
 
 def add_frequency_encoding(x: torch.Tensor) -> torch.Tensor:
@@ -54,7 +71,7 @@ def add_frequency_encoding(x: torch.Tensor) -> torch.Tensor:
 
 
 class TwoDimensionalCNN(nn.Module):
-    """2d CNN over log-mel images with max aggregation and deep supervision.
+    """2d CNN over log-mel images with deep supervision.
 
     ``dtype`` is the compute dtype (float32, or bfloat16 for ``--bf16``);
     parameters stay float32 and logits come out float32. ``train()`` mode
@@ -76,7 +93,6 @@ class TwoDimensionalCNN(nn.Module):
         fused_head: bool = False,
     ):
         super().__init__()
-        _check_aggregation(aggregation_type)
         self.start_deep_supervision_on = start_deep_supervision_on
         self.dtype = dtype
         depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
@@ -84,10 +100,12 @@ class TwoDimensionalCNN(nn.Module):
         self.blocks = nn.ModuleList(
             ConvBlock2d(c_in, d, fused_infer, fused_head)
             for c_in, d in zip([2, *depths], depths))
-        # deep supervision: the pooled features of every block from
+        # deep supervision: the aggregated features of every block from
         # start_deep_supervision_on on feed the head
-        self.head = MLPHead(sum(depths[start_deep_supervision_on:]),
-                            n_classes, dropout=output_dropout)
+        self.head = MLPHead(
+            _aggregators(self, aggregation_type, depths,
+                         start_deep_supervision_on),
+            n_classes, dropout=output_dropout)
 
     def forward(self, spec: torch.Tensor,
                 frame_lengths: torch.Tensor) -> torch.Tensor:
@@ -99,14 +117,20 @@ class TwoDimensionalCNN(nn.Module):
             h = block(h)
             lengths = torch.clamp(lengths // 2, min=1)
             h = mask_time_2d(h, lengths)
-            if k >= self.start_deep_supervision_on:
+            if k < self.start_deep_supervision_on:
+                continue
+            if self.aggregation_type == "max":
                 features.append(masked_max_pool_2d(h, lengths))
+            else:
+                # mean over frequency -> (B, W, C), then the GRUs
+                features.append(getattr(self, f"rnn{k}")(
+                    h.mean(dim=2).transpose(1, 2), lengths))
         return self.head(torch.cat(features, dim=-1)).float()
 
 
 class HierarchicalCNN(nn.Module):
-    """1d conv tower over per-frame features with max aggregation and deep
-    supervision (JAX ``HierarchicalCNN``). ``input_dim`` is F, the
+    """1d conv tower over per-frame features with deep supervision (JAX
+    ``HierarchicalCNN``). ``input_dim`` is F, the
     features per frame (n_mels, n_fft // 2 + 1, or 1 for raw samples);
     ``dtype``, parameters and modes as ``TwoDimensionalCNN``'s."""
 
@@ -124,15 +148,16 @@ class HierarchicalCNN(nn.Module):
         fused_infer: bool = False,
     ):
         super().__init__()
-        _check_aggregation(aggregation_type)
         self.start_deep_supervision_on = start_deep_supervision_on
         self.dtype = dtype
         depths = block_depths(num_conv_blocks, conv_base_depth, growth_rate)
         self.blocks = nn.ModuleList(
             ConvBlock1d(c_in, d, fused_infer)
             for c_in, d in zip([input_dim, *depths], depths))
-        self.head = MLPHead(sum(depths[start_deep_supervision_on:]),
-                            n_classes, dropout=output_dropout)
+        self.head = MLPHead(
+            _aggregators(self, aggregation_type, depths,
+                         start_deep_supervision_on),
+            n_classes, dropout=output_dropout)
 
     def forward(self, feats: torch.Tensor,
                 frame_lengths: torch.Tensor) -> torch.Tensor:
@@ -143,8 +168,13 @@ class HierarchicalCNN(nn.Module):
             h = block(h)
             lengths = torch.clamp(lengths // 2, min=1)
             h = mask_time(h, lengths)
-            if k >= self.start_deep_supervision_on:
+            if k < self.start_deep_supervision_on:
+                continue
+            if self.aggregation_type == "max":
                 features.append(masked_max_pool_time(h, lengths))
+            else:
+                features.append(getattr(self, f"rnn{k}")(
+                    h.transpose(1, 2), lengths))
         return self.head(torch.cat(features, dim=-1)).float()
 
 

@@ -13,11 +13,13 @@ call by CUDA events (``kernel_turns.cuda_ms``) of:
   min(2, depth - 1));
 - at depth 6: the train-mode forward (BatchNorm on batch statistics,
   dropout, no gradient) against the eval one, float32 against bf16, and
-  the fused eval blocks (``fused_infer``: K4/K5) against the unfused.
+  the fused eval blocks (``fused_infer``: K4/K5) against the unfused;
+- at depth 6 with the ``rnn`` aggregation (a bidirectional GRU of 128
+  after each supervised block, cuDNN's through ``torch._VF.gru``): the
+  eval and the train-mode forward.
 
-``profile_model.py``'s other variants have no counterpart: its block-DFT
-precision variants are a TPU lowering (the port featurizes through
-``torch.stft``), and its ``rnn`` aggregation waits for ROADMAP M1.5.
+``profile_model.py``'s block-DFT precision variants have no counterpart:
+they are a TPU lowering (the port featurizes through ``torch.stft``).
 
 ``variants`` builds the functions on any device (the CPU tests call it
 small); ``main`` times them on the card. The first line is the card's name
@@ -84,9 +86,19 @@ def variants(device, network: dict = bench.NETWORK,
                              dtype=torch.bfloat16, fused_infer=True)
     fused.load_state_dict(models[full].state_dict())
     fused = fused.to(device).eval()
+    rnn = types.SimpleNamespace(**dict(vars(_network(full, network)),
+                                       aggregation_type="rnn"))
+    rnn_eval = create_model(rnn, n_classes, torch.bfloat16, 0,
+                            device).eval()
+    rnn_train = create_model(rnn, n_classes, torch.bfloat16, 0,
+                             device).train()
     out += [
         (f"train-mode forward, bf16, depth {full}",
          lambda: train_model(inputs, frame_lengths)),
+        (f"eval forward, bf16, rnn aggregation, depth {full}",
+         lambda: rnn_eval(inputs, frame_lengths)),
+        (f"train-mode forward, bf16, rnn aggregation, depth {full}",
+         lambda: rnn_train(inputs, frame_lengths)),
         (f"eval forward, float32, depth {full}",
          lambda: f32(inputs, frame_lengths)),
         (f"eval forward, bf16 fused (K4/K5), depth {full}",

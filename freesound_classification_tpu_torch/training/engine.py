@@ -37,6 +37,14 @@ the next epoch, with the loader's epoch counter set so that its shuffles
 and crops line up with an uninterrupted run; the MixUp pool starts empty,
 as in JAX, and a fold with no bundle starts fresh.
 
+Self-supervised models (``self_supervised=True``: APC, CPC; JAX's
+``self_supervised`` mode) return their ``loss_terms``; the step's loss is
+their sum, there are no probabilities and no lwlrap, and the validation
+score is ``-mean_loss``, which picks ``best_model.npz`` as lwlrap does for a
+classifier. Such a step reports no batch metric, and an epoch's
+``metric`` is NaN by definition (JAX takes the ``nanmean`` of all-NaN batch
+metrics, which warns; the port states it instead).
+
 Summaries: ``summary_writer_factory(fold, split)`` gives each fit a train
 and a valid writer (or None), written as JAX writes them: train ``loss``,
 ``metric`` and ``lr`` every ``log_interval`` batches, the first batch's
@@ -117,6 +125,7 @@ class Engine:
     set, receives a trace of each fit's epoch 1. ``summary_writer_factory``
     (fold, split) -> a tensorboard-like writer or None. ``device`` is the
     card unless the caller passes "cpu"; without a card it raises.
+    ``self_supervised`` trains a model that returns ``loss_terms``.
     """
 
     def __init__(self, model: nn.Module, frontend: Frontend, train_config,
@@ -126,7 +135,9 @@ class Engine:
                  device: torch.device | str = "cuda",
                  warm_start_path: Optional[str] = None,
                  profile_dir: Optional[str] = None,
-                 summary_writer_factory: Optional[Callable] = None):
+                 summary_writer_factory: Optional[Callable] = None,
+                 self_supervised: bool = False):
+        self.self_supervised = self_supervised
         self.accumulation_steps = max(
             int(getattr(train_config, "accumulation_steps", 1)), 1)
         self.device = resolve_device(device)
@@ -200,7 +211,8 @@ class Engine:
                    partner: Optional[tuple] = None) -> dict:
         """One micro-batch: forward, backward, and the optimizer step where
         an update is due; returns 0-d tensors ``loss`` and ``metric`` and
-        the (B,) ``per_sample`` losses."""
+        the (B,) ``per_sample`` losses (a self-supervised step: its loss,
+        and None for the other two)."""
         self.model.train()
         if self.augment is not None and aug_scale > 0.0:
             with torch.no_grad(), self._stage("augment"):
@@ -209,6 +221,8 @@ class Engine:
                     partner=partner)
         logits, per_sample, loss = self._learn(
             wave, lengths, labels, lambda per_sample: (per_sample.mean(),) * 2)
+        if self.self_supervised:
+            return {"loss": loss, "metric": None, "per_sample": None}
         with torch.no_grad():
             metric = metrics_lib.lwlrap_torch(labels, torch.sigmoid(logits))
         return {"loss": loss, "metric": metric, "per_sample": per_sample}
@@ -219,13 +233,15 @@ class Engine:
         (``training/multifold.py``): the frontend, the forward and the loss,
         the backward, the gradient mean and the optimizer step where an
         update is due. ``reduce(per_sample)`` gives (the loss to
-        differentiate, the loss to report). Returns the detached logits,
-        per-sample losses and reported loss."""
+        differentiate, the loss to report); a self-supervised model's
+        "per-sample" loss is the sum of its loss terms. Returns the detached
+        logits (None for a self-supervised model), per-sample losses and
+        reported loss."""
         with torch.no_grad(), self._stage("frontend"):
             inputs, frame_lengths = self.frontend(wave, lengths)
         with self._stage("forward"):
-            logits = self.model(inputs, frame_lengths)
-            per_sample = self.loss_fn(logits, labels, average=False)
+            logits, per_sample = self._forward_loss(inputs, frame_lengths,
+                                                    labels)
             loss, reported = reduce(per_sample)
         with self._stage("backward"):
             self.optimizer.zero_grad(set_to_none=True)
@@ -239,16 +255,30 @@ class Engine:
                 if self._accumulated is not None:
                     torch._foreach_zero_(self._accumulated)
         self.global_step += 1
-        return logits.detach(), per_sample.detach(), reported.detach()
+        return (None if logits is None else logits.detach(),
+                per_sample.detach(), reported.detach())
+
+    def _forward_loss(self, inputs: torch.Tensor,
+                      frame_lengths: torch.Tensor,
+                      labels: torch.Tensor) -> tuple:
+        """(logits, per-sample losses) of a classifier; (None, the sum of
+        the loss terms) of a self-supervised model."""
+        out = self.model(inputs, frame_lengths)
+        if self.self_supervised:
+            return None, sum(out["loss_terms"])
+        return out, self.loss_fn(out, labels, average=False)
 
     @torch.inference_mode()
     def eval_step(self, wave: torch.Tensor, lengths: torch.Tensor,
                   labels: torch.Tensor) -> tuple:
-        """(mean loss, (B, C) probabilities) in eval mode."""
+        """(mean loss, (B, C) probabilities) in eval mode; a
+        self-supervised model's: (its loss, None)."""
         self.model.eval()
         inputs, frame_lengths = self.frontend(wave, lengths)
-        logits = self.model(inputs, frame_lengths)
-        return self.loss_fn(logits, labels), torch.sigmoid(logits)
+        logits, per_sample = self._forward_loss(inputs, frame_lengths, labels)
+        if logits is None:
+            return per_sample, None
+        return per_sample.mean(), torch.sigmoid(logits)
 
     # ------------------------------------------------------------------
     # loops
@@ -273,13 +303,18 @@ class Engine:
                 self._mixup_pool[pool_key] = clean
             n_clips += wave.shape[0]
             losses.append(out["loss"])
-            batch_metrics.append(out["metric"])
+            if out["metric"] is not None:
+                batch_metrics.append(out["metric"])
             # only the logged batches wait for the card
             if batch_idx % log_interval == 0:
-                loss, metric = float(out["loss"]), float(out["metric"])
+                loss = float(out["loss"])
+                metric = (float("nan") if out["metric"] is None
+                          else float(out["metric"]))
                 print(f"step {self.global_step}: loss {loss:.4f} metric "
                       f"{metric:.4f}")
-                logged_losses.append(out["per_sample"].float().cpu().numpy())
+                if out["per_sample"] is not None:
+                    logged_losses.append(
+                        out["per_sample"].float().cpu().numpy())
                 self._write_train_scalars(loss, metric)
             if batch_idx == 0 and self.train_writer is not None:
                 with torch.no_grad():
@@ -287,7 +322,10 @@ class Engine:
                 self.train_writer.add_image(
                     "signal", spectrogram_grid(inputs), self.global_step)
         losses = torch.stack(losses).float().cpu().numpy()
-        batch_metrics = torch.stack(batch_metrics).float().cpu().numpy()
+        # a self-supervised epoch has no batch metric: its metric is NaN
+        metric = (float(np.nanmean(torch.stack(batch_metrics).float().cpu()
+                                   .numpy())) if batch_metrics
+                  else float("nan"))
         # the epoch as one timed span, closed after the losses' readback
         dt = timer.stop(n_clips)
         if logged_losses and self.train_writer is not None:
@@ -297,8 +335,7 @@ class Engine:
             if np.isfinite(values).all():
                 self.train_writer.add_histogram("losses", values,
                                                 global_step=self.global_step)
-        return {"loss": float(losses.mean()),
-                "metric": float(np.nanmean(batch_metrics)),
+        return {"loss": float(losses.mean()), "metric": metric,
                 "losses": losses, "clips_per_sec": timer.clips_per_sec,
                 "steps": len(losses), "seconds": dt}
 
@@ -348,8 +385,9 @@ class Engine:
 
     def evaluate(self, loader, verbose: bool = False,
                  write_summary: bool = False) -> float:
-        """Full-set lwlrap (numpy) and the clip-weighted mean loss; with
-        ``write_summary`` both go to the valid writer."""
+        """Full-set lwlrap (numpy; ``-mean_loss`` for a self-supervised
+        model) and the clip-weighted mean loss; with ``write_summary`` both
+        go to the valid writer."""
         all_probs, all_labels = [], []
         total_loss, total_n = 0.0, 0
         for batch in loader:
@@ -357,11 +395,12 @@ class Engine:
             n = len(batch["index"])
             total_loss += float(loss) * n
             total_n += n
-            all_probs.append(probs.float().cpu().numpy())
-            all_labels.append(batch["labels"])
-        score = metrics_lib.lwlrap(np.concatenate(all_labels),
-                                   np.concatenate(all_probs))
+            if probs is not None:
+                all_probs.append(probs.float().cpu().numpy())
+                all_labels.append(batch["labels"])
         mean_loss = total_loss / max(total_n, 1)
+        score = (-mean_loss if self.self_supervised else metrics_lib.lwlrap(
+            np.concatenate(all_labels), np.concatenate(all_probs)))
         if write_summary and self.valid_writer is not None:
             self.valid_writer.add_scalar("loss", mean_loss, self.global_step)
             self.valid_writer.add_scalar("metric", score, self.global_step)

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from freesound_classification_tpu_torch.models.blocks import MaskedBiGRU
 from freesound_classification_tpu_torch.ops import metrics as metrics_lib
 from freesound_classification_tpu_torch.training import checkpoints
 from freesound_classification_tpu_torch.training.engine import (
@@ -139,7 +140,9 @@ def _key(name: str) -> str:
 class FoldStack(nn.Module):
     """K copies of ``model`` as stacked parameters and buffers (leading fold
     axis), whose forward runs ``model``'s on each fold's slice of the
-    inputs under ``torch.func.vmap``. The inputs and the logits are the
+    inputs under ``torch.func.vmap``. An ``rnn`` model's GRUs run there on
+    ``MaskedBiGRU``'s "scan" route (the "fused" one, ``torch._VF.gru``,
+    has no batching rule and raises under vmap), the same function. The inputs and the logits are the
     folds' rows one after another, (K * B, ...). Dropout draws differ per
     fold (``randomness="different"``). BatchNorm's in-place update of the
     running statistics writes each fold's slice of the stacked buffers."""
@@ -154,8 +157,13 @@ class FoldStack(nn.Module):
         for name, value in buffers.items():
             self.register_buffer(_key(name), value)
         # the model as a function of the tensors handed to it; a list keeps
-        # it out of this module's parameters
-        self._base = [copy.deepcopy(model).to("meta")]
+        # it out of this module's parameters. Its GRUs take their step-by-
+        # step route: vmap has no batching rule for the fused GRU's op
+        base = copy.deepcopy(model).to("meta")
+        for module in base.modules():
+            if isinstance(module, MaskedBiGRU):
+                module.route = "scan"
+        self._base = [base]
 
     def train(self, mode: bool = True) -> "FoldStack":
         super().train(mode)

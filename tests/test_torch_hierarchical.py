@@ -227,8 +227,14 @@ def test_build_classifier_model_kinds():
         build_classifier("hierarchical_cnn", net, N_CLASSES)
     with pytest.raises(ValueError):
         build_classifier("apc", net, N_CLASSES)
-    with pytest.raises(NotImplementedError, match="M1.5"):
-        HierarchicalCNN(F_IN, aggregation_type="rnn")
+    rnn = build_classifier("hierarchical_cnn",
+                           Config(dict(CFG, aggregation_type="rnn")),
+                           N_CLASSES, input_dim=F_IN)
+    assert isinstance(rnn, HierarchicalCNN)
+    assert sorted(n for n, _ in rnn.named_children()
+                  if n.startswith("rnn")) == ["rnn1", "rnn2"]
+    with pytest.raises(ValueError, match="aggregation_type"):
+        HierarchicalCNN(F_IN, aggregation_type="mean")
 
 
 def test_train_step_matches_jax():

@@ -80,7 +80,9 @@ REQUIRED = ("cli.train_hierarchical_cnn", "cli.finetune_hierarchical_cnn",
             "probes.train_step_split", "probes.model_ablation",
             "utils.profiling", "data.tables", "cli.create_class_map",
             "cli.relabel_noisy_data", "cli.linear_blend",
-            "cli.compare_to_baseline")
+            "cli.compare_to_baseline", "models.apc", "models.cpc",
+            "models.adversarial", "utils.projection", "cli.ssl_common",
+            "cli.train_apc", "cli.train_cpc", "cli.adversarial_test")
 
 
 def test_every_port_module_imports_with_the_jax_stack_blocked():

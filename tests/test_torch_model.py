@@ -164,7 +164,13 @@ def test_frequency_encoding_matches_jax():
 
 
 def test_rnn_aggregation_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TwoDimensionalCNN(aggregation_type="rnn")
+    """The rnn aggregation is ported now (``tests/test_torch_rnn.py`` holds
+    it against JAX): a GRU pair after each supervised block, the head over
+    their final states; an unknown aggregation still raises."""
+    model = TwoDimensionalCNN(num_conv_blocks=3, start_deep_supervision_on=1,
+                              conv_base_depth=8, aggregation_type="rnn")
+    assert not hasattr(model, "rnn0")
+    assert model.rnn2.GRUCell_1.weight_ih.shape == (3 * 128, 32)
+    assert model.head.fc1.in_features == 2 * 2 * 128
     with pytest.raises(ValueError):
         TwoDimensionalCNN(aggregation_type="mean")

@@ -158,11 +158,15 @@ def test_train_step_split_stages_run_small_on_the_cpu():
 
 
 def test_model_ablation_variants_run_small_on_the_cpu():
-    """Each variant runs; K1 and its plain tail featurize alike, and the
-    fused eval forward agrees with the unfused one."""
+    """Each variant runs; K1 and its plain tail featurize alike, the
+    fused eval forward agrees with the unfused one, and the rnn variants
+    give finite logits."""
     outs = {name: fn() for name, fn in model_ablation.variants(
         "cpu", TINY, depths=(1, 2), batch=2, seconds=1)}
-    assert len(outs) == 8
+    assert len(outs) == 10
+    for mode in ("eval", "train-mode"):
+        logits = outs[f"{mode} forward, bf16, rnn aggregation, depth 2"]
+        assert logits.shape == (2, 80) and torch.isfinite(logits).all()
     torch.testing.assert_close(outs["featurize, K1"][0],
                                outs["featurize, plain tail"][0])
     torch.testing.assert_close(
