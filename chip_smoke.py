@@ -126,6 +126,15 @@ Phases, each of which raises on failure (none catches its own):
      single step's own spread on reversed rows; and the resume phase's
      runs over the five folds stacked (every fold's final weights within
      RESUME_WEIGHT_TOL of the straight run's)
+  data parallel (M5.1): the train path's CLI under ``torchrun
+     --standalone --nproc_per_node 1 ... --mesh_devices 1`` (NCCL's
+     process group and collectives, rank-0 writes): the train path's
+     files, K1-K3 launched on the rank, last-epoch steps/s beside the
+     train path's; then two ranks sharing cuda:0 over a gloo group, each a
+     process with 3 of the float32 step's 6 rows, against the same step in
+     one process: loss 1e-4, gradients 1e-2 of the model's largest,
+     BatchNorm statistics 1e-4 of each tensor's largest, and the ranks'
+     gradients and statistics equal
   profile: the train CLI at the recipe's width with ``--profile``, 2
      epochs of fold 0 apart from the train path: a trace of epoch 1 under
      ``summaries/profile`` that names K1, K2 and K3
@@ -1556,6 +1565,27 @@ def write_train_inputs(root: str) -> dict:
             "classes": classes}
 
 
+def train_argv(inputs: dict, experiments_dir: str) -> list:
+    """The train path's 2d train CLI: the recipe, fold 0 of 5,
+    ``TRAIN_EPOCHS`` epochs."""
+    return ["--train_df", inputs["train_csv"],
+            "--train_data_dir", inputs["train_dir"],
+            "--classmap", inputs["classmap"], "--device", DEVICE, *RECIPE,
+            "--folds", "0", "--n_folds", "5", "--epochs", str(TRAIN_EPOCHS),
+            "--num_workers", "4", "--log_interval", "1",
+            "--experiments_dir", experiments_dir]
+
+
+def experiment_files(experiment_dir: str) -> set:
+    """Every directory and file under an experiment, relative to it (a
+    summary's event file by its directory: its name has the time)."""
+    return {os.path.relpath(os.path.join(
+        d, "events" if name.startswith("events.out.") else name),
+        experiment_dir)
+        for d, dirs, files in os.walk(experiment_dir)
+        for name in dirs + files}
+
+
 def phase_train(root: str, inputs: dict, smi: str) -> tuple:
     from freesound_classification_tpu_torch import interop
     from freesound_classification_tpu_torch.cli import (
@@ -1567,12 +1597,7 @@ def phase_train(root: str, inputs: dict, smi: str) -> tuple:
         create_model,
     )
 
-    argv = ["--train_df", inputs["train_csv"],
-            "--train_data_dir", inputs["train_dir"],
-            "--classmap", inputs["classmap"], "--device", DEVICE, *RECIPE,
-            "--folds", "0", "--n_folds", "5", "--epochs", str(TRAIN_EPOCHS),
-            "--num_workers", "4", "--log_interval", "1",
-            "--experiments_dir", os.path.join(root, "experiments")]
+    argv = train_argv(inputs, os.path.join(root, "experiments"))
     counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
                "K3": kernels.pv_resynth}
     for fn in counted.values():
@@ -2781,6 +2806,206 @@ def phase_fold_parallel(root: str, inputs: dict, smi: str) -> dict:
     return launches
 
 
+DP_TIMEOUT = 600  # seconds for the torchrun CLI and for the gloo ranks
+DP_STAT_TOL = 1e-4  # BN running statistics over each tensor's largest
+DP_RANK_CHILD = """
+import sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+chip_smoke.dp_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3])
+"""
+
+
+def dp_f32_step(mesh, device) -> dict:
+    """One float32 step of ``F32_NET`` through the ``Engine`` on
+    ``phase_f32_step``'s batch (6 x 5 s, dropout 0, no augmentation), on
+    ``mesh``'s rank over its rows of the batch, or in one process with
+    ``mesh`` None: the reported loss, the gradients and the BatchNorm
+    running statistics after the step."""
+    import types
+
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.models.classifiers import (
+        TwoDimensionalCNN,
+    )
+    from freesound_classification_tpu_torch.models.frontend import Frontend
+    from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
+    from freesound_classification_tpu_torch.training.engine import Engine
+
+    params, stats = interop.random_jax_variables(
+        **F32_NET, n_classes=TRAIN_CLASSES, seed=11)
+    wave, lengths, labels = f32_step_batch(np.random.RandomState(12))
+    batch = {"signal": wave, "lengths": lengths, "labels": labels,
+             "index": np.arange(len(wave))}
+    if mesh is not None:
+        batch = mesh_lib.shard_batch(batch, mesh.rank, mesh.world_size)
+    model = TwoDimensionalCNN(**F32_NET, aggregation_type="max",
+                              n_classes=TRAIN_CLASSES)
+    model.load_state_dict(interop.from_jax_variables(params, stats))
+    engine = Engine(model, Frontend(FEATURES, "2d", sr=SR, device=device),
+                    types.SimpleNamespace(optimizer="momentum",
+                                          learning_rate=1e-3,
+                                          scheduler="steplr_1_0.5",
+                                          weight_decay=0.0),
+                    loss="lsep_naive", device=device, mesh=mesh)
+    engine.make_optimizer(1, 1)
+    out = engine.train_step(*engine.to_device(batch), aug_scale=0.0,
+                            rows=engine.batch_rows(batch))
+    return {"loss": float(out["loss"]),
+            "grads": {k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()},
+            "stats": {k: b.detach().cpu()
+                      for k, b in model.named_buffers()}}
+
+
+def dp_rank(rank: int, rendezvous: str, out: str) -> None:
+    """Rank ``rank`` of 2 sharing ``cuda:0`` over a gloo group (NCCL refuses
+    two ranks on one card): ``dp_f32_step`` on its rows, saved to
+    ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    try:
+        mesh = mesh_lib.Mesh(rank, 2, dist.group.WORLD, device)
+        torch.save(dp_f32_step(mesh, device), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_cli(root: str, inputs: dict, train_files: set,
+                      train_experiment: str, smi: str) -> None:
+    """The train path's CLI under ``torchrun --standalone --nproc_per_node
+    1 ... --mesh_devices 1``: NCCL's real process group and collectives,
+    the rank-0 writes. Its experiment holds the train path's files; K1, K2
+    and K3 launched on the rank (``$FSC_LAUNCH_LOG``); its last epoch's
+    steps/s beside the train path's."""
+    log_path = os.path.join(root, "dp_launches.jsonl")
+    experiments = os.path.join(root, "experiments_dp")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m",
+           "freesound_classification_tpu_torch.cli.train_2d_cnn",
+           *train_argv(inputs, experiments), "--mesh_devices", "1"]
+    env = dict(os.environ, FSC_LAUNCH_LOG=log_path)
+    t0 = time.time()
+    rc, out, _ = run_logged(cmd, env, DP_TIMEOUT)
+    wall = time.time() - t0
+    if rc != 0:
+        raise RuntimeError(f"the train CLI under torchrun exited {rc}:\n"
+                           f"{out[-4000:]}")
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    if [r["rank"] for r in records] != [0]:
+        raise RuntimeError(f"torchrun: launch records of ranks "
+                           f"{[r['rank'] for r in records]}, not [0]")
+    launches = {WRAPPER_KERNEL[k]: n
+                for k, n in records[0]["launches"].items() if n}
+    if min(launches.get(k, 0) for k in ("K1", "K2", "K3")) <= 0:
+        raise RuntimeError(f"torchrun: the train path missed a kernel: "
+                           f"{launches}")
+    (name,) = os.listdir(experiments)
+    experiment = os.path.join(experiments, name)
+    files = experiment_files(experiment)
+    if files != train_files:
+        raise RuntimeError(
+            f"torchrun's experiment differs from the train path's: only "
+            f"there {sorted(files - train_files)}, missing "
+            f"{sorted(train_files - files)}")
+    steps, seconds = last_epoch_rate(experiment, 0)
+    want_steps, want_seconds = last_epoch_rate(train_experiment, 0)
+    log(f"train CLI under torchrun (1 rank, NCCL, --mesh_devices 1): "
+        f"{wall:.1f} s wall, {len(files)} files as the train path's; rank 0 "
+        f"launches {launches}; last epoch {steps / seconds:.3f} steps/s "
+        f"against the train path's {want_steps / want_seconds:.3f} "
+        f"({steps:g} steps in {seconds:.3f} s and {want_seconds:.3f} s) on "
+        f"{smi}")
+
+
+def data_parallel_step() -> None:
+    """Two ranks sharing ``cuda:0`` over a gloo group, each a process that
+    takes 3 of ``phase_f32_step``'s 6 rows, against the same float32 step
+    in one process: the losses within STEP_TOL_LOSS, every gradient within
+    STEP_TOL_GRAD of the model's largest, the BatchNorm running statistics
+    within DP_STAT_TOL of each tensor's largest, and the two ranks'
+    gradients and statistics the same bit for bit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="dp_step_")
+    t0 = time.time()
+    procs, logs = [], []
+    for rank in range(2):
+        logs.append(open(os.path.join(work, f"rank{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DP_RANK_CHILD, str(rank),
+             os.path.join(work, "rendezvous"),
+             os.path.join(work, f"rank{rank}.pt")],
+            cwd=here, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        for proc in procs:
+            proc.wait(timeout=DP_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    for rank, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(work, f"rank{rank}.log")) as f:
+                raise RuntimeError(f"gloo rank {rank} on cuda:0 exited "
+                                   f"{proc.returncode}:\n{f.read()[-4000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in (0, 1)]
+    rank_s = time.time() - t0
+    want = dp_f32_step(None, DEVICE)
+    for name in ("grads", "stats"):
+        for k, t in ranks[0][name].items():
+            if not torch.equal(t, ranks[1][name][k]):
+                raise RuntimeError(f"2 ranks: {name} {k} differ by rank")
+    loss_d = abs(ranks[0]["loss"] - want["loss"])
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    grad_d, grad_name = max(
+        ((ranks[0]["grads"][k] - g).abs().max().item() / top, k)
+        for k, g in want["grads"].items())
+    stat_d, stat_name = max(
+        ((ranks[0]["stats"][k] - t).abs().max().item()
+         / max(t.abs().max().item(), 1e-5), k)
+        for k, t in want["stats"].items() if t.is_floating_point())
+    log(f"2 gloo ranks on cuda:0 against one process, one float32 step of "
+        f"the recipe's width on 2 x 3 of 6 x 5 s rows ({rank_s:.1f} s for "
+        f"the ranks): loss {ranks[0]['loss']:.6f} vs {want['loss']:.6f} "
+        f"(|d| {loss_d:.2e}, tolerance {STEP_TOL_LOSS:g}); gradients over "
+        f"the model's largest: max |d| {grad_d:.2e} at {grad_name} "
+        f"(tolerance {STEP_TOL_GRAD:g}); BatchNorm statistics: max |d| "
+        f"{stat_d:.2e} of the tensor's largest at {stat_name} (tolerance "
+        f"{DP_STAT_TOL:g})")
+    if not loss_d <= STEP_TOL_LOSS:
+        raise RuntimeError("2 ranks: the losses disagree")
+    if not grad_d <= STEP_TOL_GRAD:
+        raise RuntimeError("2 ranks: the gradients disagree")
+    if not stat_d <= DP_STAT_TOL:
+        raise RuntimeError("2 ranks: the BatchNorm statistics disagree")
+
+
+def phase_data_parallel(root: str, inputs: dict, train_files: set,
+                        train_experiment: str, smi: str) -> None:
+    """M5.1 on the one card: the train path's CLI as one NCCL rank under
+    ``torchrun``, and the data-parallel arithmetic on two gloo ranks
+    sharing ``cuda:0``."""
+    t0 = time.time()
+    data_parallel_cli(root, inputs, train_files, train_experiment, smi)
+    data_parallel_step()
+    log(f"data-parallel phase: {time.time() - t0:.1f} s")
+
+
 def phase_tta(root: str, inputs: dict, experiment: str, smi: str) -> None:
     """The predict CLI on ``phase_train``'s fold over its own labelled
     clips, bf16: ``--n_tta 1`` bit for bit the ensemble's clean pass as the
@@ -3022,6 +3247,7 @@ def ssl_f32_step(kind: str) -> None:
     import argparse
 
     from freesound_classification_tpu_torch.cli import ssl_common
+    from freesound_classification_tpu_torch.models.blocks import loss_terms
     from freesound_classification_tpu_torch.models.frontend import Frontend
 
     parser = argparse.ArgumentParser()
@@ -3043,7 +3269,7 @@ def ssl_f32_step(kind: str) -> None:
         model = ssl_common.build_ssl_model(kind, args, x.shape[-1])
         model = model.to(device=device, dtype=dtype).train()
         model.dtype = dtype  # the compute dtype the model casts inputs to
-        loss = sum(model(x, fl)["loss_terms"])
+        loss = sum(loss_terms(model(x, fl)["loss_parts"]))
         loss.backward()
         return loss.item(), {n: p.grad.detach().double().cpu().numpy()
                              for n, p in model.named_parameters()}
@@ -3473,9 +3699,12 @@ def main() -> None:
         k6["launches"] = phase_hier_predict(root, inputs, host, smi)
         k7["launches"] = phase_backbone_predict(root, inputs, host, smi)
         train, train_experiment = phase_train(root, train_inputs, smi)
+        train_files = experiment_files(train_experiment)
         phase_tta(root, train_inputs, train_experiment, smi)
         phase_resume(root, train_inputs, smi)
         phase_fold_parallel(root, train_inputs, smi)
+        phase_data_parallel(root, train_inputs, train_files,
+                            train_experiment, smi)
         phase_profile(root, train_inputs, smi)
         pretrained, _ = phase_hier_train(root, train_inputs, smi)
         phase_hier_finetune(root, train_inputs, pretrained, smi)

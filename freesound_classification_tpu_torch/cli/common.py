@@ -24,10 +24,18 @@ predictions exist. ``--resume`` enters an existing experiment and continues
 each fold from its ``last_model.pt`` bundle (the stacked run from
 ``checkpoints/multifold_resume.pt``); each fold's summaries go to
 ``summaries/fold_k/{train,valid}`` through tensorboardX where it imports.
-``refuse_unported`` raises on ``--mesh_devices`` (ROADMAP M5.1), the one
-flag of a part not ported yet.
+
+Data parallel (``data_parallel``, JAX's ``--mesh_devices``): under
+``torchrun --nproc_per_node N ... --mesh_devices N`` each rank is one
+process with one card, the train loaders' batch sizes are trimmed to a
+multiple of N, and the ``Engine`` steps on each rank's slice of the global
+batch (``parallel/mesh.py``); rank 0 alone prints the per-fold lines and
+writes the experiment's files. Without ``torchrun`` the run is today's
+single process, and ``--mesh_devices`` above 1 raises.
+``refuse_unported`` raises on ``--fold_parallel`` over more than one rank
+(ROADMAP M5.2's multi-rank fold layouts), the one part not ported yet.
 ``log_launches_at_exit`` lets a run of several CLI processes (the recipe
-kit) count each one's kernel launches.
+kit, the ranks of a job) count each one's kernel launches.
 
 The inference CLIs' test-time augmentation: ``reject_degenerate_tta``
 refuses ``--n_tta > 1`` with every stochastic knob off, and
@@ -39,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import csv
 import json
 import math
@@ -81,6 +90,7 @@ from freesound_classification_tpu_torch.ops.augment import (
 )
 from freesound_classification_tpu_torch.ops.dsp import parse_features
 from freesound_classification_tpu_torch.ops.metrics import lwlrap
+from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 from freesound_classification_tpu_torch.training.engine import Engine
 from freesound_classification_tpu_torch.training.multifold import (
     MultiFoldEngine,
@@ -96,8 +106,9 @@ LAUNCH_LOG_ENV = "FSC_LAUNCH_LOG"
 def log_launches_at_exit() -> None:
     """Where ``$FSC_LAUNCH_LOG`` names a file, set every kernel wrapper's
     count to 0 and, at this process's exit, append to that file one JSON
-    line: the program's ``argv`` and each wrapper's ``launches`` in it. The
-    CLIs that run kernels call this when run as programs."""
+    line: the program's ``argv``, its ``rank`` (``torchrun``'s ``RANK``, 0
+    without it) and each wrapper's ``launches`` in it. The CLIs that run
+    kernels call this when run as programs."""
     path = os.environ.get(LAUNCH_LOG_ENV)
     if not path:
         return
@@ -106,6 +117,7 @@ def log_launches_at_exit() -> None:
 
     def write() -> None:
         line = json.dumps({"argv": sys.argv,
+                           "rank": int(os.environ.get("RANK", 0)),
                            "launches": kernels.launch_counts()})
         with open(path, "a") as f:
             f.write(line + "\n")
@@ -122,9 +134,8 @@ def default_ladder(max_audio_length: Optional[float], sr: int = SR):
 def add_train_arguments(parser: argparse.ArgumentParser) -> None:
     """The JAX train CLI's flag surface (the reference's train_2d_cnn
     flags plus --loss, --bf16, --max_batch_elems, --experiments_dir,
-    --mixup_exact_add, --profile and --fold_parallel). ``--mesh_devices``,
-    whose part is not ported yet, is accepted and refused at run time with
-    the ROADMAP item named.
+    --mixup_exact_add, --profile and --fold_parallel). ``--mesh_devices``
+    is the number of ranks ``torchrun`` started (``data_parallel``).
     ``--sample_submission`` and ``--test_data_dir``, which the JAX CLI
     requires, are optional: without them no test predictions are written."""
     add = parser.add_argument
@@ -189,15 +200,36 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
         help="train every fold of --folds together as one stacked model "
              "on the card (training/multifold.py)")
     add("--mesh_devices", type=int, default=None,
-        help="not ported yet (ROADMAP M5.1)")
+        help="data-parallel ranks, one process and one card each: launch "
+             "with torchrun --nproc_per_node N ... --mesh_devices N "
+             "(default: torchrun's world size, 1 without it)")
 
 
 def refuse_unported(args) -> None:
-    """Raise on a flag whose part of the train CLI is not ported yet:
-    ``--mesh_devices`` (the fold-sharded and fold x data layouts, M5.1)."""
-    if args.mesh_devices is not None:
+    """Raise on a part of the train CLI not ported yet: ``--fold_parallel``
+    over more than one rank (``--mesh_devices`` or ``torchrun``'s world
+    size above 1; ROADMAP M5.2, the multi-rank fold layouts)."""
+    world = max(int(os.environ.get("WORLD_SIZE", 1)),
+                getattr(args, "mesh_devices", None) or 1)
+    if getattr(args, "fold_parallel", False) and world > 1:
         raise NotImplementedError(
-            "--mesh_devices: not ported yet (ROADMAP M5.1)")
+            f"--fold_parallel over {world} ranks: not ported yet (ROADMAP "
+            "M5.2 (multi-rank fold layouts)); run it on one rank")
+
+
+@contextlib.contextmanager
+def data_parallel(args):
+    """The run's ``parallel.mesh.Mesh`` from ``--mesh_devices``,
+    ``--device`` and ``torchrun``'s environment, after
+    ``refuse_unported``; ranks above 0 print nothing inside, and the
+    process group is destroyed on the way out."""
+    refuse_unported(args)
+    mesh = mesh_lib.make_mesh(args.mesh_devices, args.device)
+    try:
+        with mesh.quiet():
+            yield mesh
+    finally:
+        mesh.close()
 
 
 def experiment_config(args, n_classes: int, input_dim: int,
@@ -251,14 +283,17 @@ def experiment_config(args, n_classes: int, input_dim: int,
 
 def build_engine(args, experiment: Experiment, n_classes: int,
                  device: torch.device, seed: int = 42,
-                 model_kind: str = "2d_cnn") -> Engine:
+                 model_kind: str = "2d_cnn",
+                 mesh: Optional[mesh_lib.Mesh] = None) -> Engine:
     """A fresh ``model_kind`` model, the frontend of its family (K1 for
     mel features), the augmenter (K2, K3) and the engine for one fold;
     ``args.warm_start_path``, where the finetune CLI sets it, seeds every
     fold's model. With ``args.profile`` the engine traces epoch 1 into
     ``<experiment>/summaries/profile``. Each fit's summaries go to
     ``<experiment>/summaries/fold_k/{train,valid}`` where tensorboardX
-    imports, and nowhere where it does not (JAX ``build_engine``)."""
+    imports, and nowhere where it does not (JAX ``build_engine``). On a
+    ``mesh`` the engine is a rank of the data-parallel job, and only rank
+    0 traces and writes summaries."""
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = create_model(experiment.config.network, n_classes, dtype, seed,
                          device, model_kind=model_kind,
@@ -271,9 +306,13 @@ def build_engine(args, experiment: Experiment, n_classes: int,
         p_shuffle=0.5 if args.aggregation_type != "rnn" else 0.0,
         mixup_quirk_replace=not args.mixup_exact_add, sr=SR))
     summaries = experiment.register_directory("summaries")
-    profile_dir = os.path.join(summaries, "profile") if args.profile else None
+    writes = mesh is None or mesh.is_writer
+    profile_dir = (os.path.join(summaries, "profile")
+                   if args.profile and writes else None)
 
     def writer_factory(fold: int, split: str):
+        if not writes:
+            return None
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
@@ -287,7 +326,7 @@ def build_engine(args, experiment: Experiment, n_classes: int,
                   seed=seed, device=device,
                   warm_start_path=getattr(args, "warm_start_path", None),
                   profile_dir=profile_dir,
-                  summary_writer_factory=writer_factory)
+                  summary_writer_factory=writer_factory, mesh=mesh)
 
 
 def write_predictions(path: str, fnames, class_names, probs) -> None:
@@ -404,17 +443,25 @@ def run_training(args, model_kind: str = "2d_cnn",
     validate, save the final model, reload the best, write its out-of-fold
     predictions (and test predictions, and register the holdout's lwlrap);
     then ``finalize_results``. With ``--fold_parallel`` and more than one
-    fold the folds train together (``run_folds_parallel``).
+    fold the folds train together (``MultiFoldEngine``). Under ``torchrun``
+    each fold trains data-parallel over the ranks (``data_parallel``).
     ``extra_network`` goes into the config's network section."""
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    with data_parallel(args) as mesh:
+        return _run_training(args, mesh, model_kind, extra_network)
+
+
+def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
+                  extra_network: Optional[dict]) -> Experiment:
+    device = mesh.device
+    dp = mesh if mesh.distributed else None
     class_map = load_classmap(args.classmap)
     n_classes = len(class_map)
     config = experiment_config(args, n_classes,
                                parse_features(args.features).n_features,
                                extra_network)
     with Experiment(config, implicit_resuming=args.resume,
-                    experiments_dir=args.experiments_dir) as experiment:
+                    experiments_dir=args.experiments_dir,
+                    mesh=dp) as experiment:
         print(experiment.config)
         sets = training_sets(args, class_map)
         ladder = default_ladder(args.max_audio_length)
@@ -424,7 +471,7 @@ def run_training(args, model_kind: str = "2d_cnn",
         batching = dict(
             batch_size=None if args.max_batch_elems else args.batch_size,
             max_batch_elems=args.max_batch_elems,
-            num_workers=args.num_workers)
+            num_workers=args.num_workers, mesh=dp)
 
         def dataset(manifest, data_dir):
             return ClipDataset(
@@ -440,7 +487,8 @@ def run_training(args, model_kind: str = "2d_cnn",
                 seed=args.kfold_seed + fold)
             valid = sets.train.take(sets.splits[fold][1])
             return (make_loader(train_ds, ladder, train=True,
-                                seed=args.kfold_seed, **batching),
+                                seed=args.kfold_seed,
+                                size_multiple=mesh.world_size, **batching),
                     make_loader(dataset(valid, args.train_data_dir),
                                 full_ladder, **batching),
                     valid)
@@ -454,24 +502,28 @@ def run_training(args, model_kind: str = "2d_cnn",
         def emit_fold_artifacts(engine: Engine, fold: int, valid_loader,
                                 valid: Manifest) -> None:
             """From ``fold``'s best model: its out-of-fold and test
-            predictions and its holdout lwlrap."""
+            predictions and its holdout lwlrap (every rank predicts, rank
+            0 writes)."""
             engine.load_model(fold, "best_model")
-            write_predictions(
-                os.path.join(predictions, f"val_preds_fold_{fold}.csv"),
-                valid.fnames, class_names, engine.predict(valid_loader))
+
+            def write(name, fnames, probs):
+                if mesh.is_writer:
+                    write_predictions(os.path.join(predictions, name),
+                                      fnames, class_names, probs)
+
+            write(f"val_preds_fold_{fold}.csv", valid.fnames,
+                  engine.predict(valid_loader))
             if sets.test is not None:
                 test_loader = make_loader(
                     dataset(sets.test, args.test_data_dir), full_ladder,
                     **batching)
-                write_predictions(
-                    os.path.join(predictions, f"test_preds_fold_{fold}.csv"),
-                    sets.test.fnames, class_names,
-                    engine.predict(test_loader))
+                write(f"test_preds_fold_{fold}.csv", sets.test.fnames,
+                      engine.predict(test_loader))
             if sets.holdout is not None:
                 holdout_metric = engine.evaluate(make_loader(
                     dataset(sets.holdout, args.train_data_dir), full_ladder,
                     batch_size=args.batch_size,
-                    num_workers=args.num_workers))
+                    num_workers=args.num_workers, mesh=dp))
                 experiment.register_result(f"fold{fold}.holdout_metric",
                                            holdout_metric)
                 print(f"\nHoldout metric: {holdout_metric:.4f}")
@@ -501,10 +553,11 @@ def run_training(args, model_kind: str = "2d_cnn",
             for fold in args.folds:
                 print(f"\n   -----  Fold {fold}\n")
                 train_loader, valid_loader, valid = fold_loaders(fold)
-                # the head's dropout draws from PyTorch's default generator
-                torch.manual_seed(args.kfold_seed + fold)
+                # the head's dropout draws from PyTorch's default
+                # generator, each rank's from its own seed
+                torch.manual_seed(mesh.rank_seed(args.kfold_seed + fold))
                 engine = build_engine(args, experiment, n_classes, device,
-                                      model_kind=model_kind)
+                                      model_kind=model_kind, mesh=dp)
                 scores = engine.fit_validate(
                     train_loader, valid_loader, epochs=args.epochs,
                     fold=fold, log_interval=args.log_interval,
@@ -514,7 +567,9 @@ def run_training(args, model_kind: str = "2d_cnn",
                 register_train_stats(fold, engine.epoch_stats)
                 engine.save_model(fold, "final_model")
                 emit_fold_artifacts(engine, fold, valid_loader, valid)
-        finalize_results(experiment, sets.train, class_map, args.n_folds)
+        if mesh.is_writer:
+            finalize_results(experiment, sets.train, class_map,
+                             args.n_folds)
         return experiment
 
 

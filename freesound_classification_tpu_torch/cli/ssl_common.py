@@ -2,7 +2,8 @@
 ``cli/ssl_common.py``): ``train_apc`` and ``train_cpc``.
 
 The JAX CLIs' flags (``--device`` defaults to ``cuda``; ``--mesh_devices``
-is refused, ROADMAP M5.1). Rows are read with the ``csv`` module;
+N under ``torchrun --nproc_per_node N`` trains each fold data-parallel over
+N ranks, ``common.data_parallel``). Rows are read with the ``csv`` module;
 ``--max_samples`` draws them as pandas' ``df.sample(n, random_state=
 kfold_seed)`` does (``common.sample_rows``), and the folds are plain KFold
 (``data/folds.train_validation_data``). Per fold: the 1d frontend (K1 for
@@ -43,7 +44,6 @@ from freesound_classification_tpu_torch.ops.augment import (
 )
 from freesound_classification_tpu_torch.ops.dsp import parse_features
 from freesound_classification_tpu_torch.training.engine import Engine
-from freesound_classification_tpu_torch.utils.device import resolve_device
 from freesound_classification_tpu_torch.utils.experiment import Experiment
 from freesound_classification_tpu_torch.utils.projection import (
     projection_summary,
@@ -90,7 +90,9 @@ def add_ssl_arguments(parser: argparse.ArgumentParser) -> None:
     add("--growth_rate", type=float, default=2.0)
     add("--experiments_dir", type=str, default="experiments")
     add("--mesh_devices", type=int, default=None,
-        help="not ported yet (ROADMAP M5.1)")
+        help="data-parallel ranks, one process and one card each: launch "
+             "with torchrun --nproc_per_node N ... --mesh_devices N "
+             "(default: torchrun's world size, 1 without it)")
 
 
 def build_ssl_model(kind: str, args, input_dim: int,
@@ -154,15 +156,22 @@ def ssl_config(args, kind: str, n_classes: int, input_dim: int) -> dict:
 
 
 def run_ssl_training(args, kind: str) -> Experiment:
-    """Pretrain a ``kind`` model on each of ``args.folds``; returns the
-    experiment."""
-    common.refuse_unported(args)
-    device = resolve_device(args.device)
+    """Pretrain a ``kind`` model on each of ``args.folds`` (data-parallel
+    under ``torchrun``: rank 0 writes, and runs the representation probe);
+    returns the experiment."""
+    with common.data_parallel(args) as mesh:
+        return _run_ssl_training(args, kind, mesh)
+
+
+def _run_ssl_training(args, kind: str, mesh) -> Experiment:
+    device = mesh.device
+    dp = mesh if mesh.distributed else None
     class_map = load_classmap(args.classmap)
     input_dim = parse_features(args.features).n_features
     config = ssl_config(args, kind, len(class_map), input_dim)
     with Experiment(config, implicit_resuming=args.resume,
-                    experiments_dir=args.experiments_dir) as experiment:
+                    experiments_dir=args.experiments_dir,
+                    mesh=dp) as experiment:
         print("\n     ////// CONFIG //////")
         print(experiment.config)
         fnames, labels = read_csv_columns(args.train_df, ["fname", "labels"])
@@ -185,6 +194,8 @@ def run_ssl_training(args, kind: str) -> Experiment:
                 seed=seed)
 
         def writer_factory(fold: int, split: str):
+            if not mesh.is_writer:
+                return None
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
@@ -202,14 +213,16 @@ def run_ssl_training(args, kind: str) -> Experiment:
                 augment=make_augmenter(AugmentConfig(p_aug=args.p_aug,
                                                      sr=common.SR)),
                 checkpoint_dir=checkpoints, device=device,
-                summary_writer_factory=writer_factory, self_supervised=True)
+                summary_writer_factory=writer_factory, self_supervised=True,
+                mesh=dp)
             train_loader = make_loader(
                 dataset(train_idx, args.kfold_seed + fold), ladder,
                 batch_size=args.batch_size, train=True, seed=args.kfold_seed,
-                num_workers=args.num_workers)
+                size_multiple=mesh.world_size, num_workers=args.num_workers,
+                mesh=dp)
             valid_loader = make_loader(
                 dataset(valid_idx), ladder, batch_size=args.batch_size,
-                num_workers=args.num_workers)
+                num_workers=args.num_workers, mesh=dp)
             scores = engine.fit_validate(
                 train_loader, valid_loader, epochs=args.epochs, fold=fold,
                 log_interval=args.log_interval, resume=args.resume)
@@ -219,8 +232,14 @@ def run_ssl_training(args, kind: str) -> Experiment:
                     f"fold{fold}.train_{key}",
                     [float(e[key]) for e in engine.epoch_stats])
             engine.save_model(fold, "final_model")
+            if not mesh.is_writer:
+                continue
+            # the probe runs on rank 0 alone, over every validation clip
+            probe_loader = valid_loader if dp is None else make_loader(
+                dataset(valid_idx), ladder, batch_size=args.batch_size,
+                num_workers=args.num_workers)
             try:
-                score = projection_summary(engine, valid_loader, summaries,
+                score = projection_summary(engine, probe_loader, summaries,
                                            fold)
             except Exception as err:  # a diagnostic never stops training
                 print(f"projection summary skipped: {err}")

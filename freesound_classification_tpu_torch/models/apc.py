@@ -23,11 +23,13 @@ from freesound_classification_tpu_torch.models.blocks import (
 
 
 class APCModel(nn.Module):
-    """``forward(feats (B, T, F), frame_lengths (B,))`` -> {"loss_terms":
-    one float32 scalar per prediction step, "output": (B, T, rnn_size)
-    float32, "predictions": per step (B, T - step, F)}. Module names
-    follow flax's (``OptimizedLSTMCell_{l}``, ``output_norm``,
-    ``prediction_{s}``), so ``interop`` maps them by name."""
+    """``forward(feats (B, T, F), frame_lengths (B,))`` -> {"loss_parts":
+    per prediction step its (masked error sum, valid positions), float32,
+    which ``blocks.loss_terms`` divides into JAX's ``loss_terms``,
+    "output": (B, T, rnn_size) float32, "predictions": per step (B,
+    T - step, F)}. Module names follow flax's (``OptimizedLSTMCell_{l}``,
+    ``output_norm``, ``prediction_{s}``), so ``interop`` maps them by
+    name."""
 
     def __init__(self, input_dim: int, rnn_size: int = 256,
                  rnn_layers: int = 3, prediction_steps: int = 3,
@@ -53,13 +55,13 @@ class APCModel(nn.Module):
         output = self.output_norm(lstm_sequence(x, cells))
         mask = time_mask(frame_lengths, feats.shape[1]).to(torch.float32)
         target = x.detach()
-        loss_terms, predictions = [], []
+        loss_parts, predictions = [], []
         for step in range(1, self.prediction_steps + 1):
             pred = getattr(self, f"prediction_{step}")(output[:, :-step])
             predictions.append(pred)
             err = (target[:, step:] - pred).abs().sum(dim=-1).float()
             # position t counts where frame t + step is valid
             m = mask[:, step:]
-            loss_terms.append((err * m).sum() / m.sum().clamp(min=1.0))
-        return {"loss_terms": loss_terms, "output": output.float(),
+            loss_parts.append(((err * m).sum(), m.sum()))
+        return {"loss_parts": loss_parts, "output": output.float(),
                 "predictions": predictions}

@@ -23,6 +23,7 @@ from freesound_classification_tpu_torch.models.blocks import (
     BatchNorm,
     Conv2d,
     MLPHead,
+    at_least_float32,
     masked_max_pool_2d,
 )
 from freesound_classification_tpu_torch.ops import backbone_infer
@@ -129,4 +130,4 @@ class CNNBackbone(nn.Module):
         h = self.input_norm(x.permute(0, 3, 1, 2))  # channels_last memory
         h = self.trunk(h)
         feats = masked_max_pool_2d(h, trunk_frames(frame_lengths))
-        return self.head(feats).float()
+        return at_least_float32(self.head(feats))

@@ -27,10 +27,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from freesound_classification_tpu_torch.ops import head_infer, resnet_infer
+from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 
 NEG_INF = -1e30
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
+
+
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 where it is float64 (flax promotes
+    statistics and outputs to at least float32)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -50,6 +57,13 @@ class BatchNorm(nn.Module):
     computed in that dtype and cast back. The running statistics move by 0.1 towards the batch's,
     with the *biased* variance as flax does; ``F.batch_norm`` would use the
     unbiased one (n/(n-1) times larger, 20/19 for the head's 20 rows).
+
+    With ``group``, a process group (the data-parallel ``Engine`` sets it),
+    the train-mode statistics are the global batch's, as JAX's jit over a
+    sharded batch takes them: each rank sums x and x^2 per channel and
+    counts its elements in the statistics' dtype, the three go through one
+    all-reduce that gradients flow through, and the running statistics, the
+    same on every rank, move by the global mean and variance.
     """
 
     def __init__(self, channels: int):
@@ -58,17 +72,27 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             scale = self.weight * torch.rsqrt(self.running_var + BN_EPS)
             shift = self.bias - self.running_mean * scale
             return x * _per_channel(scale, x) + _per_channel(shift, x)
-        xf = x if x.dtype == torch.float64 else x.float()
+        xf = at_least_float32(x)
         dims = [d for d in range(x.dim()) if d != 1]
-        mean = xf.mean(dim=dims)
-        var = torch.clamp(
-            (xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        if self.group is None:
+            mean = xf.mean(dim=dims)
+            mean2 = (xf * xf).mean(dim=dims)
+        else:
+            # (3, C): the sums of x and x^2 and the element count, a row
+            # each, so the backward takes no per-slice copies
+            c = x.shape[1]
+            total = mesh_lib.all_reduce_sum(torch.stack([
+                xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                xf.new_full((c,), xf.numel() // c)]), self.group)
+            mean, mean2, _ = total / total[2:].detach()
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(
                 mean.detach(), alpha=1.0 - BN_MOMENTUM)
@@ -242,6 +266,18 @@ def time_mask(lengths: torch.Tensor, n_frames: int) -> torch.Tensor:
     return t[None, :] < lengths[:, None]
 
 
+def loss_terms(parts, group=None) -> list:
+    """A self-supervised model's ``loss_parts``, each (masked sum, valid
+    count), as its loss terms: each sum over its count (at least 1), the
+    counts summed over ``group``'s ranks where one is given, which makes
+    each term JAX's frame-masked mean over the global batch."""
+    nums, counts = zip(*parts)
+    counts = torch.stack(counts)
+    if group is not None:
+        counts = mesh_lib.all_reduce_sum_(counts.detach().clone(), group)
+    return [num / count.clamp(min=1.0) for num, count in zip(nums, counts)]
+
+
 def mask_time(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Zero the padded time frames (dim 2) of a (B, C, T) map, so bucket
     padding stays the zero of the convolutions' own padding however deep
@@ -307,7 +343,7 @@ class LayerNorm(nn.Module):
             self.weight = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x if x.dtype == torch.float64 else x.float()
+        xf = at_least_float32(x)
         return F.layer_norm(xf, (self.width,), self.weight, self.bias,
                             LN_EPS).to(x.dtype)
 

@@ -31,6 +31,7 @@ from freesound_classification_tpu_torch.models.blocks import (
     ConvBlock2d,
     MLPHead,
     MaskedBiGRU,
+    at_least_float32,
     block_depths,
     mask_time,
     mask_time_2d,
@@ -125,7 +126,7 @@ class TwoDimensionalCNN(nn.Module):
                 # mean over frequency -> (B, W, C), then the GRUs
                 features.append(getattr(self, f"rnn{k}")(
                     h.mean(dim=2).transpose(1, 2), lengths))
-        return self.head(torch.cat(features, dim=-1)).float()
+        return at_least_float32(self.head(torch.cat(features, dim=-1)))
 
 
 class HierarchicalCNN(nn.Module):
@@ -175,7 +176,7 @@ class HierarchicalCNN(nn.Module):
             else:
                 features.append(getattr(self, f"rnn{k}")(
                     h.transpose(1, 2), lengths))
-        return self.head(torch.cat(features, dim=-1)).float()
+        return at_least_float32(self.head(torch.cat(features, dim=-1)))
 
 
 def build_classifier(model_kind: str, network, n_classes: int,

@@ -42,11 +42,12 @@ class CausalConv1d(nn.Module):
 
 
 class CPCModel(nn.Module):
-    """``forward(feats (B, T, F), frame_lengths (B,))`` -> {"loss_terms":
-    one float32 scalar per prediction step, "z": (B, S, D) float32,
-    "output": the context (B, S, C) float32}. Module names follow flax's
-    (``input_bn``, ``enc{k}``, ``prelu{k}``, ``output_bn``, ``GRUCell_0``,
-    ``coupling_{s}``)."""
+    """``forward(feats (B, T, F), frame_lengths (B,))`` -> {"loss_parts":
+    per prediction step its (masked sum, valid pairs), float32, which
+    ``blocks.loss_terms`` divides into JAX's ``loss_terms``, "z": (B, S, D)
+    float32, "output": the context (B, S, C) float32}. Module names follow
+    flax's (``input_bn``, ``enc{k}``, ``prelu{k}``, ``output_bn``,
+    ``GRUCell_0``, ``coupling_{s}``)."""
 
     def __init__(self, input_dim: int, n_encoder_layers: int = 5,
                  conv_base_depth: int = 32, growth_rate: float = 2.0,
@@ -81,8 +82,8 @@ class CPCModel(nn.Module):
         c = gru_sequence(z, self.GRUCell_0)  # (B, S, C)
         valid = time_mask(lengths, s).to(torch.float32)
         pair_mask = valid[:, :, None] * valid[:, None, :]
-        pairs = pair_mask.sum().clamp(min=1.0)
-        loss_terms = []
+        pairs = pair_mask.sum()
+        loss_parts = []
         for step in range(1, self.prediction_steps + 1):
             a = getattr(self, f"coupling_{step}")(c)  # (B, S, D)
             # score of encoder step s against context step t
@@ -91,6 +92,6 @@ class CPCModel(nn.Module):
                 if s > step else logits.new_zeros(s, s)
             per_elem = (labels * F.softplus(-logits)
                         + (1.0 - labels) * F.softplus(logits))
-            loss_terms.append((per_elem * pair_mask).sum() / pairs)
-        return {"loss_terms": loss_terms, "z": z.float(),
+            loss_parts.append(((per_elem * pair_mask).sum(), pairs))
+        return {"loss_parts": loss_parts, "z": z.float(),
                 "output": c.float()}

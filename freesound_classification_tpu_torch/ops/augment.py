@@ -30,6 +30,7 @@ import torch
 
 from freesound_classification_tpu_torch.ops import freeverb, kernels, pv
 from freesound_classification_tpu_torch.ops.dsp import iir_first_order
+from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 
 SR = 44100
 
@@ -265,13 +266,33 @@ class EffectsDraws(NamedTuple):
     speed: torch.Tensor  # (B,) U(0.9, 1.1)
 
 
-def draw_effects(gen: torch.Generator, b: int, p: float) -> EffectsDraws:
+def effects_count(b: int, p: float, shard: Optional[Tuple[int, int]] = None
+                  ) -> int:
+    """How many of a batch's ``b`` rows take the chain at probability
+    ``0 < p < 1`` (JAX ``augment.py:447-448``): ``k = round(p * B)`` of the
+    global batch's B rows, at least 1. On rank r of ``shard`` = (r, world),
+    ``b`` is the rank's slice of the global batch of ``b * world`` rows,
+    and the rank takes its part of k as the loader splits rows
+    (``mesh.rank_rows``: ceil(k / world) each, the rest on the last
+    ranks), so the ranks' counts sum to k."""
+    rank, world = shard if shard is not None else (0, 1)
+    n = b * world
+    k = max(1, min(n, int(round(n * p))))
+    return mesh_lib.rank_rows(k, rank, world)[1]
+
+
+def draw_effects(gen: torch.Generator, b: int, p: float,
+                 shard: Optional[Tuple[int, int]] = None) -> EffectsDraws:
     """The chain's rows and parameters (ranges of the reference chain,
     transforms.py:94-105). The chain runs on exactly round(p * B) rows
     chosen uniformly (fixed-count compaction): each row's probability is
-    round(p * B) / B, exactly p when p * B is whole (0.75 * 64 = 48)."""
-    if 0.0 < p < 1.0 and b > 1:
-        k = max(1, min(b, int(round(b * p))))
+    round(p * B) / B, exactly p when p * B is whole (0.75 * 64 = 48). On a
+    rank of ``shard``, B is the global batch and the rank's rows are its
+    share of that count (``effects_count``), chosen uniformly among its
+    own."""
+    world = shard[1] if shard is not None else 1
+    if 0.0 < p < 1.0 and b * world > 1:
+        k = effects_count(b, p, shard)
         rows = torch.randperm(b, generator=gen, device=gen.device)[:k]
     elif p >= 1.0:
         rows = torch.arange(b, device=gen.device)
@@ -385,12 +406,17 @@ def make_augmenter(cfg: AugmentConfig):
     effects -> cutout, or None when every probability is 0. ``scale``
     multiplies every probability (the epoch switch-off passes 0 and the
     engine then skips the call). ``partner`` is the pool of clean clips for
-    MixUp; None mixes with a clean copy of the batch itself."""
+    MixUp; None mixes with a clean copy of the batch itself. ``shard`` =
+    (rank, world) marks the batch as a rank's slice of a global batch: the
+    effects chain then runs on the rank's share of the global count
+    (``effects_count``), and MixUp partners come from the rank's own
+    ``partner`` rows (JAX's pool is the global batch)."""
     if not any((cfg.p_mixup, cfg.p_aug, cfg.p_shuffle, cfg.p_cutout,
                 cfg.p_flip)):
         return None
 
-    def augment(wave, lengths, labels, gen, scale=1.0, partner=None):
+    def augment(wave, lengths, labels, gen, scale=1.0, partner=None,
+                shard=None):
         b, l = wave.shape
         clean = partner if partner is not None else (wave, lengths, labels)
         if cfg.p_shuffle:
@@ -408,8 +434,8 @@ def make_augmenter(cfg: AugmentConfig):
                 partner=clean, quirk_replace=cfg.mixup_quirk_replace)
         if cfg.p_aug:
             wave, lengths = apply_effects(
-                wave, lengths, draw_effects(gen, b, cfg.p_aug * scale),
-                sr=cfg.sr)
+                wave, lengths,
+                draw_effects(gen, b, cfg.p_aug * scale, shard), sr=cfg.sr)
         if cfg.p_cutout:
             wave = apply_cutout(wave, lengths,
                                 draw_cutout(gen, b, cfg.p_cutout * scale))

@@ -1,0 +1,279 @@
+"""Data parallel across ranks (JAX ``parallel/mesh.py``).
+
+The JAX package shards one fold's global batch over a 1-D device mesh,
+replicates the train state, and lets XLA insert the collectives. The port
+runs one process per card under ``torchrun`` (one rank each) and makes the
+same arithmetic explicit:
+
+- the loader splits each global batch into contiguous per-rank slices,
+  padding a tail that does not divide by repeating its last row
+  (``rank_rows``; ``data/loader.py``), and each batch says how many of its
+  rows are real (``n_real``) and how many the global batch has
+  (``n_global``);
+- every rank starts from rank 0's weights (``broadcast_module``);
+- train-mode BatchNorm takes its statistics over the global batch, padded
+  rows included as in JAX's global batch: the per-channel sums go through
+  ``all_reduce_sum``, an all-reduce that gradients flow through;
+- the engine divides each rank's masked loss sum by the global real-row
+  count and sums the gradients over the ranks (``all_reduce_gradients``),
+  which gives the gradient of JAX's loss over the global batch;
+- metrics and predictions gather the ranks' rows (``all_gather_rows``) and
+  drop the padded ones.
+
+``make_mesh`` reads ``torchrun``'s ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK``. Without them no process group is made and the caller takes
+the single-process path. Under ``torchrun`` a group is made even for one
+rank, so that run goes through the real collectives: NCCL on the card
+(rank r on ``cuda:{LOCAL_RANK}``), gloo on the CPU. Every function here
+takes any process group, so a caller may also build a ``Mesh`` over a group
+of its own.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+from dataclasses import dataclass
+from typing import Iterator, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from freesound_classification_tpu_torch.utils.device import resolve_device
+
+# a rank's random streams (the augmenter's generator, dropout's default
+# one) start from seed + RANK_SEED_STRIDE * rank: rank 0 keeps the seed
+RANK_SEED_STRIDE = 1_000_003
+# a collective that waits longer than this ends the job instead of hanging
+TIMEOUT = datetime.timedelta(minutes=10)
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A rank's place in a data-parallel job: ``group`` None is the single
+    process of today's path."""
+    rank: int = 0
+    world_size: int = 1
+    group: Optional[dist.ProcessGroup] = None
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
+
+    @property
+    def is_writer(self) -> bool:
+        """Rank 0 alone writes files."""
+        return self.rank == 0
+
+    def rank_seed(self, seed: int) -> int:
+        return seed + RANK_SEED_STRIDE * self.rank
+
+    def barrier(self) -> None:
+        """Every rank's host waits here for the others (a no-op alone).
+        Under NCCL an all-reduce only queues on the card's stream, so the
+        host waits for its result."""
+        if self.group is not None:
+            all_reduce_sum_(torch.zeros(1, device=self.device),
+                            self.group).item()
+
+    def broadcast_object(self, obj):
+        """Rank 0's ``obj`` on every rank (picklable objects)."""
+        if self.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(
+            self.group, 0), group=self.group)
+        return box[0]
+
+    def all_gather_object(self, obj) -> list:
+        """Every rank's ``obj``, in rank order."""
+        if self.group is None:
+            return [obj]
+        out = [None] * self.world_size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    @contextlib.contextmanager
+    def quiet(self) -> Iterator[None]:
+        """Ranks above 0 print nothing inside the block."""
+        if self.rank == 0:
+            yield
+            return
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            yield
+
+    def close(self) -> None:
+        """Destroy the default process group ``make_mesh`` made."""
+        if self.group is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def make_mesh(mesh_devices: Optional[int] = None,
+              device: torch.device | str = "cuda",
+              env: Optional[Mapping[str, str]] = None) -> Mesh:
+    """The rank's ``Mesh`` from ``torchrun``'s environment.
+
+    ``mesh_devices`` None means the job's world size (1 without
+    ``torchrun``); any other value must equal ``WORLD_SIZE``. On the card
+    rank r takes ``cuda:{LOCAL_RANK}`` and raises where that card is not
+    there: no rank falls back to the CPU or to another rank's card."""
+    env = os.environ if env is None else env
+    if "WORLD_SIZE" not in env:
+        if mesh_devices not in (None, 1):
+            raise ValueError(
+                f"--mesh_devices {mesh_devices} needs one process per rank: "
+                f"launch with `torchrun --nproc_per_node {mesh_devices} -m "
+                "<cli module> ... --mesh_devices "
+                f"{mesh_devices}` (one rank per card)")
+        return Mesh(device=resolve_device(device))
+    world = int(env["WORLD_SIZE"])
+    rank = int(env["RANK"])
+    local = int(env.get("LOCAL_RANK", rank))
+    if mesh_devices is not None and mesh_devices != world:
+        raise ValueError(
+            f"--mesh_devices {mesh_devices} but torchrun started {world} "
+            f"ranks: pass --nproc_per_node {mesh_devices} (the mesh is one "
+            "rank per process)")
+    resolved = resolve_device(device)
+    if resolved.type == "cuda":
+        n_cards = torch.cuda.device_count()
+        if local >= n_cards:
+            raise RuntimeError(
+                f"rank {rank}: LOCAL_RANK {local} has no card of its own "
+                f"({n_cards} visible); start at most {n_cards} ranks a node")
+        resolved = torch.device("cuda", local)
+        torch.cuda.set_device(resolved)
+    dist.init_process_group(
+        "nccl" if resolved.type == "cuda" else "gloo", init_method="env://",
+        rank=rank, world_size=world, timeout=TIMEOUT)
+    return Mesh(rank, world, dist.group.WORLD, resolved)
+
+
+# ---------------------------------------------------------------------------
+# rows
+# ---------------------------------------------------------------------------
+
+
+def rank_rows(n: int, rank: int, world: int) -> tuple:
+    """(first row, real rows) of rank ``rank``'s slice of a global batch of
+    ``n`` rows: the batch is padded to a multiple of ``world`` by repeating
+    its last row and each rank takes ``ceil(n / world)`` contiguous rows,
+    so the padded ones are at the end of the last slices."""
+    per = -(-n // world)
+    start = rank * per
+    return start, max(0, min(per, n - start))
+
+
+def pad_batch_to_multiple(batch: dict, multiple: int) -> tuple:
+    """Pad the leading axis to a multiple of ``multiple`` by repeating the
+    last row; returns (padded batch, original size) (JAX, copied)."""
+    n = len(next(iter(batch.values())))
+    pad = (-n) % multiple
+    if pad == 0:
+        return batch, n
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        reps = np.repeat(v[-1:], pad, axis=0)
+        out[k] = np.concatenate([v, reps], axis=0)
+    return out, n
+
+
+def shard_batch(batch: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s slice of a host batch dict of arrays, as the loader
+    gives it: the rows of ``rank_rows``, with ``n_real`` and
+    ``n_global``."""
+    padded, n = pad_batch_to_multiple(batch, world)
+    per = len(next(iter(padded.values()))) // world
+    out = {k: np.asarray(v)[rank * per:(rank + 1) * per]
+           for k, v in padded.items()}
+    out["n_real"] = rank_rows(n, rank, world)[1]
+    out["n_global"] = n
+    return out
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+
+def all_reduce_sum_(x: torch.Tensor, group: dist.ProcessGroup
+                    ) -> torch.Tensor:
+    """Sum ``x`` over the ranks in place (no gradient)."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Forward: the sum over the ranks. Backward: the sum over the ranks of
+    the gradient, since every rank's loss reads the same sum."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return all_reduce_sum_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return all_reduce_sum_(grad.contiguous().clone(), ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup
+                   ) -> torch.Tensor:
+    """The sum of ``x`` over the ranks, with gradients (statistics that a
+    loss reads, as BatchNorm's)."""
+    return _AllReduceSum.apply(x, group)
+
+
+def all_gather_rows(x: torch.Tensor, group: dist.ProcessGroup
+                    ) -> torch.Tensor:
+    """Every rank's ``x`` (same shape on each) concatenated on dim 0 in rank
+    order: the padded global batch."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def broadcast_module(module: nn.Module, group: dist.ProcessGroup) -> None:
+    """Rank 0's parameters and buffers on every rank, in place."""
+    src = dist.get_global_rank(group, 0)
+    with torch.no_grad():
+        for t in list(module.parameters()) + list(module.buffers()):
+            dist.broadcast(t.data, src=src, group=group)
+
+
+def _memory_order(t: torch.Tensor) -> torch.Tensor:
+    """A dense tensor's elements as a 1-D view, in memory order (a
+    channels_last weight's gradient is dense but not contiguous)."""
+    dense = t.is_contiguous() or (
+        t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last))
+    if not dense:
+        raise ValueError(f"a gradient of shape {tuple(t.shape)} and strides "
+                         f"{t.stride()} is not dense")
+    return t.as_strided((t.numel(),), (1,))
+
+
+def all_reduce_gradients(params: Sequence[torch.Tensor],
+                         group: dist.ProcessGroup,
+                         extra: Sequence[torch.Tensor] = ()) -> list:
+    """Sum the parameters' gradients over the ranks in one flat buffer,
+    with the 0-d tensors ``extra`` (the rank's share of the reported loss)
+    appended; returns the summed ``extra``. A parameter without a gradient
+    has none on every rank (the same graph), and is left out. The buffer
+    is one concatenation of the gradients in memory order, copied back
+    with one foreach copy."""
+    grads = [_memory_order(p.grad) for p in params if p.grad is not None]
+    dtype = grads[0].dtype if grads else torch.float32
+    if any(g.dtype != dtype for g in grads):
+        raise TypeError("all_reduce_gradients: gradients of one dtype only")
+    flat = torch.cat(grads + [e.detach().reshape(1).to(dtype)
+                              for e in extra])
+    all_reduce_sum_(flat, group)
+    parts = flat.split([g.numel() for g in grads] + [1] * len(extra))
+    if grads:
+        torch._foreach_copy_(grads, list(parts[:len(grads)]))
+    return [p[0].to(e.dtype) for p, e in zip(parts[len(grads):], extra)]

@@ -38,12 +38,13 @@ and crops line up with an uninterrupted run; the MixUp pool starts empty,
 as in JAX, and a fold with no bundle starts fresh.
 
 Self-supervised models (``self_supervised=True``: APC, CPC; JAX's
-``self_supervised`` mode) return their ``loss_terms``; the step's loss is
-their sum, there are no probabilities and no lwlrap, and the validation
-score is ``-mean_loss``, which picks ``best_model.npz`` as lwlrap does for a
-classifier. Such a step reports no batch metric, and an epoch's
-``metric`` is NaN by definition (JAX takes the ``nanmean`` of all-NaN batch
-metrics, which warns; the port states it instead).
+``self_supervised`` mode) return their ``loss_parts``; the step's loss is
+the sum of their terms (``blocks.loss_terms``), there are no
+probabilities and no lwlrap, and the validation score is ``-mean_loss``,
+which picks ``best_model.npz`` as lwlrap does for a classifier. Such a
+step reports no batch metric, and an epoch's ``metric`` is NaN by
+definition (JAX takes the ``nanmean`` of all-NaN batch metrics, which
+warns; the port states it instead).
 
 Summaries: ``summary_writer_factory(fold, split)`` gives each fit a train
 and a valid writer (or None), written as JAX writes them: train ``loss``,
@@ -51,6 +52,37 @@ and a valid writer (or None), written as JAX writes them: train ``loss``,
 spectrogram grid (``signal``), the ``losses`` histogram of the logged
 batches' per-sample losses at each epoch's end, valid ``loss`` and
 ``metric`` after each validation.
+
+Data parallel (``mesh``, a ``parallel.mesh.Mesh`` with a process group;
+JAX's engine over a 1-D mesh): each rank steps on its slice of every global
+batch (the loader's ``n_real`` of its rows are real, ``n_global`` the
+global batch's), and the arithmetic is JAX's over the global batch.
+
+- Every rank starts from rank 0's weights (a broadcast after init, after
+  ``warm_start`` and after a resume); the optimizer states then stay the
+  same on every rank.
+- Train-mode BatchNorm takes the global batch's statistics (each layer's
+  ``group``), padded rows included as in JAX.
+- The loss differentiated on a rank is its masked per-sample sum over the
+  global real-row count; the gradients, with the rank's share of the
+  reported loss, are summed over the ranks in one buffer before the
+  gradient mean of accumulation, so an update sees JAX's global gradient.
+  A self-supervised model's terms are its ``loss_parts`` sums over the
+  counts summed over the ranks, with the padded rows' frame counts zeroed
+  (JAX ``engine.py:146-152``).
+- The batch lwlrap, validation and predictions gather the ranks' rows and
+  drop the padded ones: every rank sees the single-process numbers and
+  makes the same best-model decision.
+- Rank 0 alone writes files; the others wait at a barrier (one that
+  holds the host) after each epoch's writes. Rank 0 alone reads them too:
+  a model file or a resume bundle reaches the others by broadcast, so no
+  rank needs to see rank 0's disk.
+- Each rank draws its augmentation from its own generator, seeded
+  ``mesh.rank_seed(seed)`` (JAX's key is global), and MixUp partners come
+  from the rank's own rows; the effects chain runs on the rank's share of
+  the global batch's ``round(p * B)`` rows.
+- The resume bundle holds every rank's generator states and the world
+  size, and a bundle of another world size is refused.
 """
 
 from __future__ import annotations
@@ -63,10 +95,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from freesound_classification_tpu_torch.models.blocks import (
+    BatchNorm,
+    loss_terms,
+)
 from freesound_classification_tpu_torch.models.frontend import Frontend
 from freesound_classification_tpu_torch.ops import metrics as metrics_lib
 from freesound_classification_tpu_torch.ops.losses import make_loss
 from freesound_classification_tpu_torch.ops.schedules import make_schedule
+from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 from freesound_classification_tpu_torch.training import checkpoints
 from freesound_classification_tpu_torch.training.optimizers import (
     make_optimizer,
@@ -125,7 +162,10 @@ class Engine:
     set, receives a trace of each fit's epoch 1. ``summary_writer_factory``
     (fold, split) -> a tensorboard-like writer or None. ``device`` is the
     card unless the caller passes "cpu"; without a card it raises.
-    ``self_supervised`` trains a model that returns ``loss_terms``.
+    ``self_supervised`` trains a model that returns ``loss_parts``.
+    ``mesh``, a ``parallel.mesh.Mesh`` with a process group, makes this
+    engine one rank of a data-parallel job (the module docstring); its
+    device is ``device``.
     """
 
     def __init__(self, model: nn.Module, frontend: Frontend, train_config,
@@ -136,8 +176,10 @@ class Engine:
                  warm_start_path: Optional[str] = None,
                  profile_dir: Optional[str] = None,
                  summary_writer_factory: Optional[Callable] = None,
-                 self_supervised: bool = False):
+                 self_supervised: bool = False,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.self_supervised = self_supervised
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
         self.accumulation_steps = max(
             int(getattr(train_config, "accumulation_steps", 1)), 1)
         self.device = resolve_device(device)
@@ -153,7 +195,8 @@ class Engine:
         self.train_writer = None
         self.valid_writer = None
         self._stage = _no_range  # ``annotate`` while an epoch is traced
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.mesh.rank_seed(seed) if self.mesh else seed)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.schedule = None
         self.global_step = 0  # micro-batches of this fit
@@ -162,6 +205,16 @@ class Engine:
         self._accumulated: Optional[list] = None
         self._mixup_pool: dict = {}
         self.epoch_stats: list = []  # train_epoch's dicts of the last fit
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """Rank 0's weights and statistics on every rank, whose BatchNorm
+        layers take the global batch's statistics."""
+        if self.mesh:
+            mesh_lib.broadcast_module(self.model, self.mesh.group)
+            for module in self.model.modules():
+                if isinstance(module, BatchNorm):
+                    module.group = self.mesh.group
 
     # ------------------------------------------------------------------
     # steps
@@ -182,6 +235,22 @@ class Engine:
     def to_device(self, batch: dict) -> tuple:
         return tuple(torch.as_tensor(batch[k], device=self.device)
                      for k in ("signal", "lengths", "labels"))
+
+    @staticmethod
+    def batch_rows(batch: dict) -> tuple:
+        """(real rows of this rank's slice, real rows of the global batch);
+        both the batch's size where the loader gives neither."""
+        n = len(batch["index"])
+        return batch.get("n_real", n), batch.get("n_global", n)
+
+    def _gather_rows(self, n_global: int, *columns: torch.Tensor) -> list:
+        """The global batch's real rows of each (B_local, k) column block,
+        gathered from every rank in one float64 buffer (exact for float32
+        values and int64 indices below 2^53)."""
+        widths = [c.shape[1] for c in columns]
+        flat = torch.cat([c.to(torch.float64) for c in columns], dim=1)
+        rows = mesh_lib.all_gather_rows(flat, self.mesh.group)[:n_global]
+        return list(torch.split(rows, widths, dim=1))
 
     def _update_due(self) -> bool:
         """Fold this micro-batch's gradients into the running mean; on the
@@ -208,44 +277,77 @@ class Engine:
 
     def train_step(self, wave: torch.Tensor, lengths: torch.Tensor,
                    labels: torch.Tensor, aug_scale: float = 1.0,
-                   partner: Optional[tuple] = None) -> dict:
+                   partner: Optional[tuple] = None,
+                   rows: Optional[tuple] = None) -> dict:
         """One micro-batch: forward, backward, and the optimizer step where
         an update is due; returns 0-d tensors ``loss`` and ``metric`` and
         the (B,) ``per_sample`` losses (a self-supervised step: its loss,
-        and None for the other two)."""
+        and None for the other two). On a rank of a mesh, ``rows`` is the
+        batch's ``batch_rows``, and the loss, the metric and the per-sample
+        losses are the global batch's real rows'."""
         self.model.train()
+        shard = ((self.mesh.rank, self.mesh.world_size) if self.mesh
+                 else None)
         if self.augment is not None and aug_scale > 0.0:
             with torch.no_grad(), self._stage("augment"):
                 wave, lengths, labels = self.augment(
                     wave, lengths, labels, self.generator, aug_scale,
-                    partner=partner)
-        logits, per_sample, loss = self._learn(
-            wave, lengths, labels, lambda per_sample: (per_sample.mean(),) * 2)
+                    partner=partner, shard=shard)
+        if self.mesh is None:
+            logits, per_sample, loss = self._learn(
+                wave, lengths, labels,
+                lambda per_sample: (per_sample.mean(),) * 2)
+        else:
+            n_real, n_global = rows
+            row_mask = torch.arange(wave.shape[0],
+                                    device=self.device) < n_real
+
+            def reduce(per_sample):
+                if self.self_supervised:
+                    return per_sample, per_sample
+                share = ((per_sample * row_mask).sum()
+                         / max(n_global, 1))
+                return share, share
+
+            logits, per_sample, loss = self._learn(
+                wave, lengths, labels, reduce, row_mask=row_mask)
         if self.self_supervised:
             return {"loss": loss, "metric": None, "per_sample": None}
         with torch.no_grad():
-            metric = metrics_lib.lwlrap_torch(labels, torch.sigmoid(logits))
+            probs = torch.sigmoid(logits)
+            if self.mesh is not None:
+                probs, labels, per_sample = self._gather_rows(
+                    n_global, probs, labels, per_sample[:, None])
+                per_sample = per_sample[:, 0]
+            metric = metrics_lib.lwlrap_torch(labels, probs)
         return {"loss": loss, "metric": metric, "per_sample": per_sample}
 
     def _learn(self, wave: torch.Tensor, lengths: torch.Tensor,
-               labels: torch.Tensor, reduce: Callable) -> tuple:
+               labels: torch.Tensor, reduce: Callable,
+               row_mask: Optional[torch.Tensor] = None) -> tuple:
         """The step after augmentation, shared with the fold-parallel step
         (``training/multifold.py``): the frontend, the forward and the loss,
         the backward, the gradient mean and the optimizer step where an
         update is due. ``reduce(per_sample)`` gives (the loss to
         differentiate, the loss to report); a self-supervised model's
-        "per-sample" loss is the sum of its loss terms. Returns the detached
+        "per-sample" loss is the sum of its loss terms. On a mesh
+        ``row_mask`` marks the real rows, and the gradients and the
+        reported loss are summed over the ranks. Returns the detached
         logits (None for a self-supervised model), per-sample losses and
         reported loss."""
         with torch.no_grad(), self._stage("frontend"):
             inputs, frame_lengths = self.frontend(wave, lengths)
         with self._stage("forward"):
             logits, per_sample = self._forward_loss(inputs, frame_lengths,
-                                                    labels)
+                                                    labels, row_mask)
             loss, reported = reduce(per_sample)
         with self._stage("backward"):
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if self.mesh is not None:
+                reported, = mesh_lib.all_reduce_gradients(
+                    [p for g in self.optimizer.param_groups
+                     for p in g["params"]], self.mesh.group, [reported])
         with self._stage("optimizer"):
             if self._update_due():
                 set_lr(self.optimizer, self.schedule(
@@ -260,25 +362,51 @@ class Engine:
 
     def _forward_loss(self, inputs: torch.Tensor,
                       frame_lengths: torch.Tensor,
-                      labels: torch.Tensor) -> tuple:
+                      labels: torch.Tensor,
+                      row_mask: Optional[torch.Tensor] = None) -> tuple:
         """(logits, per-sample losses) of a classifier; (None, the sum of
-        the loss terms) of a self-supervised model."""
+        the loss terms) of a self-supervised model. On a mesh, a
+        self-supervised model's padded rows (``row_mask`` False) have no
+        frames, and its "loss" is this rank's share of the global terms:
+        each sum over the counts summed over the ranks."""
+        if self.self_supervised and row_mask is not None:
+            frame_lengths = torch.where(row_mask, frame_lengths,
+                                        torch.zeros_like(frame_lengths))
         out = self.model(inputs, frame_lengths)
-        if self.self_supervised:
-            return None, sum(out["loss_terms"])
-        return out, self.loss_fn(out, labels, average=False)
+        if not self.self_supervised:
+            return out, self.loss_fn(out, labels, average=False)
+        return None, sum(loss_terms(out["loss_parts"],
+                                    self.mesh.group if self.mesh else None))
 
     @torch.inference_mode()
-    def eval_step(self, wave: torch.Tensor, lengths: torch.Tensor,
-                  labels: torch.Tensor) -> tuple:
-        """(mean loss, (B, C) probabilities) in eval mode; a
-        self-supervised model's: (its loss, None)."""
+    def eval_batch(self, batch: dict) -> tuple:
+        """A loader's batch in eval mode: (mean loss, (n, C) probabilities,
+        (n, C) labels, the n dataset indices, n), over this process's n
+        rows, or on a mesh over the global batch's n real rows gathered
+        from every rank in rank order; a self-supervised model's: (its
+        loss, None, None, None, n)."""
         self.model.eval()
+        wave, lengths, labels = self.to_device(batch)
+        n_real, n_global = self.batch_rows(batch)
+        row_mask = (torch.arange(wave.shape[0], device=self.device) < n_real
+                    if self.mesh else None)
         inputs, frame_lengths = self.frontend(wave, lengths)
-        logits, per_sample = self._forward_loss(inputs, frame_lengths, labels)
+        logits, per_sample = self._forward_loss(inputs, frame_lengths,
+                                                labels, row_mask)
         if logits is None:
-            return per_sample, None
-        return per_sample.mean(), torch.sigmoid(logits)
+            if self.mesh:
+                per_sample = mesh_lib.all_reduce_sum_(per_sample.clone(),
+                                                      self.mesh.group)
+            return per_sample, None, None, None, n_global
+        if self.mesh is None:
+            return (per_sample.mean(), torch.sigmoid(logits),
+                    batch["labels"], batch["index"], n_global)
+        index = torch.as_tensor(batch["index"], device=self.device)
+        probs, labels, per_sample, index = self._gather_rows(
+            n_global, torch.sigmoid(logits), labels, per_sample[:, None],
+            index[:, None])
+        return (per_sample.mean(), probs, labels.float().cpu().numpy(),
+                index[:, 0].long().cpu().numpy(), n_global)
 
     # ------------------------------------------------------------------
     # loops
@@ -298,10 +426,12 @@ class Engine:
             pool_key = tuple(wave.shape)
             clean = (wave, lengths, labels)
             partner = self._mixup_pool.get(pool_key, clean)
-            out = self.train_step(wave, lengths, labels, aug_scale, partner)
+            rows = self.batch_rows(batch)
+            out = self.train_step(wave, lengths, labels, aug_scale, partner,
+                                  rows=rows)
             if self.augment is not None:
                 self._mixup_pool[pool_key] = clean
-            n_clips += wave.shape[0]
+            n_clips += rows[1] if self.mesh else wave.shape[0]
             losses.append(out["loss"])
             if out["metric"] is not None:
                 batch_metrics.append(out["metric"])
@@ -374,9 +504,9 @@ class Engine:
         for _ in range(n_tta):
             probs, index = [], []
             for batch in loader:
-                _, p = self.eval_step(*self.to_device(batch))
+                _, p, _, idx, _ = self.eval_batch(batch)
                 probs.append(p.float().cpu().numpy())
-                index.append(batch["index"])
+                index.append(idx)
             probs = np.concatenate(probs)
             out = np.zeros_like(probs)
             out[np.concatenate(index)] = probs
@@ -391,13 +521,12 @@ class Engine:
         all_probs, all_labels = [], []
         total_loss, total_n = 0.0, 0
         for batch in loader:
-            loss, probs = self.eval_step(*self.to_device(batch))
-            n = len(batch["index"])
+            loss, probs, labels, _, n = self.eval_batch(batch)
             total_loss += float(loss) * n
             total_n += n
             if probs is not None:
                 all_probs.append(probs.float().cpu().numpy())
-                all_labels.append(batch["labels"])
+                all_labels.append(labels)
         mean_loss = total_loss / max(total_n, 1)
         score = (-mean_loss if self.self_supervised else metrics_lib.lwlrap(
             np.concatenate(all_labels), np.concatenate(all_probs)))
@@ -442,9 +571,13 @@ class Engine:
         keep = int(getattr(cfg, "_keep_checkpoints", 0))
         scores, best, start_epoch = [], -np.inf, 0
         if resume and self.checkpoint_dir is not None:
-            bundle = checkpoints.load_bundle(self.bundle_path(fold))
+            bundle = (checkpoints.load_bundle(self.bundle_path(fold))
+                      if self._writes else None)
+            if self.mesh:
+                bundle = self.mesh.broadcast_object(bundle)
             if bundle is not None:
                 meta = self.load_train_state(bundle)
+                self._replicate()
                 start_epoch = meta["epoch"] + 1
                 best = meta["best_score"]
                 scores = list(meta["scores"])
@@ -473,19 +606,27 @@ class Engine:
                                   write_summary=True)
             scores.append(score)
             if self.checkpoint_dir is not None:
+                # every rank takes part in gathering the generator states;
+                # rank 0 alone writes, and the others wait for its files
+                state = self.train_state()
+            if self.checkpoint_dir is not None and self._writes:
                 if epoch % save_every == 0:
-                    self.save_model(fold, f"model_on_epoch_{epoch}")
+                    checkpoints.save_model(self.model_path(
+                        fold, f"model_on_epoch_{epoch}"), self.model)
                     checkpoints.prune_epoch_checkpoints(
                         os.path.join(self.checkpoint_dir, f"fold_{fold}"),
                         keep)
                 if score > best:
-                    self.save_model(fold, "best_model")
+                    checkpoints.save_model(self.model_path(fold, "best_model"),
+                                           self.model)
                 checkpoints.save_bundle(self.bundle_path(fold), dict(
-                    self.train_state(),
+                    state,
                     meta={"epoch": epoch,
                           "best_score": float(max(best, score)),
                           "scores": [float(s) for s in scores],
                           "global_step": self.global_step}))
+            if self.mesh:
+                self.mesh.barrier()
             best = max(best, score)
         for writer in (self.train_writer, self.valid_writer):
             if writer is not None:
@@ -504,25 +645,59 @@ class Engine:
         return os.path.join(self.checkpoint_dir, f"fold_{fold}",
                             "last_model.pt")
 
+    @property
+    def _writes(self) -> bool:
+        """Rank 0 (or the single process) writes the files, and reads
+        them."""
+        return self.mesh is None or self.mesh.is_writer
+
     def save_model(self, fold: int, name: str) -> None:
-        checkpoints.save_model(self.model_path(fold, name), self.model)
+        """Rank 0 writes; on a mesh every rank then waits for the file."""
+        if self._writes:
+            checkpoints.save_model(self.model_path(fold, name), self.model)
+        if self.mesh:
+            self.mesh.barrier()
 
     def load_model(self, fold: int, name: str) -> None:
-        checkpoints.load_model(self.model_path(fold, name), self.model)
+        self._load_weights(self.model_path(fold, name))
+
+    def _load_weights(self, path: str) -> None:
+        """Rank 0 reads the ``.npz`` at ``path``; on a mesh the other ranks
+        take its weights by broadcast and read no file (rank 0's files
+        need not be theirs to see)."""
+        if self._writes:
+            checkpoints.load_model(path, self.model)
+        self._replicate()
 
     def train_state(self) -> dict:
-        """Everything a resumed fit needs to go on as if uninterrupted."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "accumulated": self._accumulated,
-                "micro_step": self.micro_step,
-                "updates": self.updates,
-                "global_step": self.global_step,
-                "augment_rng": self.generator.get_state(),
-                "dropout_rng": _default_rng_state(self.device)}
+        """Everything a resumed fit needs to go on as if uninterrupted. On
+        a mesh (every rank calls it) the generator states are every rank's,
+        in rank order, beside ``world_size``."""
+        rngs = (self.generator.get_state(), _default_rng_state(self.device))
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "accumulated": self._accumulated,
+                 "micro_step": self.micro_step,
+                 "updates": self.updates,
+                 "global_step": self.global_step,
+                 "augment_rng": rngs[0],
+                 "dropout_rng": rngs[1]}
+        if self.mesh:
+            ranks = self.mesh.all_gather_object(rngs)
+            state.update(augment_rng=[r[0] for r in ranks],
+                         dropout_rng=[r[1] for r in ranks],
+                         world_size=self.mesh.world_size)
+        return state
 
     def load_train_state(self, bundle: dict) -> dict:
-        """Load a ``train_state`` bundle; returns its progress meta."""
+        """Load a ``train_state`` bundle; returns its progress meta. A
+        bundle written by another number of ranks is refused."""
+        world = self.mesh.world_size if self.mesh else 1
+        if bundle.get("world_size", 1) != world:
+            raise ValueError(
+                f"the resume bundle was written by {bundle['world_size']} "
+                f"ranks and this run has {world}: resume at the world size "
+                "that wrote it (each rank's random streams are its own)")
         self.model.load_state_dict(bundle["model"])
         self.optimizer.load_state_dict(bundle["optimizer"])
         acc = bundle["accumulated"]
@@ -531,12 +706,16 @@ class Engine:
         self.micro_step = int(bundle["micro_step"])
         self.updates = int(bundle["updates"])
         self.global_step = int(bundle["global_step"])
-        self.generator.set_state(bundle["augment_rng"])
-        _set_default_rng_state(self.device, bundle["dropout_rng"])
+        augment_rng, dropout_rng = bundle["augment_rng"], bundle["dropout_rng"]
+        if "world_size" in bundle:
+            rank = self.mesh.rank if self.mesh else 0
+            augment_rng, dropout_rng = augment_rng[rank], dropout_rng[rank]
+        self.generator.set_state(augment_rng)
+        _set_default_rng_state(self.device, dropout_rng)
         return bundle["meta"]
 
     def warm_start(self, path: str) -> None:
         """Load the weights and BatchNorm statistics of another
         experiment's fold ``.npz`` (JAX ``Engine.warm_start``); the
         optimizer state and the step count stay as they are."""
-        checkpoints.load_model(path, self.model)
+        self._load_weights(path)

@@ -7,6 +7,11 @@ A directory named from the config's values holds ``config.json``,
 ``results.json``; ``Experiment(resume_from=path)`` reloads a config for
 inference. A config whose directory exists raises unless
 ``implicit_resuming`` (the train CLIs' ``--resume``) enters it again.
+
+In a data-parallel job (``mesh``) rank 0 alone makes the directory and
+writes its files, and its path, or the error that stopped rank 0, reaches
+the other ranks by broadcast; they keep their results in memory and write
+nothing.
 """
 
 from __future__ import annotations
@@ -63,9 +68,11 @@ class Experiment:
         resume_from: Optional[str] = None,
         implicit_resuming: bool = False,
         experiments_dir: str = "experiments",
+        mesh=None,
     ):
         if (config is None) == (resume_from is None):
             raise ValueError("pass exactly one of config / resume_from")
+        self._writes = mesh is None or mesh.is_writer
         if resume_from is not None:
             self.experiment_dir = os.path.abspath(resume_from)
             with open(os.path.join(self.experiment_dir, "config.json")) as f:
@@ -73,17 +80,34 @@ class Experiment:
             self._results = self._load_results()
         else:
             self._config = json.loads(json.dumps(dict(config)))
-            self.experiment_dir = os.path.abspath(os.path.join(
-                experiments_dir, config_name(self._config)))
-            if os.path.exists(self.experiment_dir) and not implicit_resuming:
-                raise FileExistsError(
-                    f"experiment already exists: {self.experiment_dir} "
-                    "(pass --resume to continue into it)")
-            os.makedirs(self.experiment_dir, exist_ok=True)
+            made = (None, None)  # (path, rank 0's error)
+            if self._writes:
+                try:
+                    made = (self._make_directory(experiments_dir,
+                                                 implicit_resuming), None)
+                except FileExistsError as err:
+                    made = (None, str(err))
+            if mesh is not None:
+                made = mesh.broadcast_object(made)
+            if made[1] is not None:
+                raise FileExistsError(made[1])
+            self.experiment_dir = made[0]
             self._results = self._load_results()
-            self._persist_metadata()
         self._log_file = None
         self._saved_streams = None
+
+    def _make_directory(self, experiments_dir: str,
+                        implicit_resuming: bool) -> str:
+        path = os.path.abspath(os.path.join(experiments_dir,
+                                            config_name(self._config)))
+        if os.path.exists(path) and not implicit_resuming:
+            raise FileExistsError(
+                f"experiment already exists: {path} "
+                "(pass --resume to continue into it)")
+        os.makedirs(path, exist_ok=True)
+        self.experiment_dir = path
+        self._persist_metadata()
+        return path
 
     def _persist_metadata(self) -> None:
         with open(os.path.join(self.experiment_dir, "config.json"), "w") as f:
@@ -103,7 +127,8 @@ class Experiment:
 
     def register_directory(self, name: str) -> str:
         path = os.path.join(self.experiment_dir, name)
-        os.makedirs(path, exist_ok=True)
+        if self._writes:
+            os.makedirs(path, exist_ok=True)
         setattr(self, name, path)
         return path
 
@@ -127,10 +152,14 @@ class Experiment:
         flat = flatten(self._results)
         flat[key] = float(value) if hasattr(value, "__float__") else value
         self._results = unflatten(flat)
+        if not self._writes:
+            return
         with open(self._results_path(), "w") as f:
             json.dump(self._results, f, indent=2, sort_keys=True)
 
     def __enter__(self) -> "Experiment":
+        if not self._writes:
+            return self
         self._log_file = open(os.path.join(self.experiment_dir, "log"), "a",
                               buffering=1)
         self._saved_streams = (sys.stdout, sys.stderr)

@@ -82,7 +82,8 @@ REQUIRED = ("cli.train_hierarchical_cnn", "cli.finetune_hierarchical_cnn",
             "cli.relabel_noisy_data", "cli.linear_blend",
             "cli.compare_to_baseline", "models.apc", "models.cpc",
             "models.adversarial", "utils.projection", "cli.ssl_common",
-            "cli.train_apc", "cli.train_cpc", "cli.adversarial_test")
+            "cli.train_apc", "cli.train_cpc", "cli.adversarial_test",
+            "parallel.mesh")
 
 
 def test_every_port_module_imports_with_the_jax_stack_blocked():

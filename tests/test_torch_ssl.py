@@ -1,8 +1,8 @@
 """The port's self-supervised pretraining against the JAX package's, on the
-CPU: APC and CPC (``loss_terms`` and the valid frames of ``output``), the
-weight map, one self-supervised engine step, ``best_model`` by ``-loss``,
-the representation probe against sklearn, and ``train_apc``/``train_cpc``
-end to end and their refusals.
+CPU: APC and CPC (``loss_terms`` of their ``loss_parts`` and the valid
+frames of ``output``), the weight map, one self-supervised engine step,
+``best_model`` by ``-loss``, the representation probe against sklearn, and
+``train_apc``/``train_cpc`` end to end and their refusals.
 
 Inputs are made with numpy from seeds; weights are flax's init of the JAX
 models (moved off their constants), carried to the port by ``interop``;
@@ -32,6 +32,7 @@ from freesound_classification_tpu_torch.cli import (
 )
 from freesound_classification_tpu_torch.data import audio_io
 from freesound_classification_tpu_torch.models.apc import APCModel
+from freesound_classification_tpu_torch.models.blocks import loss_terms
 from freesound_classification_tpu_torch.models.cpc import CPCModel
 from freesound_classification_tpu_torch.training import checkpoints
 from freesound_classification_tpu_torch.training.engine import Engine
@@ -115,9 +116,9 @@ def _loaded(kind, params, stats):
 @pytest.mark.parametrize("kind", ["apc", "cpc"])
 @pytest.mark.parametrize("train", [False, True])
 def test_ssl_models_match_jax(kind, train):
-    """``loss_terms`` within 1e-4 and ``output`` at every valid frame within
-    1e-4, float32, ragged lengths, eval mode and train mode (CPC's
-    BatchNorms from the batch)."""
+    """``loss_terms`` (of the port's ``loss_parts``) within 1e-4 and
+    ``output`` at every valid frame within 1e-4, float32, ragged lengths,
+    eval mode and train mode (CPC's BatchNorms from the batch)."""
     params, stats = _variables(kind)
     x, fl = _feats()
     variables = {"params": params, "batch_stats": stats}
@@ -128,9 +129,9 @@ def test_ssl_models_match_jax(kind, train):
         want = want[0]
     model = _loaded(kind, params, stats).train(train)
     got = model(torch.from_numpy(x), torch.from_numpy(fl).long())
-    assert len(got["loss_terms"]) == 3
+    assert len(got["loss_parts"]) == 3
     np.testing.assert_allclose(
-        [float(t.detach()) for t in got["loss_terms"]],
+        [float(t.detach()) for t in loss_terms(got["loss_parts"])],
         [float(t) for t in want["loss_terms"]], atol=1e-4, rtol=0)
     out, ref = got["output"].detach().numpy(), np.asarray(want["output"])
     assert out.shape == ref.shape
@@ -228,8 +229,8 @@ def test_ssl_best_model_is_chosen_by_minus_loss(tmp_path):
     assert all(np.isnan(e["metric"]) for e in engine.epoch_stats)
     engine.model.eval()
     with torch.no_grad():
-        loss = sum(engine.model(*_Features(x, fl)(torch.zeros(3), None))
-                   ["loss_terms"])
+        loss = sum(loss_terms(engine.model(
+            *_Features(x, fl)(torch.zeros(3), None))["loss_parts"]))
     assert scores[-1] == pytest.approx(-float(loss), abs=1e-6)
     best = int(np.argmax(scores))
     fold = os.path.join(str(tmp_path), "fold_0")
@@ -364,9 +365,10 @@ def _parse(argv):
 
 
 def test_ssl_cli_refuses_mesh_devices_and_a_missing_card():
-    """``--mesh_devices`` is refused (M5.1); ``--device`` defaults to the
-    card, and without one the CLI raises before any work."""
-    with pytest.raises(NotImplementedError, match="M5.1"):
+    """``--mesh_devices 2`` without ``torchrun`` raises and says how to
+    launch 2 ranks; ``--device`` defaults to the card, and without one the
+    CLI raises before any work."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         ssl_common.run_ssl_training(
             _parse(_ssl_argv("x", "--mesh_devices", "2")), "apc")
     on_card = [a for a in _ssl_argv("x") if a not in ("--device", "cpu")]

@@ -499,11 +499,17 @@ def train_2d_cnn_args(root, exp_dir):
 
 
 def test_train_cli_refuses_what_waits_and_a_missing_card(tmp_path):
+    """What waits: ``--fold_parallel`` over 2 ranks (ROADMAP M5.2's
+    multi-rank fold layouts); one rank of it, and 2 ranks without it, are
+    not refused."""
     args = train_2d_cnn_args(str(tmp_path), str(tmp_path))
-    for flag, value in (("mesh_devices", 2),):
-        bad = type(args)(**dict(vars(args), **{flag: value}))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for flags in ({"fold_parallel": True, "mesh_devices": 2},):
+        bad = type(args)(**dict(vars(args), **flags))
+        with pytest.raises(NotImplementedError, match="ROADMAP M5.2"):
             common.refuse_unported(bad)
+    for flags in ({"fold_parallel": True, "mesh_devices": 1},
+                  {"mesh_devices": 2}):
+        common.refuse_unported(type(args)(**dict(vars(args), **flags)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             common.resolve_device("cuda")
