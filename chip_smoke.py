@@ -43,6 +43,12 @@ The paths, each driven through the CLI a user would call:
   the recipe's 2d train CLI over the five folds as one stacked model; the
   stacked step against the five single-fold steps in turns
   (``probes/fold_parallel.py``); its float32 truth; its resume.
+- inference on a mesh: the predict CLI under ``torchrun`` on one NCCL
+  rank, and the fold ensemble's ``predict_loader(mesh=...)`` on two gloo
+  ranks sharing the card.
+- the reference's host transform API (``data/transforms.py``): its train
+  stack with the effects chain on the card (K3, K2), with and without
+  spawn DataLoader workers.
 - the ``rnn`` aggregation: the recipe's train CLI with
   ``--aggregation_type rnn``, sequential and ``--fold_parallel``, and the
   5-fold predict CLI on it; the self-supervised CLIs ``train_apc`` and
@@ -97,6 +103,24 @@ Phases, each of which raises on failure (none catches its own):
      through K1's plain twin agrees with them; on every batch of the run,
      K1's log-mel and the float32 ensemble's probabilities agree with the
      twin's; clips/s
+  mesh predict (M5.4): the predict path's CLI as a child, then under
+     ``torchrun --standalone --nproc_per_node 1 ... --mesh_devices 1``
+     (NCCL): each CSV within the bf16 tolerance of the predict path's, K1
+     launched as often as there, rank 0 alone reporting; each child's
+     predict-loop clips/s; then ``predict_loader(mesh=...)`` on two ranks
+     sharing the card over gloo: both ranks' rows the same, within the
+     bf16 tolerance of the CSV, K1 once a batch on each rank; clips/s
+  compat (M4.5): the reference's train stack (``data/transforms.py`` over
+     ``data/sound_dataset.py``: LoadAudio, SampleLongAudio, MapLabels,
+     ShuffleAudio, MixUp, AudioAugmentation(p=1) on the card,
+     AudioFeatures, DropFields) over 11 clips of 2000 samples to 17 s,
+     read through a DataLoader twice with no worker (a buffer's first
+     chain call, then its later ones) and once with 2 spawn workers:
+     each chain call launched K2 and K3 once and nothing else, and each
+     launch agreed with its plain twin on the same arguments (K2 1e-6, K3
+     2^-7 of the largest output), one at n_fft 512; samples/s; then the
+     one-clip chain at 3000 samples, 5 s and 15 s: ms by events, device
+     launches
   7. train path: the train CLI with the counts reset just before it; K1, K2
      and K3 launched; losses finite; parameters moved; best_model.npz
      predicts finite probabilities through the predict CLI; steps/s
@@ -198,6 +222,7 @@ float32 (TF32 is switched off below), so the comparisons measure the kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import csv
 import json
 import os
@@ -3006,6 +3031,442 @@ def phase_data_parallel(root: str, inputs: dict, train_files: set,
     log(f"data-parallel phase: {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the reference's host transform API (M4.5)
+# ---------------------------------------------------------------------------
+
+# clip lengths of the compat phase: four under 3277 samples (buffer 4096,
+# where the phase vocoder takes n_fft 512 and hop 128), one just above, and
+# up to a clip that SampleLongAudio crops to 15 s
+COMPAT_LENGTHS = (2000, 2500, 3000, 3276, 3277, 30000, 2 * SR, 5 * SR,
+                  10 * SR, 15 * SR, 17 * SR)
+COMPAT_CLASSES = {"a": 0, "b": 1, "c": 2}
+COMPAT_WORKERS = 2
+COMPAT_TIMEOUT = 300  # seconds a spawn worker may take for one sample
+# the one-clip chain timed by events: a short clip (n_fft 512), 5 s, 15 s
+CHAIN_CLIP_LENGTHS = (3000, 5 * SR, 15 * SR)
+CHAIN_PARAMS = (25.0, 25.0, 150.0, 6.0, 1.0)  # reverb, room, cents, gain, speed
+
+
+class TwinChecked:
+    """The ``kernels`` module as the effects chain's callers see it inside
+    ``kernels_against_twins``: K2's and K3's wrappers run as they are, and
+    then their plain twins on the same arguments; each call appends to
+    ``record`` K2's max |difference|, K3's over the largest output of its
+    twin, and K3's n_fft. The wrapper's launch is the caller's; the twins
+    launch nothing counted. Every other name is the module's."""
+
+    def __init__(self, record: dict):
+        from freesound_classification_tpu_torch.ops import kernels
+
+        self._kernels = kernels
+        self._record = record
+
+    def __getattr__(self, name: str):
+        return getattr(self._kernels, name)
+
+    def resample_linear(self, *args, **kwargs):
+        got = self._kernels.resample_linear(*args, **kwargs)
+        want = self._kernels.resample_linear_reference(*args, **kwargs)
+        self._record["K2"].append((got - want).abs().max().item())
+        return got
+
+    def pv_resynth(self, *args, **kwargs):
+        got = self._kernels.pv_resynth(*args, **kwargs)
+        want = self._kernels.pv_resynth_reference(*args, **kwargs)
+        self._record["K3"].append((got - want).abs().max().item()
+                                  / want.abs().max().item())
+        self._record["n_fft"].append(int(args[4].shape[1]))
+        return got
+
+
+@contextlib.contextmanager
+def kernels_against_twins(record: dict):
+    """Inside, the chain's two callers of K2 and K3 (``ops/augment.py``,
+    ``ops/pv.py``) reach them through ``TwinChecked(record)``."""
+    from freesound_classification_tpu_torch.ops import augment, pv
+
+    checked = TwinChecked(record)
+    saved = augment.kernels, pv.kernels
+    augment.kernels = pv.kernels = checked
+    try:
+        yield
+    finally:
+        augment.kernels, pv.kernels = saved
+
+
+class ChainProbe:
+    """The compat phase's ``AudioAugmentation``, wrapped: each call runs
+    with K2 and K3 held against their plain twins
+    (``kernels_against_twins``) and adds to the sample, as "probe", what
+    the call launched, those differences, K3's n_fft, the clip's lengths in
+    and out, and the DataLoader worker that read it (-1: the phase's own
+    process)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __call__(self, dataset=None, **inputs):
+        from freesound_classification_tpu_torch.ops import kernels
+
+        record = {"K2": [], "K3": [], "n_fft": []}
+        before = kernels.launch_counts()
+        with kernels_against_twins(record):
+            out = self.inner(dataset=dataset, **inputs)
+        after = kernels.launch_counts()
+        worker = torch.utils.data.get_worker_info()
+        out["probe"] = dict(
+            record, worker=-1 if worker is None else worker.id,
+            launches={WRAPPER_KERNEL[k]: after[k] - before[k] for k in after},
+            n_in=int(inputs["audio"].size), n_out=int(out["audio"].size))
+        return out
+
+
+def seed_compat_worker(worker_id: int) -> None:
+    """A spawn worker's numpy and ``random`` streams, from its id."""
+    import random
+
+    np.random.seed(worker_id)
+    random.seed(worker_id)
+
+
+def write_compat_clips(root: str) -> tuple:
+    """``COMPAT_LENGTHS`` clips as WAVs, and their labels of
+    ``COMPAT_CLASSES``."""
+    rng = np.random.RandomState(7)
+    clip_dir = os.path.join(root, "compat")
+    os.makedirs(clip_dir)
+    names = sorted(COMPAT_CLASSES)
+    files, labels = [], []
+    for i, n in enumerate(COMPAT_LENGTHS):
+        files.append(os.path.join(clip_dir, f"clip{i:02d}.wav"))
+        write_wav(files[-1], synthetic_clip(int(n), rng))
+        labels.append([names[i % 3]] if i % 4 else names[:2])
+    return files, labels
+
+
+def compat_run(files: list, labels: list, workers: int) -> tuple:
+    """The reference's train stack (``train_2d_cnn.py:310-322``:
+    LoadAudio, SampleLongAudio(15), MapLabels, ShuffleAudio, MixUp(0.5),
+    AudioAugmentation(1.0) on the card, AudioFeatures, DropFields) over a
+    ``SoundDataset`` of ``files``, read once through a
+    ``torch.utils.data.DataLoader`` with ``workers`` spawn workers (0: in
+    this process, after numpy's and ``random``'s seeds 0); returns (the
+    samples, the wall seconds)."""
+    import random
+
+    from freesound_classification_tpu_torch.data import transforms as tr
+    from freesound_classification_tpu_torch.data.sound_dataset import (
+        SoundDataset,
+    )
+
+    clean = [tr.LoadAudio(), tr.SampleLongAudio(max_length=15),
+             tr.MapLabels(class_map=COMPAT_CLASSES)]
+    transform = tr.Compose([
+        *clean, tr.ShuffleAudio(chunk_length=0.5, p=0.5), tr.MixUp(p=0.5),
+        ChainProbe(tr.AudioAugmentation(p=1.0, device=DEVICE)),
+        tr.AudioFeatures(FEATURES), tr.DropFields(("audio", "filename",
+                                                   "sr"))])
+    dataset = SoundDataset(files, labels=labels, transform=transform,
+                           clean_transform=tr.Compose(clean))
+    options = ({} if workers == 0 else dict(
+        num_workers=workers, multiprocessing_context="spawn",
+        worker_init_fn=seed_compat_worker, timeout=COMPAT_TIMEOUT))
+    np.random.seed(0)
+    random.seed(0)
+    t0 = time.time()
+    samples = list(torch.utils.data.DataLoader(dataset, batch_size=None,
+                                               **options))
+    torch.cuda.synchronize()
+    return samples, time.time() - t0
+
+
+def check_compat_samples(label: str, samples: list, workers: int) -> dict:
+    """Every sample of one compat run: a finite (n, 1) signal and (3,)
+    labels; K2 and K3 launched once for its chain call, and no other
+    kernel; each within its ``phase_k2``/``phase_k3`` tolerance of its
+    plain twin; read by the expected workers; and a chain call at n_fft
+    512. Returns the run's numbers."""
+    if len(samples) != len(COMPAT_LENGTHS):
+        raise RuntimeError(f"compat {label}: {len(samples)} samples")
+    k2_err = k3_rel = 0.0
+    n_ffts, workers_seen = set(), set()
+    for s in samples:
+        probe = s["probe"]
+        signal_ = s["signal"]
+        if (signal_.ndim != 2 or signal_.shape[1] != 1
+                or signal_.shape[0] != probe["n_out"]
+                or not torch.isfinite(signal_).all()
+                or tuple(s["labels"].shape) != (len(COMPAT_CLASSES),)):
+            raise RuntimeError(f"compat {label}: bad sample "
+                               f"{tuple(signal_.shape)} {probe}")
+        want = {k: int(k in ("K2", "K3")) for k in probe["launches"]}
+        if probe["launches"] != want:
+            raise RuntimeError(f"compat {label}: one chain call launched "
+                               f"{probe['launches']}, not K2 and K3 once")
+        k2_err = max(k2_err, *probe["K2"])
+        k3_rel = max(k3_rel, *probe["K3"])
+        n_ffts.update(probe["n_fft"])
+        workers_seen.add(probe["worker"])
+    log(f"compat {label}: {len(samples)} samples, chain inputs of "
+        f"{sorted(s['probe']['n_in'] for s in samples)} samples, K3 at "
+        f"n_fft {sorted(n_ffts)}; K2 and K3 once per chain call; K2 max "
+        f"|err| {k2_err:.3e} (tolerance {K2_TOL:g}), K3 max |err| "
+        f"{k3_rel:.3e} of the largest output (tolerance {K3_REL_TOL:g})")
+    if not k2_err <= K2_TOL:
+        raise RuntimeError(f"compat {label}: K2 disagrees: {k2_err}")
+    if not k3_rel <= K3_REL_TOL:
+        raise RuntimeError(f"compat {label}: K3 disagrees: {k3_rel}")
+    if 512 not in n_ffts:
+        raise RuntimeError(f"compat {label}: no chain call at n_fft 512")
+    if workers_seen != (set(range(workers)) if workers else {-1}):
+        raise RuntimeError(f"compat {label}: read by {workers_seen}")
+    return {"K2": len(samples), "K3": len(samples)}
+
+
+def phase_compat(root: str, smi: str) -> dict:
+    """M4.5 on the card: the reference's train stack with the port's chain
+    (``compat_run``) twice with no worker and once with ``COMPAT_WORKERS``
+    spawn workers, each checked (``check_compat_samples``) and its
+    samples/s printed; then the one-clip chain (``host_ops.effects_chain_with``) at
+    ``CHAIN_CLIP_LENGTHS``: ms by CUDA events and its device launches by
+    torch.profiler; and what ``dsp.iir_matrices`` holds after the run.
+    Returns the K2 and K3 launches of the two runs."""
+    from freesound_classification_tpu_torch.data import host_ops
+    from freesound_classification_tpu_torch.ops import dsp
+
+    t0 = time.time()
+    files, labels = write_compat_clips(root)
+    launches = collections.Counter()
+    # no worker twice: the first pass meets each buffer length for the
+    # first time (cuFFT plans, the IIR's matrices), the second does not
+    for label, workers in (("no worker, first pass", 0),
+                           ("no worker, second pass", 0),
+                           (f"{COMPAT_WORKERS} spawn workers",
+                            COMPAT_WORKERS)):
+        samples, wall = compat_run(files, labels, workers)
+        launches.update(check_compat_samples(label, samples, workers))
+        log(f"compat {label}: {len(samples) / wall:.3f} samples/s ({wall:.2f}"
+            f" s for {len(samples)} clips of {min(COMPAT_LENGTHS)}-"
+            f"{max(COMPAT_LENGTHS)} samples, decode, MixUp and the twin "
+            f"checks included"
+            + (", the workers' start included" if workers else "")
+            + f") on {smi}")
+    rng = np.random.RandomState(8)
+    for n in CHAIN_CLIP_LENGTHS:
+        clip = synthetic_clip(n, rng).astype(np.float32)
+
+        def chain():
+            return host_ops.effects_chain_with(clip, *CHAIN_PARAMS, sr=SR,
+                                               device=DEVICE)
+
+        ms = cuda_ms(chain, iters=10)
+        ops = device_kernels(chain, calls=3)
+        log(f"one-clip chain, {n} samples (buffer "
+            f"{host_ops.effects_buffer(n)}): {ms:.3f} ms by CUDA events "
+            f"(copies in and out included), "
+            f"{sum(k for _, _, k in ops):g} device launches a call, "
+            f"{sum(t for _, t, _ in ops):.3f} device ms; longest: "
+            + "; ".join(f"{name[:50]} {t:.4f} ms x{k:g}"
+                        for name, t, k in ops[:4]) + f" on {smi}")
+    log(f"dsp.iir_matrices after the compat phase: "
+        f"{dsp.iir_matrices.cache_info()} (one entry per chain buffer and "
+        f"device: the buffers here "
+        f"{sorted({host_ops.effects_buffer(n) for n in COMPAT_LENGTHS})} "
+        f"and the paths' own)")
+    log(f"compat phase: {time.time() - t0:.1f} s")
+    return dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# fold-ensemble inference on a mesh (M5.4)
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT = 300  # seconds for each CLI child and for the gloo ranks
+MESH_RANK_CHILD = """
+import sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+chip_smoke.mesh_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                     sys.argv[4])
+"""
+
+
+def mesh_rank(rank: int, rendezvous: str, inputs_path: str,
+              out: str) -> None:
+    """Rank ``rank`` of 2 sharing the card over a gloo group: the 5-fold
+    bf16 ensemble of the predict path over its decoded batches through
+    ``predict_loader(mesh=...)``, once to warm up and once timed with K1's
+    count from 0; saves the probabilities, K1's launches and the
+    seconds."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from freesound_classification_tpu_torch.cli import predict_2d_cnn
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
+
+    device = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        with open(inputs_path) as f:
+            inputs = json.load(f)
+        mesh = mesh_lib.Mesh(rank, 2, dist.group.WORLD, device)
+        host = decoded_batches(inputs)
+        predictor = predict_2d_cnn.build_predictor(
+            inputs["experiment"], device, dtype=torch.bfloat16)
+        predictor.predict_loader(host, mesh=mesh)
+        kernels.mel_project_log.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        probs = predictor.predict_loader(host, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.save({"probs": probs, "seconds": time.time() - t0,
+                    "K1": kernels.mel_project_log.launches,
+                    "batches": len(host)}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cli_children(root: str, inputs: dict, plain_k1: int,
+                      plain_probs: np.ndarray, smi: str) -> None:
+    """The predict path's CLI as a child, then under ``torchrun
+    --standalone --nproc_per_node 1 ... --mesh_devices 1`` (NCCL), each
+    with its launches through ``$FSC_LAUNCH_LOG``: the torchrun CSV equals
+    the in-process CLI's within ``ENSEMBLE_BF16_TOL``, K1's launches equal
+    its, rank 0 alone reports; each child's predict loop clips/s (the
+    CLI's line) and wall."""
+    module = "freesound_classification_tpu_torch.cli.predict_2d_cnn"
+    runs = {}
+    for name in ("plain", "torchrun"):
+        out_csv = os.path.join(root, f"mesh_{name}.csv")
+        log_path = os.path.join(root, f"mesh_{name}_launches.jsonl")
+        argv = ["--experiment", inputs["experiment"],
+                "--test_df", inputs["test_csv"],
+                "--test_data_dir", inputs["test_dir"],
+                "--classmap", inputs["classmap"], "--output_df", out_csv,
+                "--max_batch_elems", str(MAX_BATCH_ELEMS),
+                "--num_workers", "4", "--device", DEVICE, "--bf16"]
+        cmd = ([sys.executable, "-m", module, *argv] if name == "plain" else
+               [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m", module, *argv,
+                "--mesh_devices", "1"])
+        t0 = time.time()
+        rc, out, _ = run_logged(cmd, dict(os.environ, FSC_LAUNCH_LOG=log_path),
+                                MESH_TIMEOUT)
+        wall = time.time() - t0
+        if rc != 0:
+            raise RuntimeError(f"the {name} predict CLI exited {rc}:\n"
+                               f"{out[-4000:]}")
+        with open(log_path) as f:
+            records = [json.loads(line) for line in f]
+        rate = re.search(r"predicted in ([0-9.]+) s, ([0-9.]+) clips/s", out)
+        if len(records) != 1 or rate is None:
+            raise RuntimeError(f"the {name} predict CLI: {len(records)} "
+                               f"launch records, output {out[-2000:]}")
+        _, fnames, probs = read_predictions(out_csv)
+        runs[name] = {"rank": records[0].get("rank"), "wall": wall,
+                      "K1": records[0]["launches"]["mel_project_log"],
+                      "rate": float(rate.group(2)), "fnames": fnames,
+                      "diff": float(np.abs(probs - plain_probs).max())}
+    for name, run in runs.items():
+        log(f"predict CLI child, {name}: {run['rate']:.2f} clips/s in its "
+            f"predict loop, {N_CLIPS / run['wall']:.2f} clips/s over the "
+            f"child's {run['wall']:.2f} s wall (start and model load "
+            f"included); K1 {run['K1']} launches; its CSV against the "
+            f"in-process CLI's: max |dp| {run['diff']:.3e} on {smi}")
+    for name, run in runs.items():
+        if run["rank"] != 0:
+            raise RuntimeError(f"the {name} child's launch record is rank "
+                               f"{run['rank']}'s")
+        if run["fnames"] != inputs["fnames"]:
+            raise RuntimeError(f"the {name} child's CSV rows")
+        if not run["diff"] <= ENSEMBLE_BF16_TOL:
+            raise RuntimeError(f"the {name} child's CSV disagrees: "
+                               f"{run['diff']}")
+        if run["K1"] != plain_k1:
+            raise RuntimeError(f"the {name} child launched K1 {run['K1']} "
+                               f"times, the plain CLI {plain_k1}")
+    log(f"torchrun predict CLI (1 NCCL rank) against the plain CLI child: "
+        f"{runs['torchrun']['rate'] / runs['plain']['rate']:.3f}x in the "
+        f"predict loop on {smi}")
+
+
+def mesh_gloo_ranks(root: str, inputs: dict, plain_k1: int,
+                    plain_probs: np.ndarray, smi: str) -> None:
+    """Two ranks sharing the card over a gloo group (NCCL refuses two ranks
+    on one card), each a process running ``mesh_rank``: both return the
+    same probabilities, within ``ENSEMBLE_BF16_TOL`` of the predict path's
+    CSV, and each launched K1 once a batch, as the plain CLI; clips/s of
+    the pair's timed pass."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="mesh_ranks_", dir=root)
+    inputs_path = os.path.join(work, "inputs.json")
+    with open(inputs_path, "w") as f:
+        json.dump(inputs, f)
+    t0 = time.time()
+    procs, logs = [], []
+    for rank in range(2):
+        logs.append(open(os.path.join(work, f"rank{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MESH_RANK_CHILD, str(rank),
+             os.path.join(work, "rendezvous"), inputs_path,
+             os.path.join(work, f"rank{rank}.pt")],
+            cwd=here, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        for proc in procs:
+            proc.wait(timeout=MESH_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    for rank, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(work, f"rank{rank}.log")) as f:
+                raise RuntimeError(f"gloo predict rank {rank} exited "
+                                   f"{proc.returncode}:\n{f.read()[-4000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    diff = float(np.abs(ranks[0]["probs"] - plain_probs).max())
+    log(f"2 gloo ranks on the card, predict_loader(mesh=...): "
+        f"{time.time() - t0:.1f} s for the pair; timed pass over the "
+        f"decoded batches {N_CLIPS / max(r['seconds'] for r in ranks):.2f} "
+        f"clips/s (one process: the predict path's device sweep); K1 "
+        f"{[r['K1'] for r in ranks]} launches over {ranks[0]['batches']} "
+        f"batches (plain CLI {plain_k1}); max |dp| against the predict "
+        f"path's CSV {diff:.3e} (tolerance {ENSEMBLE_BF16_TOL:g}) on {smi}")
+    if not np.array_equal(ranks[0]["probs"], ranks[1]["probs"]):
+        raise RuntimeError("2 gloo predict ranks returned different rows")
+    if not diff <= ENSEMBLE_BF16_TOL:
+        raise RuntimeError(f"2 gloo predict ranks disagree: {diff}")
+    if [r["K1"] for r in ranks] != [plain_k1] * 2:
+        raise RuntimeError(f"2 gloo predict ranks launched K1 "
+                           f"{[r['K1'] for r in ranks]} times, not "
+                           f"{plain_k1} each")
+
+
+def phase_mesh_predict(root: str, inputs: dict, plain_k1: int,
+                       plain_probs: np.ndarray, smi: str) -> None:
+    """M5.4 on the one card: the predict CLI as one NCCL rank under
+    ``torchrun`` beside the plain CLI, and ``predict_loader`` on two gloo
+    ranks sharing the card."""
+    t0 = time.time()
+    mesh_cli_children(root, inputs, plain_k1, plain_probs, smi)
+    mesh_gloo_ranks(root, inputs, plain_k1, plain_probs, smi)
+    log(f"mesh predict phase: {time.time() - t0:.1f} s")
+
+
 def phase_tta(root: str, inputs: dict, experiment: str, smi: str) -> None:
     """The predict CLI on ``phase_train``'s fold over its own labelled
     clips, bf16: ``--n_tta 1`` bit for bit the ensemble's clean pass as the
@@ -3689,6 +4150,8 @@ def main() -> None:
             f"{N_FOLDS} folds of each family; {N_TRAIN_CLIPS} labelled "
             f"clips of 8.5-15 s ({time.time() - t0:.1f} s to write)")
         k1["launches"], probs_2d = phase_main_path(root, inputs, smi)
+        phase_mesh_predict(root, inputs, k1["launches"], probs_2d, smi)
+        compat = phase_compat(root, smi)
         host = decoded_batches(inputs)
         k45["launches"] = fused_ensemble(
             "2d", "2d_cnn", inputs["experiment"], probs_2d, host,
@@ -3715,7 +4178,7 @@ def main() -> None:
         ssl = phase_ssl(root, train_inputs, smi)
         adversarial_k1 = phase_adversarial(root, train_inputs, inputs, smi)
         log(f"new paths' launches: rnn {rnn}, ssl {ssl}, adversarial K1 "
-            f"{adversarial_k1}")
+            f"{adversarial_k1}, compat {compat}")
     k2["launches"], k3["launches"] = train["K2"], train["K3"]
     k9["launches"] = phase_probe(smi)
     phase_bench(smi)

@@ -30,8 +30,11 @@ Data parallel (``data_parallel``, JAX's ``--mesh_devices``): under
 process with one card, the train loaders' batch sizes are trimmed to a
 multiple of N, and the ``Engine`` steps on each rank's slice of the global
 batch (``parallel/mesh.py``); rank 0 alone prints the per-fold lines and
-writes the experiment's files. Without ``torchrun`` the run is today's
-single process, and ``--mesh_devices`` above 1 raises.
+writes the experiment's files. The predict and evaluate CLIs take the
+same flag: each rank predicts its slice of every batch's rows
+(``EnsemblePredictor.predict_loader(mesh=...)``), and rank 0 prints and
+writes. Without ``torchrun`` the run is today's single process, and
+``--mesh_devices`` above 1 raises.
 ``refuse_unported`` raises on ``--fold_parallel`` over more than one rank
 (ROADMAP M5.2's multi-rank fold layouts), the one part not ported yet.
 ``log_launches_at_exit`` lets a run of several CLI processes (the recipe
@@ -199,7 +202,14 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
     add("--fold_parallel", action="store_true", default=False,
         help="train every fold of --folds together as one stacked model "
              "on the card (training/multifold.py)")
-    add("--mesh_devices", type=int, default=None,
+    add_mesh_argument(parser)
+
+
+def add_mesh_argument(parser: argparse.ArgumentParser) -> None:
+    """``--mesh_devices``, the ranks ``torchrun`` started
+    (``data_parallel``)."""
+    parser.add_argument(
+        "--mesh_devices", type=int, default=None,
         help="data-parallel ranks, one process and one card each: launch "
              "with torchrun --nproc_per_node N ... --mesh_devices N "
              "(default: torchrun's world size, 1 without it)")

@@ -12,6 +12,12 @@ averaging ``--n_tta`` passes as the predict CLI does, and prints each
 fold's lwlrap, their mean and the lwlrap of all folds' predictions
 together; ``--per_class`` adds the per-class lwlrap and weight, sorted by
 lwlrap. On CUDA the log-mel frontend runs K1, once a batch and pass.
+
+On several ranks: ``torchrun --nproc_per_node N -m
+freesound_classification_tpu_torch.cli.evaluate_2d_cnn ... --mesh_devices
+N``, as the predict CLI: each rank predicts its slice of every batch's rows
+and gathers the rest, rank 0 prints, and ``main()`` returns the same
+metrics on every rank.
 """
 
 from __future__ import annotations
@@ -63,10 +69,15 @@ def main(argv=None) -> dict:
                         help="print the per-class lwlrap decomposition")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=("cuda", "cpu"))
+    common.add_mesh_argument(parser)
     args = parser.parse_args(argv)
     common.reject_degenerate_tta(parser, args)
-    device = common.resolve_device(args.device)
+    with common.data_parallel(args) as mesh:
+        return _evaluate(args, mesh)
 
+
+def _evaluate(args, mesh) -> dict:
+    device = mesh.device
     experiment = Experiment(resume_from=args.experiment)
     class_map = load_classmap(args.classmap)
     n_folds = int(experiment.config.data._n_folds)
@@ -89,7 +100,8 @@ def main(argv=None) -> dict:
             classmap=class_map, sr=common.SR,
             max_audio_length=args.tta_max_audio_length if crops else None,
             seed=kfold_seed + fold)
-        # train mode draws a fresh crop every TTA pass
+        # train mode draws a fresh crop every TTA pass; every rank reads
+        # the global batches, and the ensemble splits their rows
         loader = make_loader(ds, ladder, batch_size=args.batch_size,
                              train=crops, shuffle=False, drop_last=False,
                              num_workers=args.num_workers)
@@ -98,7 +110,7 @@ def main(argv=None) -> dict:
         preds = predictor.predict_loader(
             loader, tta_fn=tta_fn,
             generator=torch.Generator(device=device).manual_seed(1000 * fold),
-            n_tta=args.n_tta)
+            n_tta=args.n_tta, mesh=mesh)
         labels = binarize_label_strings(
             [cell_text(label_cells[i]) for i in valid_idx], class_map)
         m = lwlrap(labels, preds)

@@ -23,12 +23,21 @@ runs the eval resnet blocks through the fused kernels (K4/K5 in 2d, K6 in
 1d, K7 in the backbone) and ``fused_head=True`` the 2d block0 head through
 K8; they are library options with no flag, off by default, as in the JAX
 package.
+
+On several ranks (JAX's ``--mesh_devices``): ``torchrun --nproc_per_node N
+-m freesound_classification_tpu_torch.cli.predict_2d_cnn ... --mesh_devices
+N``, one rank per card (NCCL; gloo with ``--device cpu``). Every rank reads
+every batch, predicts its slice of the rows and gathers the rest, and rank 0
+writes the CSV and prints. JAX's ``--no_vmap_folds`` has no counterpart: the
+folds already run in turn on shared features, and the mesh splits rows, not
+folds.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import torch
 
@@ -76,6 +85,7 @@ def add_predict_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--folds", type=int, nargs="+", default=None,
                         help="folds to ensemble (default: all n_folds)")
     common.add_tta_arguments(parser)
+    common.add_mesh_argument(parser)
 
 
 def fold_weight_paths(experiment: Experiment, folds=None) -> list:
@@ -133,11 +143,16 @@ def main(argv=None) -> None:
     add_predict_arguments(parser)
     args = parser.parse_args(argv)
     common.reject_degenerate_tta(parser, args)
-    device = common.resolve_device(args.device)
+    with common.data_parallel(args) as mesh:
+        _predict(args, mesh)
 
+
+def _predict(args, mesh) -> None:
+    device = mesh.device
     class_names = class_names_from_classmap(load_classmap(args.classmap))
     fnames, files = read_manifest(args.test_df, args.test_data_dir)
     tta = args.n_tta > 1
+    # every rank reads the global batches: the ensemble splits their rows
     loader = make_loader(
         ClipDataset(files, sr=common.SR,
                     max_audio_length=args.tta_max_audio_length if tta
@@ -156,12 +171,17 @@ def main(argv=None) -> None:
     tta_fn = (common.make_tta_fn(args.tta_noise_snr_db, args.tta_shift_max_s,
                                  shuffle_p=args.tta_shuffle_p)
               if tta else None)
+    t0 = time.perf_counter()
     probs = predictor.predict_loader(
         loader, tta_fn=tta_fn,
         generator=torch.Generator(device=device).manual_seed(0),
-        n_tta=args.n_tta)
-    common.write_predictions(args.output_df, fnames, class_names, probs)
-    print(f"wrote {args.output_df}")
+        n_tta=args.n_tta, mesh=mesh)
+    seconds = time.perf_counter() - t0
+    if mesh.is_writer:
+        common.write_predictions(args.output_df, fnames, class_names, probs)
+    # decode and the ensemble, the models' load and the CSV left out
+    print(f"wrote {args.output_df}: {len(fnames)} clips predicted in "
+          f"{seconds:.3f} s, {len(fnames) / seconds:.2f} clips/s")
 
 
 if __name__ == "__main__":

@@ -35,6 +35,12 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(audio, dtype=np.float32), int(sr)
 
 
+def read_audio(path: str) -> Tuple[np.ndarray, int]:
+    """The reference's ``read_audio`` (``librosa.load(sr=None)``), on WAV
+    files: ``read_wav``."""
+    return read_wav(path)
+
+
 def wav_length(path: str) -> Tuple[int, int]:
     """(n_frames, sample_rate) from the WAV header only."""
     with wave.open(path, "rb") as w:

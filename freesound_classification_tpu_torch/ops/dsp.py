@@ -44,6 +44,11 @@ class FeatureDescriptor(NamedTuple):
             return self.n_fft // 2 + 1
         return 1
 
+    @property
+    def padding_value(self) -> float:
+        """What a padded frame holds (JAX ``FeatureDescriptor``)."""
+        return 0.0
+
 
 def parse_features(descriptor: str) -> FeatureDescriptor:
     """Parse "mel_<nfft>_<hop>_<nmel>", "stft_<nfft>_<hop>" or "raw"."""

@@ -83,7 +83,8 @@ REQUIRED = ("cli.train_hierarchical_cnn", "cli.finetune_hierarchical_cnn",
             "cli.compare_to_baseline", "models.apc", "models.cpc",
             "models.adversarial", "utils.projection", "cli.ssl_common",
             "cli.train_apc", "cli.train_cpc", "cli.adversarial_test",
-            "parallel.mesh")
+            "parallel.mesh", "data.host_ops", "data.transforms",
+            "data.sound_dataset", "data.audio_io", "training.ensemble")
 
 
 def test_every_port_module_imports_with_the_jax_stack_blocked():
