@@ -43,6 +43,9 @@ The paths, each driven through the CLI a user would call:
   the recipe's 2d train CLI over the five folds as one stacked model; the
   stacked step against the five single-fold steps in turns
   (``probes/fold_parallel.py``); its float32 truth; its resume.
+- fold-parallel training over ranks (``FoldMesh``): 4 folds on two gloo
+  ranks sharing the card, against one process; the fold-parallel train
+  CLI on one NCCL rank under ``torchrun``.
 - inference on a mesh: the predict CLI under ``torchrun`` on one NCCL
   rank, and the fold ensemble's ``predict_loader(mesh=...)`` on two gloo
   ranks sharing the card.
@@ -148,8 +151,8 @@ Phases, each of which raises on failure (none catches its own):
      of each fold's largest) against the single-fold steps', from
      ``phase_f32_step``'s weights on 5 of its batches, each beside the
      single step's own spread on reversed rows; and the resume phase's
-     runs over the five folds stacked (every fold's final weights within
-     RESUME_WEIGHT_TOL of the straight run's)
+     runs over three of the folds stacked (every fold's final weights
+     within RESUME_WEIGHT_TOL of the straight run's)
   data parallel (M5.1): the train path's CLI under ``torchrun
      --standalone --nproc_per_node 1 ... --mesh_devices 1`` (NCCL's
      process group and collectives, rank-0 writes): the train path's
@@ -159,6 +162,20 @@ Phases, each of which raises on failure (none catches its own):
      one process: loss 1e-4, gradients 1e-2 of the model's largest,
      BatchNorm statistics 1e-4 of each tensor's largest, and the ranks'
      gradients and statistics equal
+  fold mesh (M5.2a): two ranks sharing cuda:0 over a gloo group, each a
+     process training 2 of 4 folds (8, 6, 7 and 8 clips x 5 s, float32,
+     the predict path's width, the recipe's augmentation) on its
+     ``FoldMesh``: K1 once a stacked step and K2 and K3 twice on each
+     rank, each call held against its plain twin on the same arguments;
+     the losses of 2 steps within 1e-4 of the one process stacking all 4,
+     the last gradients within 1e-2 of each fold's largest of the one
+     process stacking the rank's folds alone (the stack of all 4 printed
+     beside: float32's rounding of the stack width); each rank's stacked
+     steps/s beside the one process's; then the train path's CLI with
+     ``--fold_parallel --folds 0 1`` for 1 epoch under ``torchrun
+     --standalone --nproc_per_node 1`` (one NCCL rank, the layout path)
+     and as a plain child at once: the same files and launches, each
+     fold's final weights within RESUME_WEIGHT_TOL
   profile: the train CLI at the recipe's width with ``--profile``, 2
      epochs of fold 0 apart from the train path: a trace of epoch 1 under
      ``summaries/profile`` that names K1, K2 and K3
@@ -211,7 +228,8 @@ Phases, each of which raises on failure (none catches its own):
   8. float32 step: one train step (no augmentation, TF32 off) on the card
      against the same step on the CPU: loss 1e-4, gradients over the
      model's largest gradient 1e-2
-Then one JSON line of the kernels, and last the device line. Kernel times
+Each phase ends with a ``phase <name>: <seconds> s`` line. Then one JSON
+line of the kernels, and last the device line. Kernel times
 are CUDA-event means in turns (kernel, plain, plain, kernel). Exits non-zero
 with no result when CUDA is not available.
 
@@ -1337,19 +1355,61 @@ def synthetic_clip_lengths(n: int, seed: int = 0) -> np.ndarray:
     return (secs * SR).astype(np.int64)
 
 
+def clip_draws(n: int, rng: np.random.RandomState) -> tuple:
+    """What ``synthetic_clip`` draws from ``rng``, in its order: the noise,
+    its spectral tilt, three (amplitude, frequency) tones, the level."""
+    noise = rng.randn(n)
+    tilt = rng.uniform(0.0, 1.5)
+    tones = [(rng.uniform(0.0, 2.0), rng.uniform(60.0, 12000.0))
+             for _ in range(3)]
+    return noise, tilt, tones, rng.uniform(-3.0, -0.5)
+
+
 def synthetic_clip(n: int, rng: np.random.RandomState) -> np.ndarray:
     """One clip whose log-mel image differs from its neighbours': noise with
     a random spectral tilt plus three tones, at a level drawn over 50 dB, so
     the random-weight model's outputs vary across clips."""
-    spectrum = np.fft.rfft(rng.randn(n))
-    spectrum *= np.arange(1, spectrum.size + 1) ** -rng.uniform(0.0, 1.5)
+    noise, tilt, tones, level = clip_draws(n, rng)
+    spectrum = np.fft.rfft(noise)
+    spectrum *= np.arange(1, spectrum.size + 1) ** -tilt
     noise = np.fft.irfft(spectrum, n)
     t = np.arange(n) / SR
-    tones = sum(rng.uniform(0.0, 2.0)
-                * np.sin(2 * np.pi * rng.uniform(60.0, 12000.0) * t)
-                for _ in range(3))
-    audio = noise / noise.std() + tones
-    return audio * (10.0 ** rng.uniform(-3.0, -0.5) / np.abs(audio).max())
+    audio = noise / noise.std() + sum(
+        amp * np.sin(2 * np.pi * freq * t) for amp, freq in tones)
+    return audio * (10.0 ** level / np.abs(audio).max())
+
+
+def wav_job(path: str, n: int, rng: np.random.RandomState,
+            tones: tuple = (), scale: float = 1.0) -> tuple:
+    """A ``render_wav`` job for the next ``synthetic_clip(n, rng)``: the
+    generator's state at the clip, which then moves past the clip's draws
+    as ``synthetic_clip`` moves it."""
+    state = rng.get_state()
+    clip_draws(n, rng)
+    return path, n, state, tuple(tones), scale
+
+
+def render_wav(job: tuple) -> None:
+    """Write ``scale`` x (the job's ``synthetic_clip`` plus 0.2 x a sine of
+    each of its tone frequencies, added in turn) as a WAV."""
+    path, n, state, tones, scale = job
+    rng = np.random.RandomState()
+    rng.set_state(state)
+    audio = synthetic_clip(n, rng)
+    t = np.arange(n) / SR
+    for freq in tones:
+        audio = audio + 0.2 * np.sin(2 * np.pi * freq * t)
+    write_wav(path, scale * audio if scale != 1.0 else audio)
+
+
+def render_wavs(jobs: list) -> None:
+    """``render_wav`` over ``jobs`` on a thread a core: the FFTs of awkward
+    lengths and the sines dominate, and numpy runs them without the
+    interpreter lock. The same bytes as in turn."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(render_wav, jobs))
 
 
 def write_wav(path: str, audio: np.ndarray) -> None:
@@ -1368,11 +1428,12 @@ def write_inputs(root: str) -> dict:
     rng = np.random.RandomState(1)
     test_dir = os.path.join(root, "test")
     os.makedirs(test_dir)
-    fnames = []
+    fnames, jobs = [], []
     for i, n in enumerate(synthetic_clip_lengths(N_CLIPS)):
         fname = f"clip{i:03d}.wav"
-        write_wav(os.path.join(test_dir, fname), synthetic_clip(n, rng))
+        jobs.append(wav_job(os.path.join(test_dir, fname), int(n), rng))
         fnames.append(fname)
+    render_wavs(jobs)
     test_csv = os.path.join(root, "test.csv")
     with open(test_csv, "w", newline="") as f:
         writer = csv.writer(f)
@@ -1565,18 +1626,16 @@ def write_train_inputs(root: str) -> dict:
     train_dir = os.path.join(root, "train")
     os.makedirs(train_dir)
     classes = [f"class_{c}" for c in range(TRAIN_CLASSES)]
-    rows = []
+    rows, jobs = [], []
     for i in range(N_TRAIN_CLIPS):
         n = int(rng.uniform(*TRAIN_SECONDS) * SR)
         label = [i % TRAIN_CLASSES] + ([(i * 3 + 1) % TRAIN_CLASSES]
                                        if i % 4 == 0 else [])
-        t = np.arange(n) / SR
-        audio = synthetic_clip(n, rng)
-        for c in label:
-            audio = audio + 0.2 * np.sin(2 * np.pi * 300.0 * (c + 1) * t)
         fname = f"train{i:03d}.wav"
-        write_wav(os.path.join(train_dir, fname), 0.5 * audio)
+        jobs.append(wav_job(os.path.join(train_dir, fname), n, rng,
+                            [300.0 * (c + 1) for c in label], 0.5))
         rows.append((fname, ",".join(classes[c] for c in sorted(set(label)))))
+    render_wavs(jobs)
     train_csv = os.path.join(root, "train.csv")
     with open(train_csv, "w", newline="") as f:
         writer = csv.writer(f)
@@ -2132,19 +2191,17 @@ def write_recipe_layout(root: str, curated: dict) -> dict:
         g.write(f.read())
     classes = curated["classes"]
     rng = np.random.RandomState(21)
-    rows = []
+    rows, jobs = [], []
     for i in range(RECIPE_NOISY):
         n = int(rng.uniform(*TRAIN_SECONDS) * SR)
         c = int(rng.randint(TRAIN_CLASSES))
-        t = np.arange(n) / SR
-        audio = synthetic_clip(n, rng) + 0.2 * np.sin(
-            2 * np.pi * 300.0 * (c + 1) * t)
+        fname = f"noisy{i:03d}.wav"
+        jobs.append(wav_job(os.path.join(data, "train_noisy", fname), n,
+                            rng, [300.0 * (c + 1)], 0.5))
         label = {c}
         if i % 3 == 0:  # a wrong label, or an extra one
             other = (c + 1 + i // 3 % (TRAIN_CLASSES - 1)) % TRAIN_CLASSES
             label = {other} if i % 2 == 0 else {c, other}
-        fname = f"noisy{i:03d}.wav"
-        write_wav(os.path.join(data, "train_noisy", fname), 0.5 * audio)
         rows.append((fname, ",".join(classes[k] for k in sorted(label))))
     with open(os.path.join(data, "train_noisy.csv"), "w", newline="") as f:
         writer = csv.writer(f)
@@ -2153,8 +2210,9 @@ def write_recipe_layout(root: str, curated: dict) -> dict:
     test = []
     for i, n in enumerate(synthetic_clip_lengths(RECIPE_TEST, seed=22)):
         fname = f"test{i:03d}.wav"
-        write_wav(os.path.join(data, "test", fname), synthetic_clip(n, rng))
+        jobs.append(wav_job(os.path.join(data, "test", fname), int(n), rng))
         test.append(fname)
+    render_wavs(jobs)
     with open(os.path.join(data, "sample_submission.csv"), "w",
               newline="") as f:
         writer = csv.writer(f)
@@ -2500,16 +2558,23 @@ def phase_resume(root: str, inputs: dict, smi: str) -> None:
                            f"run, {d_other} from another run")
 
 
-def fold_parallel_argv(argv: list) -> list:
-    """A train CLI's argv with the five folds trained together."""
-    return [*argv, "--folds", *map(str, range(N_FOLDS)), "--fold_parallel"]
+# the folds of the fold-parallel resume: 3 of the 5 (the depth the whole
+# smoke's time allows; the CLI and the turns stack all 5)
+RESUME_FOLDS = 3
 
 
-def fold_finals(experiment_dir: str) -> list:
-    """``final_params`` of each of the experiment's ``N_FOLDS`` folds."""
+def fold_parallel_argv(argv: list, n_folds: int = N_FOLDS) -> list:
+    """A train CLI's argv with folds 0 to ``n_folds`` - 1 trained
+    together."""
+    return [*argv, "--folds", *map(str, range(n_folds)), "--fold_parallel"]
+
+
+def fold_finals(experiment_dir: str, n_folds: int = N_FOLDS) -> list:
+    """``final_params`` of each of the experiment's first ``n_folds``
+    folds."""
     return [final_params(os.path.join(experiment_dir, "checkpoints",
                                       f"fold_{k}"))
-            for k in range(N_FOLDS)]
+            for k in range(n_folds)]
 
 
 def fold_parallel_cli(root: str, inputs: dict, smi: str) -> dict:
@@ -2543,9 +2608,9 @@ def fold_parallel_cli(root: str, inputs: dict, smi: str) -> dict:
     stack_batches = multifold.stack_batches
     stack_s = []
 
-    def timed_stack(batches):
+    def timed_stack(batches, shape=None):
         t0 = time.perf_counter()
-        out = stack_batches(batches)
+        out = stack_batches(batches, shape)
         stack_s.append(time.perf_counter() - t0)
         return out
 
@@ -2721,8 +2786,8 @@ def fold_parallel_truth() -> None:
 
 
 def fold_parallel_resume(root: str, inputs: dict, smi: str) -> None:
-    """``resume_argv`` over the five folds with ``--fold_parallel``: (i)
-    straight through; (ii) a child SIGKILLed once its epoch-0 stacked
+    """``resume_argv`` over ``RESUME_FOLDS`` folds with ``--fold_parallel``:
+    (i) straight through; (ii) a child SIGKILLed once its epoch-0 stacked
     bundle (a partial mean in it) is on disk, then run again with
     ``--resume``: epoch 1 only, K1-K3 launched, (i)'s ``global_step``,
     every fold's final weights within ``RESUME_WEIGHT_TOL`` of (i)'s."""
@@ -2737,7 +2802,7 @@ def fold_parallel_resume(root: str, inputs: dict, smi: str) -> None:
     torch.cuda.empty_cache()
     t0 = time.time()
     straight = train_2d_cnn.main(fold_parallel_argv(
-        resume_argv(inputs, os.path.join(base, "straight"))))
+        resume_argv(inputs, os.path.join(base, "straight")), RESUME_FOLDS))
     torch.cuda.synchronize()
     straight_s = time.time() - t0
     want = checkpoints.load_bundle(os.path.join(
@@ -2751,7 +2816,8 @@ def fold_parallel_resume(root: str, inputs: dict, smi: str) -> None:
         proc = subprocess.Popen(
             [sys.executable, "-m",
              "freesound_classification_tpu_torch.cli.train_2d_cnn",
-             *fold_parallel_argv(resume_argv(inputs, killed))],
+             *fold_parallel_argv(resume_argv(inputs, killed),
+                                 RESUME_FOLDS)],
             cwd=here, stdout=out, stderr=subprocess.STDOUT,
             start_new_session=True)
         try:
@@ -2786,15 +2852,15 @@ def fold_parallel_resume(root: str, inputs: dict, smi: str) -> None:
         fn.launches = 0
     t0 = time.time()
     resumed = train_2d_cnn.main(fold_parallel_argv(
-        resume_argv(inputs, killed)) + ["--resume"])
+        resume_argv(inputs, killed), RESUME_FOLDS) + ["--resume"])
     torch.cuda.synchronize()
     resumed_s = time.time() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
     got = checkpoints.load_bundle(bundle_path)
     epochs_run = len(resumed.results["fold0"]["train_steps"])
     d_same = [float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in
-              zip(fold_finals(resumed.experiment_dir),
-                  fold_finals(straight.experiment_dir))]
+              zip(fold_finals(resumed.experiment_dir, RESUME_FOLDS),
+                  fold_finals(straight.experiment_dir, RESUME_FOLDS))]
     log(f"fold-parallel resume: (i) {straight_s:.1f} s; (ii) killed at "
         f"{kill_s:.1f} s with its epoch-0 bundle (micro-step "
         f"{at_kill['micro_step']} of 2, global_step "
@@ -3029,6 +3095,393 @@ def phase_data_parallel(root: str, inputs: dict, train_files: set,
     data_parallel_cli(root, inputs, train_files, train_experiment, smi)
     data_parallel_step()
     log(f"data-parallel phase: {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# fold-parallel training over ranks, one fold group a rank (M5.2a)
+# ---------------------------------------------------------------------------
+
+FOLD_MESH_ROWS = (8, 6, 7, 8)  # 4 folds, 2 a rank: each fold's clips a batch
+FOLD_MESH_SECONDS = 5
+FOLD_MESH_BATCHES = 2  # a fold's batches: the compared epoch's steps
+FOLD_MESH_TIMEOUT = 300  # seconds for the gloo ranks and the CLI children
+# the compared steps' learning rate: small enough that the first update does
+# not amplify the stack width's float32 rounding (2 or 4 folds a stack: at
+# 1e-3 the second step's gradients parted by 15-28% of a fold's largest on
+# an NVIDIA H100), so that the second step still checks what the ranks
+# must reproduce (the generators' draws, the MixUp pool, the padding) at
+# STEP_TOL_LOSS and STEP_TOL_GRAD
+FOLD_MESH_LR = 1e-6
+FOLD_MESH_RANK_CHILD = """
+import sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+chip_smoke.fold_mesh_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                          sys.argv[4])
+"""
+
+
+def fold_mesh_batches() -> list:
+    """Each fold's ``FOLD_MESH_BATCHES`` batches of ``FOLD_MESH_ROWS``
+    synthetic clips of ``FOLD_MESH_SECONDS`` (``f32_step_batch``'s kind),
+    from one seed: a fold's batches as its loader yields them."""
+    rng = np.random.RandomState(17)
+    folds = []
+    for rows in FOLD_MESH_ROWS:
+        batches = []
+        for _ in range(FOLD_MESH_BATCHES):
+            wave, lengths, labels = f32_step_batch(rng, rows,
+                                                   FOLD_MESH_SECONDS)
+            batches.append({"signal": wave, "lengths": lengths,
+                            "labels": labels, "index": np.arange(rows)})
+        folds.append(batches)
+    return folds
+
+
+def fold_mesh_steps(fold_mesh, device, folds: list,
+                    alone: list | None = None) -> dict:
+    """The stacked engine at ``NETWORK``'s width over ``FEATURES`` (float32,
+    dropout 0, weights from a seed), the recipe's augmentation (MixUp 0.5,
+    the chain 0.75, chunk shuffle 0.5), momentum at lr ``FOLD_MESH_LR``:
+    on ``fold_mesh``'s rank over its own folds; in one process over all of
+    them with ``fold_mesh`` None; or, with ``alone`` (a rank's fold
+    positions), in one process over those folds alone, told what the job
+    gives them (their generators' seeds by position, the job's step count
+    and each step's (rows, length) over all folds). One epoch of
+    ``FOLD_MESH_BATCHES`` steps with every kernel wrapper's count from 0
+    and every call of K1, K2 and K3 held against its plain twin on the
+    same arguments (``kernels_against_twins``; the twins launch nothing
+    counted), then a second one timed. Returns each owned fold's per-step
+    losses and last gradients, the first epoch's launches, each kernel's
+    largest difference from its twin and the timed epoch's stacked
+    steps/s."""
+    import types
+
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.models.classifiers import (
+        TwoDimensionalCNN,
+    )
+    from freesound_classification_tpu_torch.models.frontend import Frontend
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.ops.augment import (
+        AugmentConfig,
+        make_augmenter,
+    )
+    from freesound_classification_tpu_torch.training.engine import Engine
+    from freesound_classification_tpu_torch.training.multifold import (
+        MultiFoldEngine,
+    )
+
+    net = {k: v for k, v in NETWORK.items() if k != "output_dropout"}
+    params, stats = interop.random_jax_variables(
+        **net, n_classes=TRAIN_CLASSES, seed=13)
+    model = TwoDimensionalCNN(**dict(NETWORK, output_dropout=0.0),
+                              n_classes=TRAIN_CLASSES)
+    model.load_state_dict(interop.from_jax_variables(params, stats))
+    record = {"K1": [], "K2": [], "K3": [], "n_fft": []}
+    checking = [True]
+
+    def k1(spec, fb):
+        got = kernels.mel_project_log(spec, fb)
+        if checking[0]:
+            want = kernels.mel_project_log_reference(spec, fb)
+            record["K1"].append((got - want).abs().max().item())
+        return got
+
+    template = Engine(
+        model, Frontend(FEATURES, "2d", sr=SR, device=device, mel_project=k1),
+        types.SimpleNamespace(optimizer="momentum",
+                              learning_rate=FOLD_MESH_LR,
+                              scheduler="steplr_1_0.5", weight_decay=0.0),
+        loss="lsep_naive", augment=make_augmenter(AugmentConfig(
+            p_mixup=0.5, p_aug=0.75, p_shuffle=0.5, sr=SR)),
+        seed=7, device=device)
+    fold_ids = list(range(len(folds)))
+    own = (fold_mesh.own_folds if fold_mesh is not None
+           else fold_ids if alone is None else list(alone))
+    stack = MultiFoldEngine(template, own, fold_mesh=fold_mesh)
+    loaders = [folds[f] for f in own]
+    if alone is not None:
+        stack.generators = [torch.Generator(device=device).manual_seed(7 + p)
+                            for p in alone]
+        n_job = max(len(batches) for batches in folds)
+        shapes = [tuple(max(f[i % len(f)]["signal"].shape[j] for f in folds)
+                        for j in (0, 1)) for i in range(n_job)]
+        calls = []
+
+        def job_shape(batches):
+            calls.append(1)
+            return shapes[(len(calls) - 1) % n_job]
+
+        stack.step_shape = job_shape
+        stack.epoch_steps = lambda loaders: n_job
+    n_steps = stack.epoch_steps(loaders)
+    stack.make_optimizer(2 * n_steps, n_steps)
+    losses = []
+    step = stack.train_step
+
+    def recording(*args, **kwargs):
+        out = step(*args, **kwargs)
+        losses.append(out["loss"].float().cpu())
+        return out
+
+    stack.train_step = recording
+    for name in kernels.launch_counts():
+        getattr(kernels, name).launches = 0
+    with kernels_against_twins(record):
+        stack.train_epoch(loaders, 1.0, log_interval=10**6, n_steps=n_steps)
+    torch.cuda.synchronize()
+    checking[0] = False
+    launches = {WRAPPER_KERNEL[k]: n
+                for k, n in kernels.launch_counts().items() if n}
+    names = stack.model.param_names
+    stacked = list(stack.model.stacked()[0].values())
+    grads = {fold: {n: p.grad[k].detach().cpu()
+                    for n, p in zip(names, stacked)}
+             for k, fold in enumerate(own)}
+    t0 = time.perf_counter()
+    stack.train_epoch(loaders, 1.0, log_interval=10**6, n_steps=n_steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"folds": own, "steps": n_steps, "launches": launches,
+            "loss": {fold: [float(x[k]) for x in losses[:n_steps]]
+                     for k, fold in enumerate(own)},
+            "grads": grads,
+            "twins": {k: max(record[k]) for k in ("K1", "K2", "K3")},
+            "steps_per_s": n_steps / seconds}
+
+
+def fold_mesh_rank(rank: int, rendezvous: str, inputs_path: str,
+                   out: str) -> None:
+    """Rank ``rank`` of 2 sharing ``cuda:0`` over a gloo group (NCCL
+    refuses two ranks on one card): its ``FoldMesh`` over the 4 folds, a
+    fold group of two folds, through ``fold_mesh_steps``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
+    from freesound_classification_tpu_torch.training import multifold
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=FOLD_MESH_TIMEOUT))
+    try:
+        world = mesh_lib.Mesh(rank, 2, dist.group.WORLD, device)
+        folds = torch.load(inputs_path, weights_only=False)
+        fold_mesh = multifold.make_fold_mesh(world, list(range(len(folds))))
+        torch.save(fold_mesh_steps(fold_mesh, device, folds), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def fold_mesh_ranks(smi: str) -> None:
+    """Two ranks sharing ``cuda:0`` over a gloo group, each a process that
+    trains 2 of the 4 folds (``fold_mesh_steps``), against one process on
+    the card: on each rank K1 once a stacked step and K2 and K3 once per
+    owned fold's chain (twice a step), each call of K1-K3 held against its
+    plain twin on the same arguments (``K1_TOL``, ``K2_TOL``,
+    ``K3_REL_TOL``); each fold's losses at each step within
+    ``STEP_TOL_LOSS`` of the one process stacking all 4; its last
+    gradients within ``STEP_TOL_GRAD`` of the fold's largest against the
+    one process stacking the rank's 2 folds alone with the job's seeds,
+    step count and shapes (``alone``), and, printed beside them, against
+    the stack of all 4: that distance is float32's rounding of the stack
+    width (2 folds a grouped convolution or 4), which a max-pool near-tie
+    turns into percents of a gradient (as ``fold_parallel_truth``'s single
+    step against itself on reversed rows shows); each rank's stacked
+    steps/s beside the one process's."""
+    from freesound_classification_tpu_torch.probes.fold_parallel import (
+        gradient_distance,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="fold_mesh_")
+    folds = fold_mesh_batches()
+    inputs = os.path.join(work, "folds.pt")
+    torch.save(folds, inputs)
+    t0 = time.time()
+    procs, logs = [], []
+    for rank in range(2):
+        logs.append(open(os.path.join(work, f"rank{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", FOLD_MESH_RANK_CHILD, str(rank),
+             os.path.join(work, "rendezvous"), inputs,
+             os.path.join(work, f"rank{rank}.pt")],
+            cwd=here, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        for proc in procs:
+            proc.wait(timeout=FOLD_MESH_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    for rank, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(work, f"rank{rank}.log")) as f:
+                raise RuntimeError(f"fold mesh: gloo rank {rank} on cuda:0 "
+                                   f"exited {proc.returncode}:\n"
+                                   f"{f.read()[-4000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    rank_s = time.time() - t0
+    torch.cuda.empty_cache()
+    want = fold_mesh_steps(None, DEVICE, folds)
+    n = want["steps"]
+    if n != FOLD_MESH_BATCHES:
+        raise RuntimeError(f"fold mesh: {n} steps an epoch, not "
+                           f"{FOLD_MESH_BATCHES}")
+    for r, got in enumerate(ranks):
+        expect = {"K1": n, "K2": 2 * n, "K3": 2 * n}
+        log(f"fold mesh rank {r} (folds {got['folds']}): launches "
+            f"{got['launches']} in {got['steps']} stacked steps (expected "
+            f"{expect}); each call against its twin: K1 "
+            f"{got['twins']['K1']:.2e} (tolerance {K1_TOL:g}), K2 "
+            f"{got['twins']['K2']:.2e} ({K2_TOL:g}), K3 "
+            f"{got['twins']['K3']:.2e} of its largest ({K3_REL_TOL:g}); "
+            f"{got['steps_per_s']:.3f} stacked steps/s")
+        if got["steps"] != n:
+            raise RuntimeError(f"fold mesh rank {r}: {got['steps']} steps an "
+                               f"epoch, the one process {n}")
+        if any(got["launches"].get(k) != v for k, v in expect.items()):
+            raise RuntimeError(f"fold mesh rank {r}: launches "
+                               f"{got['launches']}, expected {expect}")
+        tols = {"K1": K1_TOL, "K2": K2_TOL, "K3": K3_REL_TOL}
+        if any(not got["twins"][k] <= tol for k, tol in tols.items()):
+            raise RuntimeError(f"fold mesh rank {r}: a kernel disagrees with "
+                               f"its twin: {got['twins']}")
+    losses, grads, width, alone_width, exact = [], [], [], [], True
+    for got in ranks:
+        alone = fold_mesh_steps(None, DEVICE, folds, alone=got["folds"])
+        for fold in got["folds"]:
+            losses.append(max(abs(a - b) for a, b in zip(
+                got["loss"][fold], want["loss"][fold])))
+            grads.append(gradient_distance(got["grads"][fold],
+                                           alone["grads"][fold]))
+            width.append(gradient_distance(got["grads"][fold],
+                                           want["grads"][fold]))
+            alone_width.append(gradient_distance(alone["grads"][fold],
+                                                 want["grads"][fold]))
+            exact &= all(torch.equal(t, alone["grads"][fold][k])
+                         for k, t in got["grads"][fold].items())
+
+    def fmt(rows, key="max"):
+        return [f"{row[key]:.2e}" for row in rows]
+
+    log(f"2 gloo ranks on cuda:0 against one process, 4 folds of "
+        f"{list(FOLD_MESH_ROWS)} x {FOLD_MESH_SECONDS} s, {n} float32 "
+        f"augmented steps at {NETWORK['num_conv_blocks']} blocks, depth "
+        f"{NETWORK['conv_base_depth']}, {FEATURES}, lr {FOLD_MESH_LR:g} "
+        f"({rank_s:.1f} s for the ranks): loss |d| per fold against the "
+        f"stack of all 4 {[f'{d:.2e}' for d in losses]} (tolerance "
+        f"{STEP_TOL_LOSS:g}); last gradients over each fold's largest "
+        f"against the rank's folds stacked alone in one process "
+        f"{fmt(grads)} (tolerance {STEP_TOL_GRAD:g}; bit for bit: {exact}); "
+        f"against the stack of all 4 {fmt(width)} at "
+        f"{[d['at'] for d in width]}, relative L2 {fmt(width, 'l2')}, where "
+        f"the one process's stack of 2 is {fmt(alone_width)} from its stack "
+        f"of 4; the one process launched {want['launches']}; stacked "
+        f"steps/s: ranks {[round(g['steps_per_s'], 3) for g in ranks]} (2 "
+        f"folds each, at once), one process {want['steps_per_s']:.3f} (4 "
+        f"folds) on {smi}")
+    if want["launches"] != {"K1": n, "K2": 4 * n, "K3": 4 * n}:
+        raise RuntimeError(f"fold mesh: the one process launched "
+                           f"{want['launches']}")
+    if not max(losses) <= STEP_TOL_LOSS:
+        raise RuntimeError("fold mesh: the losses disagree")
+    if not max(d["max"] for d in grads) <= STEP_TOL_GRAD:
+        raise RuntimeError("fold mesh: the gradients disagree")
+
+
+def fold_mesh_cli(root: str, inputs: dict, smi: str) -> None:
+    """The train path's CLI over folds 0 and 1 with ``--fold_parallel``, 1
+    epoch, under ``torchrun --standalone --nproc_per_node 1`` (the layout
+    path on one NCCL rank: its all-gathers, its fold group of one) and as
+    a plain child of the same run, the two at once: the layout's line in
+    the torchrun child's output, the same files, K1-K3 launched alike
+    (``$FSC_LAUNCH_LOG``), each fold's final weights within
+    ``RESUME_WEIGHT_TOL`` relative L2 of the plain child's (bit for bit
+    printed)."""
+    module = "freesound_classification_tpu_torch.cli.train_2d_cnn"
+    runs = {}
+
+    def run(name: str, launcher: list) -> None:
+        experiments = os.path.join(root, f"fm_{name}")
+        log_path = os.path.join(root, f"fm_{name}_launches.jsonl")
+        argv = [*train_argv(inputs, experiments), "--folds", "0", "1",
+                "--fold_parallel", "--epochs", "1"]
+        t0 = time.time()
+        rc, out, _ = run_logged([*launcher, "-m", module, *argv],
+                                dict(os.environ, FSC_LAUNCH_LOG=log_path),
+                                FOLD_MESH_TIMEOUT)
+        runs[name] = (rc, out, experiments, log_path, time.time() - t0)
+
+    threads = [threading.Thread(target=run, args=(name, launcher))
+               for name, launcher in (
+                   ("torchrun", [sys.executable, "-m",
+                                 "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", "1"]),
+                   ("plain", [sys.executable]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    found = {}
+    for name, (rc, out, experiments, log_path, wall) in runs.items():
+        if rc != 0:
+            raise RuntimeError(f"fold mesh CLI ({name}) exited {rc}:\n"
+                               f"{out[-4000:]}")
+        with open(log_path) as f:
+            records = [json.loads(line) for line in f]
+        if [r["rank"] for r in records] != [0]:
+            raise RuntimeError(f"fold mesh CLI ({name}): launch records of "
+                               f"ranks {[r['rank'] for r in records]}")
+        (exp,) = os.listdir(experiments)
+        exp = os.path.join(experiments, exp)
+        found[name] = (exp, {WRAPPER_KERNEL[k]: n for k, n in
+                             records[0]["launches"].items() if n}, wall)
+    layout = "layout 1 x 1 (fold x data) on 1 rank, folds [0, 1]"
+    if layout not in runs["torchrun"][1]:
+        raise RuntimeError("fold mesh CLI: the torchrun child did not take "
+                           "the layout path")
+    (t_exp, t_k, t_wall), (p_exp, p_k, p_wall) = (found["torchrun"],
+                                                  found["plain"])
+    t_files, p_files = experiment_files(t_exp), experiment_files(p_exp)
+    d = [float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in (
+        (final_params(os.path.join(t_exp, "checkpoints", f"fold_{k}")),
+         final_params(os.path.join(p_exp, "checkpoints", f"fold_{k}")))
+        for k in (0, 1))]
+    log(f"fold-parallel CLI under torchrun (1 NCCL rank, {layout}) and "
+        f"plain, at once: {t_wall:.1f} and {p_wall:.1f} s wall, "
+        f"{len(t_files)} and {len(p_files)} files; launches {t_k} and {p_k}; "
+        f"final weights per fold, relative L2 {[f'{x:.3e}' for x in d]} "
+        f"(tolerance {RESUME_WEIGHT_TOL:g}; bit for bit: {max(d) == 0.0}) "
+        f"on {smi}")
+    if t_files != p_files:
+        raise RuntimeError(f"fold mesh CLI: only under torchrun "
+                           f"{sorted(t_files - p_files)}, only plain "
+                           f"{sorted(p_files - t_files)}")
+    if t_k != p_k or min(t_k.get(k, 0) for k in ("K1", "K2", "K3")) <= 0:
+        raise RuntimeError(f"fold mesh CLI: launches {t_k} against {p_k}")
+    if not max(d) <= RESUME_WEIGHT_TOL:
+        raise RuntimeError(f"fold mesh CLI: final weights {d}")
+
+
+def phase_fold_mesh(root: str, inputs: dict, smi: str) -> None:
+    """M5.2a on the one card: 4 folds on two gloo ranks sharing it, 2 a
+    rank, against one process, and the fold-parallel train CLI on one
+    NCCL rank under ``torchrun`` against a plain child."""
+    t0 = time.time()
+    fold_mesh_ranks(smi)
+    fold_mesh_cli(root, inputs, smi)
+    log(f"fold mesh phase: {time.time() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4123,24 +4576,32 @@ def phase_f32_step() -> None:
         raise RuntimeError("float32 step: the gradients disagree")
 
 
+def timed(name: str, fn, *args):
+    """``fn(*args)``, with a line of the seconds it took."""
+    t0 = time.time()
+    out = fn(*args)
+    log(f"phase {name}: {time.time() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     from freesound_classification_tpu_torch.ops import kernels
 
     t_start = time.time()
     smi = phase_device()
-    phase_build()
-    k1 = phase_k1()
-    k2 = phase_k2()
-    k3 = phase_k3()
-    k6 = phase_k6()
-    k45 = phase_k45()
-    k7 = phase_k7()
-    k8 = phase_k8()
-    k9 = phase_k9()
-    phase_no_sync()
-    phase_domain()
-    phase_step_split(smi)
-    phase_ablation(smi)
+    timed("build", phase_build)
+    k1 = timed("K1", phase_k1)
+    k2 = timed("K2", phase_k2)
+    k3 = timed("K3", phase_k3)
+    k6 = timed("K6", phase_k6)
+    k45 = timed("K4/K5", phase_k45)
+    k7 = timed("K7", phase_k7)
+    k8 = timed("K8", phase_k8)
+    k9 = timed("K9", phase_k9)
+    timed("no sync", phase_no_sync)
+    timed("domain", phase_domain)
+    timed("step split", phase_step_split, smi)
+    timed("ablation", phase_ablation, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.time()
         inputs = write_inputs(root)
@@ -4149,40 +4610,52 @@ def main() -> None:
         log(f"inputs: {N_CLIPS} test clips, {secs:.1f} s of audio, "
             f"{N_FOLDS} folds of each family; {N_TRAIN_CLIPS} labelled "
             f"clips of 8.5-15 s ({time.time() - t0:.1f} s to write)")
-        k1["launches"], probs_2d = phase_main_path(root, inputs, smi)
-        phase_mesh_predict(root, inputs, k1["launches"], probs_2d, smi)
-        compat = phase_compat(root, smi)
+        k1["launches"], probs_2d = timed("main path", phase_main_path, root,
+                                         inputs, smi)
+        timed("mesh predict", phase_mesh_predict, root, inputs,
+              k1["launches"], probs_2d, smi)
+        compat = timed("compat", phase_compat, root, smi)
         host = decoded_batches(inputs)
-        k45["launches"] = fused_ensemble(
-            "2d", "2d_cnn", inputs["experiment"], probs_2d, host,
-            kernels.resnet_block_2d_fused, smi)
-        k8["launches"] = fused_ensemble(
-            "2d head", "2d_cnn", inputs["experiment"], probs_2d, host,
-            kernels.conv_head_fused, smi, per_model=1, option="fused_head")
-        k6["launches"] = phase_hier_predict(root, inputs, host, smi)
-        k7["launches"] = phase_backbone_predict(root, inputs, host, smi)
-        train, train_experiment = phase_train(root, train_inputs, smi)
+        k45["launches"] = timed(
+            "2d fused", fused_ensemble, "2d", "2d_cnn", inputs["experiment"],
+            probs_2d, host, kernels.resnet_block_2d_fused, smi)
+        k8["launches"] = timed(
+            "2d head fused", lambda: fused_ensemble(
+                "2d head", "2d_cnn", inputs["experiment"], probs_2d, host,
+                kernels.conv_head_fused, smi, per_model=1,
+                option="fused_head"))
+        k6["launches"] = timed("hierarchical predict", phase_hier_predict,
+                               root, inputs, host, smi)
+        k7["launches"] = timed("backbone predict", phase_backbone_predict,
+                               root, inputs, host, smi)
+        train, train_experiment = timed("train", phase_train, root,
+                                        train_inputs, smi)
         train_files = experiment_files(train_experiment)
-        phase_tta(root, train_inputs, train_experiment, smi)
-        phase_resume(root, train_inputs, smi)
-        phase_fold_parallel(root, train_inputs, smi)
-        phase_data_parallel(root, train_inputs, train_files,
-                            train_experiment, smi)
-        phase_profile(root, train_inputs, smi)
-        pretrained, _ = phase_hier_train(root, train_inputs, smi)
-        phase_hier_finetune(root, train_inputs, pretrained, smi)
-        phase_backbone_train(root, train_inputs, smi)
-        phase_recipe(root, train_inputs, smi)
-        phase_evaluate(root, smi)
-        rnn = phase_rnn(root, train_inputs, smi)
-        ssl = phase_ssl(root, train_inputs, smi)
-        adversarial_k1 = phase_adversarial(root, train_inputs, inputs, smi)
+        timed("tta", phase_tta, root, train_inputs, train_experiment, smi)
+        timed("resume", phase_resume, root, train_inputs, smi)
+        timed("fold parallel", phase_fold_parallel, root, train_inputs, smi)
+        timed("data parallel", phase_data_parallel, root, train_inputs,
+              train_files, train_experiment, smi)
+        timed("fold mesh", phase_fold_mesh, root, train_inputs, smi)
+        timed("profile", phase_profile, root, train_inputs, smi)
+        pretrained, _ = timed("hierarchical train", phase_hier_train, root,
+                              train_inputs, smi)
+        timed("hierarchical finetune", phase_hier_finetune, root,
+              train_inputs, pretrained, smi)
+        timed("backbone train", phase_backbone_train, root, train_inputs,
+              smi)
+        timed("recipe", phase_recipe, root, train_inputs, smi)
+        timed("evaluate", phase_evaluate, root, smi)
+        rnn = timed("rnn", phase_rnn, root, train_inputs, smi)
+        ssl = timed("ssl", phase_ssl, root, train_inputs, smi)
+        adversarial_k1 = timed("adversarial", phase_adversarial, root,
+                               train_inputs, inputs, smi)
         log(f"new paths' launches: rnn {rnn}, ssl {ssl}, adversarial K1 "
             f"{adversarial_k1}, compat {compat}")
     k2["launches"], k3["launches"] = train["K2"], train["K3"]
-    k9["launches"] = phase_probe(smi)
-    phase_bench(smi)
-    phase_f32_step()
+    k9["launches"] = timed("probe", phase_probe, smi)
+    timed("bench", phase_bench, smi)
+    timed("float32 step", phase_f32_step)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [k1, k2, k3, k45, k6, k7, k8, k9]}))
     print(json.dumps({"ok": True, "device": {

@@ -35,8 +35,15 @@ same flag: each rank predicts its slice of every batch's rows
 (``EnsemblePredictor.predict_loader(mesh=...)``), and rank 0 prints and
 writes. Without ``torchrun`` the run is today's single process, and
 ``--mesh_devices`` above 1 raises.
-``refuse_unported`` raises on ``--fold_parallel`` over more than one rank
-(ROADMAP M5.2's multi-rank fold layouts), the one part not ported yet.
+With ``--fold_parallel`` and two or more folds under ``torchrun`` the
+folds train over the ranks in JAX's fold layout (``training/multifold.
+fold_layout``): each rank trains its fold group's folds as one stacked
+model, writes those folds' files, and sends their results to rank 0,
+which registers them and runs ``finalize_results`` once every owner has
+written (the gather waits for it). The ranks share the experiment
+directory. ``refuse_unported`` raises on the layouts not ported yet,
+those of data width above 1 and the fold-local one (ROADMAP M5.2b),
+before any work.
 ``log_launches_at_exit`` lets a run of several CLI processes (the recipe
 kit, the ranks of a job) count each one's kernel launches.
 
@@ -95,6 +102,7 @@ from freesound_classification_tpu_torch.ops.dsp import parse_features
 from freesound_classification_tpu_torch.ops.metrics import lwlrap
 from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 from freesound_classification_tpu_torch.training.engine import Engine
+from freesound_classification_tpu_torch.training import multifold
 from freesound_classification_tpu_torch.training.multifold import (
     MultiFoldEngine,
 )
@@ -201,7 +209,8 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
              "<experiment>/summaries/profile")
     add("--fold_parallel", action="store_true", default=False,
         help="train every fold of --folds together as one stacked model "
-             "on the card (training/multifold.py)")
+             "on the card (training/multifold.py); under torchrun, the "
+             "folds' groups over the ranks, one group a rank")
     add_mesh_argument(parser)
 
 
@@ -217,14 +226,15 @@ def add_mesh_argument(parser: argparse.ArgumentParser) -> None:
 
 def refuse_unported(args) -> None:
     """Raise on a part of the train CLI not ported yet: ``--fold_parallel``
-    over more than one rank (``--mesh_devices`` or ``torchrun``'s world
-    size above 1; ROADMAP M5.2, the multi-rank fold layouts)."""
+    over two or more folds on a number of ranks (``--mesh_devices`` or
+    ``torchrun``'s world size) where JAX's layout has a data width above 1
+    or is fold-local (ROADMAP M5.2b), e.g. 5 folds on 2-4 or 6-9 ranks."""
     world = max(int(os.environ.get("WORLD_SIZE", 1)),
                 getattr(args, "mesh_devices", None) or 1)
-    if getattr(args, "fold_parallel", False) and world > 1:
-        raise NotImplementedError(
-            f"--fold_parallel over {world} ranks: not ported yet (ROADMAP "
-            "M5.2 (multi-rank fold layouts)); run it on one rank")
+    folds = getattr(args, "folds", None) or []
+    if getattr(args, "fold_parallel", False) and len(folds) > 1:
+        multifold.refuse_unported_layout(
+            multifold.fold_layout(len(folds), world))
 
 
 @contextlib.contextmanager
@@ -478,10 +488,14 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
         full_ladder = default_ladder(None)
         class_names = class_names_from_classmap(class_map)
         predictions = experiment.register_directory("predictions")
+        fold_parallel = args.fold_parallel and len(args.folds) > 1
+        # the fold-parallel ranks train whole folds: their loaders are the
+        # folds' own, unsharded (JAX's ``fold_loaders(f, 1)``)
+        loader_mesh = None if fold_parallel else dp
         batching = dict(
             batch_size=None if args.max_batch_elems else args.batch_size,
             max_batch_elems=args.max_batch_elems,
-            num_workers=args.num_workers, mesh=dp)
+            num_workers=args.num_workers, mesh=loader_mesh)
 
         def dataset(manifest, data_dir):
             return ClipDataset(
@@ -496,28 +510,32 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
                 max_audio_length=args.max_audio_length, sr=SR,
                 seed=args.kfold_seed + fold)
             valid = sets.train.take(sets.splits[fold][1])
-            return (make_loader(train_ds, ladder, train=True,
-                                seed=args.kfold_seed,
-                                size_multiple=mesh.world_size, **batching),
+            return (make_loader(
+                        train_ds, ladder, train=True, seed=args.kfold_seed,
+                        size_multiple=1 if fold_parallel else mesh.world_size,
+                        **batching),
                     make_loader(dataset(valid, args.train_data_dir),
                                 full_ladder, **batching),
                     valid)
 
-        def register_train_stats(fold: int, epoch_stats: list) -> None:
-            for key in ("loss", "clips_per_sec", "steps", "seconds"):
-                experiment.register_result(
-                    f"fold{fold}.train_{key}",
-                    [float(e[key]) for e in epoch_stats])
+        def train_stats(epoch_stats: list) -> dict:
+            return {f"train_{key}": [float(e[key]) for e in epoch_stats]
+                    for key in ("loss", "clips_per_sec", "steps", "seconds")}
+
+        def register(fold: int, results: dict) -> None:
+            for key, value in results.items():
+                experiment.register_result(f"fold{fold}.{key}", value)
 
         def emit_fold_artifacts(engine: Engine, fold: int, valid_loader,
-                                valid: Manifest) -> None:
+                                valid: Manifest, writes: bool) -> dict:
             """From ``fold``'s best model: its out-of-fold and test
-            predictions and its holdout lwlrap (every rank predicts, rank
-            0 writes)."""
+            predictions and its holdout lwlrap (on a data-parallel mesh
+            every rank predicts; the rank that ``writes`` writes).
+            Returns ``{"holdout_metric": ...}`` with a holdout."""
             engine.load_model(fold, "best_model")
 
             def write(name, fnames, probs):
-                if mesh.is_writer:
+                if writes:
                     write_predictions(os.path.join(predictions, name),
                                       fnames, class_names, probs)
 
@@ -529,36 +547,52 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
                     **batching)
                 write(f"test_preds_fold_{fold}.csv", sets.test.fnames,
                       engine.predict(test_loader))
-            if sets.holdout is not None:
-                holdout_metric = engine.evaluate(make_loader(
-                    dataset(sets.holdout, args.train_data_dir), full_ladder,
-                    batch_size=args.batch_size,
-                    num_workers=args.num_workers, mesh=dp))
-                experiment.register_result(f"fold{fold}.holdout_metric",
-                                           holdout_metric)
-                print(f"\nHoldout metric: {holdout_metric:.4f}")
+            if sets.holdout is None:
+                return {}
+            holdout_metric = engine.evaluate(make_loader(
+                dataset(sets.holdout, args.train_data_dir), full_ladder,
+                batch_size=args.batch_size,
+                num_workers=args.num_workers, mesh=loader_mesh))
+            print(f"\nHoldout metric: {holdout_metric:.4f}")
+            return {"holdout_metric": holdout_metric}
 
-        if args.fold_parallel and len(args.folds) > 1:
+        if fold_parallel:
             folds = list(args.folds)
-            print(f"\n   -----  Folds {folds} (parallel)\n")
-            loaders = [fold_loaders(fold) for fold in folds]
-            # the head's dropout draws from PyTorch's default generator
+            # under torchrun the folds' groups go over the ranks, even on
+            # one rank, so that its run goes through the collectives
+            fold_mesh = (multifold.make_fold_mesh(mesh, folds)
+                         if mesh.distributed else None)
+            own = fold_mesh.own_folds if fold_mesh is not None else folds
+            layout = (", layout " + multifold.layout_record(
+                fold_mesh.layout, folds) if fold_mesh is not None else "")
+            print(f"\n   -----  Folds {folds} (parallel{layout})\n")
+            loaders = [fold_loaders(fold) for fold in own]
+            # the head's dropout draws from PyTorch's default generator;
+            # every rank's template is the one process's
             torch.manual_seed(args.kfold_seed + folds[0])
             template = build_engine(args, experiment, n_classes, device,
                                     model_kind=model_kind)
-            stack = MultiFoldEngine(template, folds)
+            stack = MultiFoldEngine(template, own, fold_mesh=fold_mesh)
             best = stack.fit([t for t, _, _ in loaders],
                              [v for _, v, _ in loaders], epochs=args.epochs,
                              log_interval=args.log_interval,
                              resume=args.resume)
             stack.save_fold_models("final_model")
-            for k, fold in enumerate(folds):
-                experiment.register_result(f"fold{fold}.metric", best[k])
-                register_train_stats(fold, [
+            # each fold's files are its owner's; its results reach rank 0
+            # by a gather that returns once every owner has written
+            results = []
+            for k, fold in enumerate(own):
+                stats = train_stats([
                     dict(e, loss=e["loss"][k],
                          clips_per_sec=e["clips"][k] / e["seconds"])
                     for e in stack.epoch_stats])
-                emit_fold_artifacts(template, fold, *loaders[k][1:])
+                results.append((fold, {"metric": float(best[k]), **stats,
+                                       **emit_fold_artifacts(
+                                           template, fold, *loaders[k][1:],
+                                           writes=True)}))
+            for rank_results in mesh.all_gather_object(results):
+                for fold, fold_results in rank_results:
+                    register(fold, fold_results)
         else:
             for fold in args.folds:
                 print(f"\n   -----  Fold {fold}\n")
@@ -574,9 +608,10 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
                     resume=args.resume)
                 experiment.register_result(f"fold{fold}.metric",
                                            max(scores))
-                register_train_stats(fold, engine.epoch_stats)
+                register(fold, train_stats(engine.epoch_stats))
                 engine.save_model(fold, "final_model")
-                emit_fold_artifacts(engine, fold, valid_loader, valid)
+                register(fold, emit_fold_artifacts(
+                    engine, fold, valid_loader, valid, mesh.is_writer))
         if mesh.is_writer:
             finalize_results(experiment, sets.train, class_map,
                              args.n_folds)

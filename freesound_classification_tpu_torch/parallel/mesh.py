@@ -26,7 +26,7 @@ the single-process path. Under ``torchrun`` a group is made even for one
 rank, so that run goes through the real collectives: NCCL on the card
 (rank r on ``cuda:{LOCAL_RANK}``), gloo on the CPU. Every function here
 takes any process group, so a caller may also build a ``Mesh`` over a group
-of its own.
+of its own (``sub_mesh``: the fold groups of ``training/multifold.py``).
 """
 
 from __future__ import annotations
@@ -151,6 +151,27 @@ def make_mesh(mesh_devices: Optional[int] = None,
         "nccl" if resolved.type == "cuda" else "gloo", init_method="env://",
         rank=rank, world_size=world, timeout=TIMEOUT)
     return Mesh(rank, world, dist.group.WORLD, resolved)
+
+
+def sub_mesh(mesh: Mesh, groups: Sequence[Sequence[int]]) -> Mesh:
+    """The rank's ``Mesh`` within ``groups``, a partition of ``mesh``'s
+    ranks into process groups of the world's backend (NCCL on the card,
+    gloo on the CPU). Every rank makes every group, in one order, as
+    ``dist.new_group`` asks, and keeps its own. Alone (no process group),
+    ``mesh`` itself."""
+    if mesh.group is None:
+        return mesh
+    mine = None
+    for ranks in groups:
+        ranks = list(ranks)
+        group = dist.new_group(ranks, timeout=TIMEOUT)
+        if mesh.rank in ranks:
+            mine = Mesh(ranks.index(mesh.rank), len(ranks), group,
+                        mesh.device)
+    if mine is None:
+        raise ValueError(f"rank {mesh.rank} is in none of the groups "
+                         f"{[list(g) for g in groups]}")
+    return mine
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,6 @@
-"""Fold-parallel training on one card: K folds trained together, one train
-step over the K folds' stacked batch (JAX ``training/multifold.py``, its
-one-device layout; the fold-sharded and fold x data layouts need more than
-one card and wait for ROADMAP M5.1).
+"""Fold-parallel training: K folds trained together, one train step over
+the K folds' stacked batch (JAX ``training/multifold.py``), on one card or
+over several ranks, one fold group a rank.
 
 The JAX package stacks the K fold train states and ``vmap``s its step over
 them. Here ``FoldStack`` holds the K folds' parameters and BatchNorm
@@ -60,14 +59,40 @@ Correctness parity with the sequential path:
   match ``Engine.fit_validate``. The bundle keeps each fold loader's own
   epoch counter: a cycled loader advances it more than once an epoch,
   which JAX's resume (every counter set to the start epoch) loses.
+
+Over several ranks (``FoldMesh``, under ``torchrun``): ``fold_layout``
+picks JAX's ``make_fold_dp_mesh(K, layout="auto")`` layout for K folds on
+n ranks: f fold groups of d ranks, f the largest divisor of K at most n,
+where f x d == n, else the fold-local layout (every rank all K folds, the
+rows over all n). The layouts of data width 1 (d == 1: 5 folds on 5
+ranks, 4 on 2 or 4, K on 1) are ported: rank r trains the K / f folds of
+group r, the r-th slice of ``--folds``, with this engine, and nothing
+crosses ranks inside the step. The rest (ROADMAP M5.2b) is refused. What
+makes a rank's folds train as in the one-process stack of all K:
+
+- fold k's augmenter generator starts from ``seed + k``, k its position
+  in the whole fold list;
+- an epoch runs to the longest loader of all K folds (gathered once a
+  fit), and so does the 1cycle schedule's ``steps_per_epoch``;
+- each step pads to the (rows, length) of all K folds' batches, gathered
+  in one small all-gather (padded rows enter BatchNorm's statistics, so a
+  rank-local pad would change the results), which keys the MixUp pool;
+- each fold group writes its own stacked bundle,
+  ``multifold_resume_folds_<ids>.pt`` (``multifold_resume.pt`` where one
+  group holds every fold), which records the layout; ``resume`` refuses
+  a bundle of another layout, naming both;
+- rank 0 prints each epoch's line over all K folds. The checkpoint
+  directory is one the ranks share.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import os
-from typing import List, Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +100,7 @@ from torch import nn
 
 from freesound_classification_tpu_torch.models.blocks import MaskedBiGRU
 from freesound_classification_tpu_torch.ops import metrics as metrics_lib
+from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 from freesound_classification_tpu_torch.training import checkpoints
 from freesound_classification_tpu_torch.training.engine import (
     Engine,
@@ -89,14 +115,160 @@ from freesound_classification_tpu_torch.utils.profiling import (
 BUNDLE = "multifold_resume.pt"
 
 
-def stack_batches(batches: Sequence[dict]) -> tuple:
-    """Pad K per-fold batches to a common (largest batch, longest length)
-    and stack each key to (K, B, ...) (JAX ``_stack_batches``): the signal
-    is zero-padded in time, short batches repeat their last row. Each
-    key is written once into its stacked array. Returns (stacked numpy
-    dict, ``n_real`` (K,) int32, each fold's real rows)."""
-    max_len = max(b["signal"].shape[1] for b in batches)
-    max_bs = max(b["signal"].shape[0] for b in batches)
+# ---------------------------------------------------------------------------
+# layouts over ranks
+# ---------------------------------------------------------------------------
+
+
+def fold_axis_size(n_folds: int, n_ranks: int) -> int:
+    """The largest divisor of ``n_folds`` at most ``n_ranks`` (JAX
+    ``_fold_axis_size``)."""
+    for f in range(min(n_ranks, n_folds), 0, -1):
+        if n_folds % f == 0:
+            return f
+    return 1
+
+
+@dataclass(frozen=True)
+class FoldLayout:
+    """K folds on n ranks as JAX's ``make_fold_dp_mesh`` lays them out:
+    ``kind`` "fold_dp" is an (f, d) = ("fold", "data") mesh, rank r in
+    fold group r // d at place r % d, the group owning the folds at
+    positions [g K / f, (g + 1) K / f) of the fold list; "fold_local" is
+    the 1-D ("data",) mesh of all n ranks, every one holding all K folds
+    (f 1, d n)."""
+    n_folds: int
+    n_ranks: int
+    f: int
+    d: int
+    kind: str
+
+    @property
+    def axis_names(self) -> tuple:
+        return ("fold", "data") if self.kind == "fold_dp" else ("data",)
+
+    @property
+    def shape(self) -> tuple:
+        return (self.f, self.d) if self.kind == "fold_dp" else (self.n_ranks,)
+
+    @property
+    def ported(self) -> bool:
+        """A layout of data width 1: each rank trains whole folds."""
+        return self.kind == "fold_dp" and self.d == 1
+
+    def describe(self) -> str:
+        ranks = f"{self.n_ranks} rank{'s' if self.n_ranks > 1 else ''}"
+        if self.kind == "fold_local":
+            return f"fold-local (all {self.n_folds} folds on each of {ranks})"
+        return f"{self.f} x {self.d} (fold x data) on {ranks}"
+
+    def positions(self, rank: int) -> range:
+        """The positions in the fold list of the folds ``rank`` owns."""
+        per = self.n_folds // self.f
+        start = (rank // self.d if self.kind == "fold_dp" else 0) * per
+        return range(start, start + per)
+
+    def group_ranks(self) -> list:
+        """Each fold group's ranks, in group order."""
+        return [list(range(g * self.d, (g + 1) * self.d))
+                for g in range(self.f)]
+
+
+def fold_layout(n_folds: int, n_ranks: int) -> FoldLayout:
+    """JAX's ``make_fold_dp_mesh(n_folds, layout="auto")`` over ``n_ranks``
+    devices: f = ``fold_axis_size``, d = n // f, the (fold, data) mesh
+    where f x d == n, else the fold-local layout."""
+    f = fold_axis_size(n_folds, n_ranks)
+    d = max(1, n_ranks // f)
+    if f * d < n_ranks:
+        return FoldLayout(n_folds, n_ranks, 1, n_ranks, "fold_local")
+    return FoldLayout(n_folds, n_ranks, f, d, "fold_dp")
+
+
+def refuse_unported_layout(layout: FoldLayout) -> None:
+    """Raise on a layout of data width above 1, or the fold-local one."""
+    if not layout.ported:
+        raise NotImplementedError(
+            f"--fold_parallel with {layout.n_folds} folds on "
+            f"{layout.n_ranks} ranks: JAX's layout is {layout.describe()}, "
+            "not ported yet (ROADMAP M5.2b: fold layouts of data width "
+            "above 1, and the fold-local one); the ported layouts train "
+            "whole folds on each rank: f fold groups of one rank, f a "
+            "divisor of the fold count (5 folds on 1 or 5 ranks, 4 on 1, 2 "
+            "or 4)")
+
+
+def layout_record(layout: FoldLayout, folds: Sequence[int]) -> str:
+    """What a stacked bundle records of the layout that wrote it."""
+    return f"{layout.describe()}, folds {list(folds)}"
+
+
+@dataclass(frozen=True)
+class FoldMesh:
+    """A rank's place in a fold-parallel job: the ``layout`` of the run's
+    ``folds`` over ``world``'s ranks, and ``group``, the rank's fold group
+    (d ranks: one in the ported layouts, where ``MultiFoldEngine`` runs no
+    collective inside the step; ROADMAP M5.2b adds the group's)."""
+    layout: FoldLayout
+    folds: tuple
+    world: mesh_lib.Mesh
+    group: mesh_lib.Mesh
+
+    @property
+    def positions(self) -> range:
+        return self.layout.positions(self.world.rank)
+
+    @property
+    def own_folds(self) -> list:
+        """The folds this rank trains, in ``folds`` order."""
+        return [self.folds[i] for i in self.positions]
+
+
+def make_fold_mesh(world: mesh_lib.Mesh, folds: Sequence[int]) -> FoldMesh:
+    """The rank's ``FoldMesh`` for ``folds`` over ``world`` (a distributed
+    ``parallel.mesh.Mesh``; every rank calls this): refuses an unported
+    layout before any group is made, then makes the f fold groups of d
+    ranks."""
+    layout = fold_layout(len(folds), world.world_size)
+    refuse_unported_layout(layout)
+    group = mesh_lib.sub_mesh(world, layout.group_ranks())
+    return FoldMesh(layout, tuple(folds), world, group)
+
+
+def bundle_name(group_folds: Sequence[int], folds: Sequence[int]) -> str:
+    """The stacked bundle's file name of the fold group owning
+    ``group_folds`` of the run's ``folds``."""
+    if list(group_folds) == list(folds):
+        return BUNDLE
+    return f"multifold_resume_folds_{'_'.join(map(str, group_folds))}.pt"
+
+
+def bundle_layout(path: str, folds: Sequence[int]) -> str:
+    """The layout a stacked bundle records (its tensors are mapped, not
+    read); a bundle from before layouts were recorded is the one-process
+    stack of ``folds``."""
+    bundle = torch.load(path, map_location="cpu", weights_only=True,
+                        mmap=True)
+    return bundle.get("layout") or layout_record(fold_layout(len(folds), 1),
+                                                 folds)
+
+
+# ---------------------------------------------------------------------------
+# batches
+# ---------------------------------------------------------------------------
+
+
+def stack_batches(batches: Sequence[dict],
+                  shape: Optional[tuple] = None) -> tuple:
+    """Pad K per-fold batches to a common (largest batch, longest length),
+    or to ``shape`` = (rows, length) where it is larger, and stack each
+    key to (K, B, ...) (JAX ``_stack_batches``): the signal is zero-padded
+    in time, short batches repeat their last row. Each key is written once
+    into its stacked array. Returns (stacked numpy dict, ``n_real`` (K,)
+    int32, each fold's real rows)."""
+    rows, length = shape if shape is not None else (0, 0)
+    max_len = max([length] + [b["signal"].shape[1] for b in batches])
+    max_bs = max([rows] + [b["signal"].shape[0] for b in batches])
     n_real = np.array([b["signal"].shape[0] for b in batches], np.int32)
     out = {}
     for key in batches[0]:
@@ -219,13 +391,23 @@ class MultiFoldEngine(Engine):
     augmenter, the loss, the train config, the checkpoint, profile and
     summary settings; after the fit it is each fold's evaluator, with that
     fold's weights loaded into its model. ``deterministic`` (the default)
-    runs each stacked step with cuDNN's deterministic algorithms."""
+    runs each stacked step with cuDNN's deterministic algorithms. On a
+    ``fold_mesh`` the engine is a rank of a fold-parallel job and
+    ``fold_ids`` are the rank's own folds (the module docstring)."""
 
     def __init__(self, template: Engine, fold_ids: Sequence[int],
-                 deterministic: bool = True):
+                 deterministic: bool = True,
+                 fold_mesh: Optional[FoldMesh] = None):
         self.template = template
         self.fold_ids = list(fold_ids)
         self.deterministic = deterministic
+        self.fold_mesh = fold_mesh
+        positions = range(len(self.fold_ids))
+        if fold_mesh is not None:
+            if self.fold_ids != fold_mesh.own_folds:
+                raise ValueError(f"folds {self.fold_ids} on a rank that owns "
+                                 f"{fold_mesh.own_folds}")
+            positions = fold_mesh.positions
         seed = template.generator.initial_seed()
         super().__init__(
             FoldStack(template.model, len(self.fold_ids)), template.frontend,
@@ -236,10 +418,46 @@ class MultiFoldEngine(Engine):
             profile_dir=template.profile_dir,
             summary_writer_factory=template._writer_factory)
         self.loss_fn = template.loss_fn
+        # fold k of the whole fold list draws from seed + k
         self.generators = [
             torch.Generator(device=self.device).manual_seed(seed + k)
-            for k in range(len(self.fold_ids))]
+            for k in positions]
         self.fold_writers: list = []  # (train, valid) per fold, in a fit
+
+    # ------------------------------------------------------------------
+    # the job's ranks
+    # ------------------------------------------------------------------
+
+    def all_ranks(self, obj) -> list:
+        """Every rank's ``obj``, in rank order (``[obj]`` alone)."""
+        if self.fold_mesh is None:
+            return [obj]
+        return self.fold_mesh.world.all_gather_object(obj)
+
+    def epoch_steps(self, loaders: List) -> int:
+        """The steps of an epoch: the longest loader of all the job's
+        folds. Every rank raises where any fold's loader is empty."""
+        lengths = sum(self.all_ranks([len(loader) for loader in loaders]),
+                      [])
+        if min(lengths) == 0:
+            raise ValueError(
+                "a fold's train loader is empty: with drop_last batching "
+                "every bucket had fewer clips than one batch; lower "
+                "batch_size or use more data")
+        return max(lengths)
+
+    def step_shape(self, batches: Sequence[dict]) -> Optional[tuple]:
+        """The (rows, length) every rank pads this step's batches to, the
+        largest of all the job's folds', in one all-gather of each rank's
+        pairs; None alone (``stack_batches`` takes the local largest)."""
+        if self.fold_mesh is None:
+            return None
+        world = self.fold_mesh.world
+        local = torch.tensor([b["signal"].shape[:2] for b in batches],
+                             dtype=torch.int64, device=world.device)
+        rows, length = mesh_lib.all_gather_rows(
+            local, world.group).amax(dim=0).tolist()
+        return rows, length
 
     # ------------------------------------------------------------------
     # steps
@@ -287,22 +505,27 @@ class MultiFoldEngine(Engine):
     # ------------------------------------------------------------------
 
     def train_epoch(self, loaders: List, aug_scale: float = 1.0,
-                    log_interval: int = 25) -> dict:
-        """One lock-step pass to the longest fold loader, shorter ones
-        cycled (see the module docstring). Returns the epoch's per-fold
-        (K,) ``loss``, ``metric`` and real ``clips``, and its ``steps``,
-        ``seconds`` and ``clips_per_sec`` (every fold's real clips)."""
-        n_steps = max(len(loader) for loader in loaders)
+                    log_interval: int = 25,
+                    n_steps: Optional[int] = None) -> dict:
+        """One lock-step pass of ``n_steps`` (by default ``epoch_steps``:
+        to the longest fold loader), shorter loaders cycled (see the module
+        docstring). Returns the epoch's per-fold (K,) ``loss``, ``metric``
+        and real ``clips``, and its ``steps``, ``seconds`` and
+        ``clips_per_sec`` (every fold's real clips)."""
+        if n_steps is None:
+            n_steps = self.epoch_steps(loaders)
         losses, batch_metrics = [], []
         clips = np.zeros(len(loaders), np.int64)
         timer = StepTimer()
         timer.start()
         for batch_idx, batches in enumerate(
                 zip(*(cycle_to(loader, n_steps) for loader in loaders))):
-            stacked, n_real = stack_batches(batches)
+            stacked, n_real = stack_batches(batches,
+                                            self.step_shape(batches))
             wave, lengths, labels = self.to_device(stacked)
             # MixUp partners: the previous clean stacked batch of the same
-            # shape, each fold's own slice of it
+            # shape (the job's: every rank pads to it), each fold's own
+            # slice of it
             pool_key = tuple(wave.shape)
             clean = (wave, lengths, labels)
             partner = self._mixup_pool.get(pool_key, clean)
@@ -349,13 +572,9 @@ class MultiFoldEngine(Engine):
         bundle. With ``resume`` the bundle, where there is one, is loaded
         and training goes on from the epoch after it. Epoch 1 runs under
         ``maybe_trace(profile_dir)``. Returns each fold's best score;
-        ``epoch_stats`` holds the epochs' ``train_epoch`` dicts."""
-        if min(len(loader) for loader in train_loaders) == 0:
-            raise ValueError(
-                "a fold's train loader is empty: with drop_last batching "
-                "every bucket had fewer clips than one batch; lower "
-                "batch_size or use more data")
-        steps_per_epoch = max(len(loader) for loader in train_loaders)
+        ``epoch_stats`` holds the epochs' ``train_epoch`` dicts. On a fold
+        mesh every rank calls this with its own folds' loaders."""
+        steps_per_epoch = self.epoch_steps(train_loaders)
         factory = self._writer_factory
         self.fold_writers = [
             (factory(f, "train"), factory(f, "valid")) if factory else
@@ -380,6 +599,12 @@ class MultiFoldEngine(Engine):
             best = list(meta["best"])
             print(f"resuming folds {self.fold_ids} from epoch "
                   f"{start_epoch} (best {np.round(best, 4)})")
+        starts = self.all_ranks(start_epoch)
+        if len(set(starts)) > 1:
+            raise ValueError(
+                f"the fold groups' stacked bundles resume at epochs "
+                f"{starts} (in rank order): a run stopped between two "
+                "groups' saves cannot resume")
         self.epoch_stats = []
         for epoch in range(start_epoch, epochs):
             traced = self.profile_dir if epoch == 1 else None
@@ -388,15 +613,15 @@ class MultiFoldEngine(Engine):
                 with maybe_trace(traced):
                     stats = self.train_epoch(
                         train_loaders, 0.0 if epoch >= switch_off else 1.0,
-                        log_interval)
+                        log_interval, n_steps=steps_per_epoch)
             finally:
                 self._stage = _no_range
             self.epoch_stats.append(stats)
-            print(f"Epoch {epoch}: loss {np.round(stats['loss'], 4)} metric "
-                  f"{np.round(stats['metric'], 4)} "
-                  f"({stats['clips_per_sec']:.1f} clips/s)")
+            scores = []
             for k, fold in enumerate(self.fold_ids):
+                # the template holds fold k's weights from here to its saves
                 score = self.validate_fold(k, valid_loaders[k])
+                scores.append(score)
                 if self.checkpoint_dir is None:
                     best[k] = max(best[k], score)
                     continue
@@ -408,13 +633,30 @@ class MultiFoldEngine(Engine):
                 if score > best[k]:
                     self.template.save_model(fold, "best_model")
                 best[k] = max(best[k], score)
+            self.print_epoch(epoch, stats, scores)
             if self.checkpoint_dir is not None:
                 self.save_stacked_bundle(epoch, best, train_loaders)
+                if self.fold_mesh is not None:
+                    # every group's bundle of the epoch is on disk
+                    self.fold_mesh.world.barrier()
         for writers in self.fold_writers:
             for writer in writers:
                 if writer is not None:
                     writer.close()
         return best
+
+    def print_epoch(self, epoch: int, stats: dict, scores: list) -> None:
+        """The epoch's line over every fold of the job (JAX's ``epoch N:
+        loss [...] val [...]``): the train loss and batch lwlrap, the
+        validation lwlrap, and the clips/s of all ranks together."""
+        rows = self.all_ranks((stats["loss"].tolist(),
+                               stats["metric"].tolist(), list(scores),
+                               float(stats["clips_per_sec"])))
+        loss, metric, val = (np.array(sum((r[i] for r in rows), []))
+                             for i in range(3))
+        print(f"Epoch {epoch}: loss {np.round(loss, 4)} metric "
+              f"{np.round(metric, 4)} val {np.round(val, 4)} "
+              f"({sum(r[3] for r in rows):.1f} clips/s)")
 
     def validate_fold(self, k: int, valid_loader) -> float:
         """Fold ``k``'s validation lwlrap by the template's ``evaluate`` on
@@ -433,24 +675,51 @@ class MultiFoldEngine(Engine):
     # checkpoints
     # ------------------------------------------------------------------
 
+    @property
+    def job_folds(self) -> list:
+        """Every fold of the job, in ``--folds`` order."""
+        return list(self.fold_mesh.folds if self.fold_mesh is not None
+                    else self.fold_ids)
+
+    @property
+    def layout_record(self) -> str:
+        """The layout this engine's bundles record."""
+        layout = (self.fold_mesh.layout if self.fold_mesh is not None
+                  else fold_layout(len(self.fold_ids), 1))
+        return layout_record(layout, self.job_folds)
+
     def stacked_bundle_path(self) -> str:
-        return os.path.join(self.checkpoint_dir, BUNDLE)
+        return os.path.join(self.checkpoint_dir,
+                            bundle_name(self.fold_ids, self.job_folds))
 
     def save_stacked_bundle(self, epoch: int, best: Sequence[float],
                             loaders: List) -> None:
         """Write the stacked resume bundle: ``train_state``, each fold
-        loader's epoch counter and the progress ``{epoch, best,
-        global_step}``, in one atomic step."""
+        loader's epoch counter, the ``layout`` and the progress ``{epoch,
+        best, global_step}``, in one atomic step."""
         checkpoints.save_bundle(self.stacked_bundle_path(), dict(
             self.train_state(),
             loader_epochs=[int(getattr(loader, "_epoch", 0))
                            for loader in loaders],
+            layout=self.layout_record,
             meta={"epoch": int(epoch), "best": [float(b) for b in best],
                   "global_step": self.global_step}))
 
     def load_stacked_bundle(self, loaders: List) -> dict | None:
         """Load the stacked bundle, where there is one, and set each fold
-        loader's epoch counter from it; returns its progress meta."""
+        loader's epoch counter from it; returns its progress meta. Any
+        stacked bundle in the checkpoint directory written under another
+        layout is refused, naming both, on every rank alike."""
+        mine = self.layout_record
+        for path in sorted(glob.glob(os.path.join(
+                self.checkpoint_dir, "multifold_resume*.pt"))):
+            theirs = bundle_layout(path, self.job_folds)
+            if theirs != mine:
+                raise ValueError(
+                    f"the stacked bundle {os.path.basename(path)} was "
+                    f"written under the fold layout {theirs}, and this run's "
+                    f"is {mine}: resume under the layout that wrote it (each "
+                    "fold group's bundle holds its own folds)")
         bundle = checkpoints.load_bundle(self.stacked_bundle_path())
         if bundle is None:
             return None

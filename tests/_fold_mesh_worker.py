@@ -1,0 +1,185 @@
+"""Ranks of ``tests/test_torch_fold_mesh.py``: each process is one rank of a
+gloo group on the CPU, trains its fold group's folds with the port's
+``MultiFoldEngine`` on a ``FoldMesh``, and imports only the port.
+
+Usage: python tests/_fold_mesh_worker.py CASE RANK WORLD INIT_FILE INPUTS
+    OUT_DIR
+
+``INPUTS`` is a ``torch.save`` dict the parent wrote, with the run's fold
+list under ``folds``; the rank writes what ``CASES[CASE](fold_mesh,
+inputs)`` returns to ``OUT_DIR/rank{RANK}.pt``. The case functions also
+run in the parent with ``fold_mesh=None``: the one process that stacks
+every fold, which the ranks are held against.
+"""
+
+import datetime
+import os
+import sys
+import types
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import torch.distributed as dist  # noqa: E402
+
+from freesound_classification_tpu_torch.models.classifiers import (  # noqa
+    TwoDimensionalCNN,
+)
+from freesound_classification_tpu_torch.models.frontend import (  # noqa
+    Frontend,
+)
+from freesound_classification_tpu_torch.ops.augment import (  # noqa: E402
+    AugmentConfig,
+    make_augmenter,
+)
+from freesound_classification_tpu_torch.parallel import (  # noqa: E402
+    mesh as mesh_lib,
+)
+from freesound_classification_tpu_torch.training.engine import (  # noqa
+    Engine,
+)
+from freesound_classification_tpu_torch.training.multifold import (  # noqa
+    MultiFoldEngine,
+    fold_layout,
+    make_fold_mesh,
+    stack_batches,
+)
+
+CFG = dict(num_conv_blocks=2, start_deep_supervision_on=0,
+           conv_base_depth=8, growth_rate=2.0)
+SR = 44100
+DESCRIPTOR = "mel_512_256_32"
+
+
+def unflatten(feats, frames):
+    """The engines' frontend over flattened (B, 32 * T) log-mel rows."""
+    return feats.reshape(feats.shape[0], 32, -1)[..., None], frames
+
+
+def _stack(fold_mesh, inp, frontend, augment, seed):
+    """The template (``inp["state"]``'s weights) and the stacked engine
+    over the rank's folds, or over all of them alone; with the positions
+    of those folds in the run's fold list."""
+    model = TwoDimensionalCNN(**CFG, aggregation_type="max",
+                              n_classes=inp["n_classes"])
+    model.load_state_dict(inp["state"])
+    template = Engine(model, frontend, types.SimpleNamespace(**inp["cfg"]),
+                      loss="lsep_naive", augment=augment, seed=seed,
+                      device="cpu")
+    folds = list(inp["folds"])
+    own = fold_mesh.own_folds if fold_mesh is not None else folds
+    stack = MultiFoldEngine(template, own, fold_mesh=fold_mesh)
+    return stack, [folds.index(f) for f in own]
+
+
+def _epochs(stack, loaders):
+    """Two epochs of ``stack`` over ``loaders``: each of its folds' epoch
+    losses, final state and momentum buffers, and the run's step and
+    update counts."""
+    n_steps = stack.epoch_steps(loaders)
+    stack.make_optimizer(2 * n_steps, n_steps)
+    losses = [stack.train_epoch(loaders, 1.0, log_interval=100)["loss"]
+              for _ in range(2)]
+    names = stack.model.param_names
+    params = list(stack.model.stacked()[0].values())
+    folds = {}
+    for k, fold in enumerate(stack.fold_ids):
+        folds[fold] = {
+            "loss": [float(epoch[k]) for epoch in losses],
+            "state": {n: t.clone()
+                      for n, t in stack.model.fold_state(k).items()},
+            "momentum": {n: stack.optimizer.state[p]["momentum_buffer"][k]
+                         .clone() for n, p in zip(names, params)}}
+    return {"folds": folds, "steps": n_steps, "updates": stack.updates,
+            "global_step": stack.global_step}
+
+
+def _recipe_augment():
+    return make_augmenter(AugmentConfig(p_mixup=0.5, p_aug=0.75,
+                                        p_shuffle=0.5))
+
+
+def case_epochs(fold_mesh, inp):
+    """Two epochs of the recipe's augmentation (MixUp, the effects chain,
+    chunk shuffle) over each fold's list of batches (``_epochs``)."""
+    stack, positions = _stack(
+        fold_mesh, inp, Frontend(DESCRIPTOR, "2d", sr=SR, device="cpu"),
+        _recipe_augment(), seed=7)
+    return _epochs(stack, [inp["batches"][p] for p in positions])
+
+
+def emulated_epochs(inp, rank: int, world: int):
+    """``case_epochs`` in one process that stacks rank ``rank``'s folds
+    alone, told what the job gives them: their places in the fold list
+    (the generators' seeds), the job's step count and each step's (rows,
+    length) over every fold's batch of the step."""
+    layout = fold_layout(len(inp["folds"]), world)
+    positions = list(layout.positions(rank))
+    sub = dict(inp, folds=[inp["folds"][p] for p in positions])
+    stack, _ = _stack(None, sub, Frontend(DESCRIPTOR, "2d", sr=SR,
+                                          device="cpu"),
+                      _recipe_augment(), seed=7)
+    stack.generators = [torch.Generator().manual_seed(7 + p)
+                        for p in positions]
+    everyone = inp["batches"]
+    n_steps = max(len(batches) for batches in everyone)
+    shapes = [tuple(max(b[i % len(b)]["signal"].shape[j] for b in everyone)
+                    for j in (0, 1)) for i in range(n_steps)]
+    calls = []
+
+    def job_shape(batches):
+        calls.append(1)
+        return shapes[(len(calls) - 1) % n_steps]
+
+    stack.step_shape = job_shape
+    stack.epoch_steps = lambda loaders: n_steps
+    return _epochs(stack, [everyone[p] for p in positions])
+
+
+def case_jax_steps(fold_mesh, inp):
+    """Steps without augmentation from the stacked JAX fold states
+    ``inp["stacked"]`` over each step's per-fold batches, padded to the
+    job's (rows, length): each owned fold's per-step loss and batch
+    lwlrap, and its final state."""
+    stack, positions = _stack(fold_mesh, inp, unflatten, None, seed=0)
+    stack.make_optimizer(2 * len(inp["steps"]), len(inp["steps"]))
+    for k, p in enumerate(positions):
+        stack.model.load_fold(k, {n: t[p] for n, t in inp["stacked"].items()})
+    losses, metrics = [], []
+    for step in inp["steps"]:
+        batches = [step[p] for p in positions]
+        batch, n_real = stack_batches(batches, stack.step_shape(batches))
+        out = stack.train_step(*stack.to_device(batch),
+                               torch.from_numpy(n_real), aug_scale=0.0)
+        losses.append(out["loss"].detach().clone())
+        metrics.append(out["metric"].clone())
+    return {fold: {"loss": [float(x[k]) for x in losses],
+                   "metric": [float(x[k]) for x in metrics],
+                   "state": {n: t.clone() for n, t in
+                             stack.model.fold_state(k).items()}}
+            for k, fold in enumerate(stack.fold_ids)}
+
+
+CASES = {"epochs": case_epochs, "jax_steps": case_jax_steps}
+
+
+def main() -> None:
+    case, rank, world, init_file, inputs, out_dir = sys.argv[1:7]
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = mesh_lib.Mesh(rank, world, dist.group.WORLD, torch.device("cpu"))
+    try:
+        inp = torch.load(inputs, weights_only=False)
+        out = CASES[case](make_fold_mesh(mesh, inp["folds"]), inp)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

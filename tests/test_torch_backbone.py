@@ -54,6 +54,22 @@ FLIP_SHARE = 0.02  # the share of output elements one bf16 step may flip
 torch.set_float32_matmul_precision("highest")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Tiny shapes, many small ops: one intra-op thread, torch's and the
+    BLAS/OpenMP pools', is fastest, and keeps the suite's parallel
+    workers from oversubscribing the cores."""
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _leaves(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):

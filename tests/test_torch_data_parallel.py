@@ -51,6 +51,22 @@ N_CLASSES = 4
 CLIP = 8192
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Tiny shapes, many small ops: one intra-op thread, torch's and the
+    BLAS/OpenMP pools', is fastest, and keeps the suite's parallel
+    workers from oversubscribing the cores."""
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def run_ranks(tmp_path, case, inputs, world=2, timeout=150):
     """Run ``case`` of the worker on ``world`` ranks; every rank's result,
     in rank order. A rank that fails or outlives ``timeout`` seconds fails
@@ -625,8 +641,10 @@ def test_mesh_refuses_a_launch_it_cannot_run(monkeypatch):
     launch; a count other than ``WORLD_SIZE`` raises; a rank whose
     ``LOCAL_RANK`` has no card of its own raises before any process group
     (no fallback to the CPU or another rank's card); ``--fold_parallel``
-    over 2 ranks is refused naming M5.2; and without ``torchrun`` the mesh
-    is the single process on the asked device."""
+    with 5 folds over 2 ranks (JAX's 1 x 2 fold x data layout) is refused
+    naming M5.2, where 2 folds over 2 ranks (a fold a rank) are not; and
+    without ``torchrun`` the mesh is the single process on the asked
+    device."""
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         mesh_lib.make_mesh(2, "cpu", env={})
     alone = mesh_lib.make_mesh(None, "cpu", env={})
@@ -639,13 +657,20 @@ def test_mesh_refuses_a_launch_it_cannot_run(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="LOCAL_RANK 1 has no card"):
         mesh_lib.make_mesh(2, "cuda", env=env)
-    args = types.SimpleNamespace(fold_parallel=True, mesh_devices=2)
+    five = list(range(5))
+    args = types.SimpleNamespace(fold_parallel=True, mesh_devices=2,
+                                 folds=five)
     with pytest.raises(NotImplementedError, match="M5.2"):
         common.refuse_unported(args)
+    common.refuse_unported(types.SimpleNamespace(
+        fold_parallel=True, mesh_devices=2, folds=[0, 1]))
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="M5.2"):
         common.refuse_unported(types.SimpleNamespace(fold_parallel=True,
-                                                     mesh_devices=None))
+                                                     mesh_devices=None,
+                                                     folds=five))
+    common.refuse_unported(types.SimpleNamespace(
+        fold_parallel=True, mesh_devices=None, folds=[0, 1]))
 
 
 def test_engine_without_a_group_takes_the_single_process_path():

@@ -765,9 +765,9 @@ def test_train_cli_fold_parallel_with_packing_accumulation_profile_resume(
     shapes = set()
     stack_fn = multifold.stack_batches
 
-    def recording(batches):
+    def recording(batches, shape=None):
         shapes.add(tuple(b["signal"].shape for b in batches))
-        return stack_fn(batches)
+        return stack_fn(batches, shape)
 
     monkeypatch.setattr(multifold, "stack_batches", recording)
     epochs = []

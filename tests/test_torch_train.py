@@ -499,15 +499,20 @@ def train_2d_cnn_args(root, exp_dir):
 
 
 def test_train_cli_refuses_what_waits_and_a_missing_card(tmp_path):
-    """What waits: ``--fold_parallel`` over 2 ranks (ROADMAP M5.2's
-    multi-rank fold layouts); one rank of it, and 2 ranks without it, are
-    not refused."""
+    """What waits: ``--fold_parallel`` with 5 folds over 2 ranks (JAX's
+    1 x 2 fold x data layout, ROADMAP M5.2b); one rank of it, 2 folds
+    over 2 ranks (a fold a rank), one fold over 2 ranks (the
+    data-parallel path) and 2 ranks without it are not refused."""
     args = train_2d_cnn_args(str(tmp_path), str(tmp_path))
-    for flags in ({"fold_parallel": True, "mesh_devices": 2},):
+    for flags in ({"fold_parallel": True, "mesh_devices": 2,
+                   "folds": [0, 1, 2, 3, 4]},):
         bad = type(args)(**dict(vars(args), **flags))
         with pytest.raises(NotImplementedError, match="ROADMAP M5.2"):
             common.refuse_unported(bad)
     for flags in ({"fold_parallel": True, "mesh_devices": 1},
+                  {"fold_parallel": True, "mesh_devices": 2,
+                   "folds": [0, 1]},
+                  {"fold_parallel": True, "mesh_devices": 2},
                   {"mesh_devices": 2}):
         common.refuse_unported(type(args)(**dict(vars(args), **flags)))
     if not torch.cuda.is_available():
