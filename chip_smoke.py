@@ -3098,10 +3098,15 @@ def phase_data_parallel(root: str, inputs: dict, train_files: set,
 
 
 # ---------------------------------------------------------------------------
-# fold-parallel training over ranks, one fold group a rank (M5.2a)
+# fold-parallel training over ranks: one fold group a rank (M5.2a), and a
+# fold group of two ranks, each with half of every fold's rows (M5.2b)
 # ---------------------------------------------------------------------------
 
 FOLD_MESH_ROWS = (8, 6, 7, 8)  # 4 folds, 2 a rank: each fold's clips a batch
+# the 1 x 2 layout's folds: the first 3 of them, each rank all 3 and half
+# of each fold's 8 padded rows; the chain's round(0.75 * 8) = 6 rows of a
+# fold are 3 on each rank, so K2 and K3 launch once per fold a step there
+FOLD_DATA_FOLDS = 3
 FOLD_MESH_SECONDS = 5
 FOLD_MESH_BATCHES = 2  # a fold's batches: the compared epoch's steps
 FOLD_MESH_TIMEOUT = 300  # seconds for the gloo ranks and the CLI children
@@ -3141,11 +3146,15 @@ def fold_mesh_batches() -> list:
 
 
 def fold_mesh_steps(fold_mesh, device, folds: list,
-                    alone: list | None = None) -> dict:
+                    alone: list | None = None, augmented: bool = True,
+                    dtype: torch.dtype = torch.float32) -> dict:
     """The stacked engine at ``NETWORK``'s width over ``FEATURES`` (float32,
-    dropout 0, weights from a seed), the recipe's augmentation (MixUp 0.5,
-    the chain 0.75, chunk shuffle 0.5), momentum at lr ``FOLD_MESH_LR``:
-    on ``fold_mesh``'s rank over its own folds; in one process over all of
+    or the model in ``dtype`` from K1's float32 features; dropout 0,
+    weights from a seed), the recipe's augmentation (MixUp 0.5, the chain
+    0.75, chunk shuffle 0.5; none unless ``augmented``),
+    momentum at lr ``FOLD_MESH_LR``: on ``fold_mesh``'s rank over its own
+    folds (where its fold group has two ranks, its half of each fold's
+    rows, the template engine on the group); in one process over all of
     them with ``fold_mesh`` None; or, with ``alone`` (a rank's fold
     positions), in one process over those folds alone, told what the job
     gives them (their generators' seeds by position, the job's step count
@@ -3153,10 +3162,10 @@ def fold_mesh_steps(fold_mesh, device, folds: list,
     ``FOLD_MESH_BATCHES`` steps with every kernel wrapper's count from 0
     and every call of K1, K2 and K3 held against its plain twin on the
     same arguments (``kernels_against_twins``; the twins launch nothing
-    counted), then a second one timed. Returns each owned fold's per-step
-    losses and last gradients, the first epoch's launches, each kernel's
-    largest difference from its twin and the timed epoch's stacked
-    steps/s."""
+    counted), then, in float32, a second one timed. Returns each owned
+    fold's per-step losses and last gradients, the first epoch's launches,
+    each kernel's largest difference from its twin and the timed epoch's
+    stacked steps/s (None in another ``dtype``)."""
     import types
 
     from freesound_classification_tpu_torch import interop
@@ -3178,7 +3187,7 @@ def fold_mesh_steps(fold_mesh, device, folds: list,
     params, stats = interop.random_jax_variables(
         **net, n_classes=TRAIN_CLASSES, seed=13)
     model = TwoDimensionalCNN(**dict(NETWORK, output_dropout=0.0),
-                              n_classes=TRAIN_CLASSES)
+                              n_classes=TRAIN_CLASSES, dtype=dtype)
     model.load_state_dict(interop.from_jax_variables(params, stats))
     record = {"K1": [], "K2": [], "K3": [], "n_fft": []}
     checking = [True]
@@ -3196,8 +3205,10 @@ def fold_mesh_steps(fold_mesh, device, folds: list,
                               learning_rate=FOLD_MESH_LR,
                               scheduler="steplr_1_0.5", weight_decay=0.0),
         loss="lsep_naive", augment=make_augmenter(AugmentConfig(
-            p_mixup=0.5, p_aug=0.75, p_shuffle=0.5, sr=SR)),
-        seed=7, device=device)
+            p_mixup=0.5, p_aug=0.75, p_shuffle=0.5, sr=SR))
+        if augmented else None,
+        seed=7, device=device,
+        mesh=None if fold_mesh is None else fold_mesh.data_group)
     fold_ids = list(range(len(folds)))
     own = (fold_mesh.own_folds if fold_mesh is not None
            else fold_ids if alone is None else list(alone))
@@ -3224,7 +3235,7 @@ def fold_mesh_steps(fold_mesh, device, folds: list,
 
     def recording(*args, **kwargs):
         out = step(*args, **kwargs)
-        losses.append(out["loss"].float().cpu())
+        losses.append(out["loss"].detach().double().cpu())
         return out
 
     stack.train_step = recording
@@ -3241,23 +3252,30 @@ def fold_mesh_steps(fold_mesh, device, folds: list,
     grads = {fold: {n: p.grad[k].detach().cpu()
                     for n, p in zip(names, stacked)}
              for k, fold in enumerate(own)}
-    t0 = time.perf_counter()
-    stack.train_epoch(loaders, 1.0, log_interval=10**6, n_steps=n_steps)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    steps_per_s = None
+    if dtype == torch.float32:
+        t0 = time.perf_counter()
+        stack.train_epoch(loaders, 1.0, log_interval=10**6, n_steps=n_steps)
+        torch.cuda.synchronize()
+        steps_per_s = n_steps / (time.perf_counter() - t0)
     return {"folds": own, "steps": n_steps, "launches": launches,
             "loss": {fold: [float(x[k]) for x in losses[:n_steps]]
                      for k, fold in enumerate(own)},
             "grads": grads,
-            "twins": {k: max(record[k]) for k in ("K1", "K2", "K3")},
-            "steps_per_s": n_steps / seconds}
+            "twins": {k: max(record[k], default=0.0)
+                      for k in ("K1", "K2", "K3")},
+            "steps_per_s": steps_per_s}
 
 
 def fold_mesh_rank(rank: int, rendezvous: str, inputs_path: str,
                    out: str) -> None:
     """Rank ``rank`` of 2 sharing ``cuda:0`` over a gloo group (NCCL
-    refuses two ranks on one card): its ``FoldMesh`` over the 4 folds, a
-    fold group of two folds, through ``fold_mesh_steps``."""
+    refuses two ranks on one card), through ``fold_mesh_steps``: its
+    ``FoldMesh`` over the 4 folds, a fold group of two folds
+    (``by_fold``); then over the first ``FOLD_DATA_FOLDS`` folds, JAX's 1
+    x 2 layout, a fold group of both ranks holding every fold, with the
+    recipe's augmentation (``by_data``) and without it, the model in
+    float64 (``by_data_plain``)."""
     import datetime
 
     import torch.distributed as dist
@@ -3274,7 +3292,13 @@ def fold_mesh_rank(rank: int, rendezvous: str, inputs_path: str,
         world = mesh_lib.Mesh(rank, 2, dist.group.WORLD, device)
         folds = torch.load(inputs_path, weights_only=False)
         fold_mesh = multifold.make_fold_mesh(world, list(range(len(folds))))
-        torch.save(fold_mesh_steps(fold_mesh, device, folds), out)
+        result = {"by_fold": fold_mesh_steps(fold_mesh, device, folds)}
+        three = folds[:FOLD_DATA_FOLDS]
+        group = multifold.make_fold_mesh(world, list(range(len(three))))
+        result["by_data"] = fold_mesh_steps(group, device, three)
+        result["by_data_plain"] = fold_mesh_steps(
+            group, device, three, augmented=False, dtype=torch.float64)
+        torch.save(result, out)
     finally:
         dist.destroy_process_group()
 
@@ -3294,7 +3318,8 @@ def fold_mesh_ranks(smi: str) -> None:
     width (2 folds a grouped convolution or 4), which a max-pool near-tie
     turns into percents of a gradient (as ``fold_parallel_truth``'s single
     step against itself on reversed rows shows); each rank's stacked
-    steps/s beside the one process's."""
+    steps/s beside the one process's. Then the 1 x 2 layout on the same
+    ranks (``fold_data_mesh``)."""
     from freesound_classification_tpu_torch.probes.fold_parallel import (
         gradient_distance,
     )
@@ -3329,8 +3354,9 @@ def fold_mesh_ranks(smi: str) -> None:
                 raise RuntimeError(f"fold mesh: gloo rank {rank} on cuda:0 "
                                    f"exited {proc.returncode}:\n"
                                    f"{f.read()[-4000:]}")
-    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
-                        weights_only=False) for r in (0, 1)]
+    results = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                          weights_only=False) for r in (0, 1)]
+    ranks = [r["by_fold"] for r in results]
     rank_s = time.time() - t0
     torch.cuda.empty_cache()
     want = fold_mesh_steps(None, DEVICE, folds)
@@ -3398,6 +3424,87 @@ def fold_mesh_ranks(smi: str) -> None:
         raise RuntimeError("fold mesh: the losses disagree")
     if not max(d["max"] for d in grads) <= STEP_TOL_GRAD:
         raise RuntimeError("fold mesh: the gradients disagree")
+    fold_data_mesh(results, folds[:FOLD_DATA_FOLDS], smi)
+
+
+def fold_data_mesh(results: list, folds: list, smi: str) -> None:
+    """JAX's 1 x 2 layout of ``folds`` (``FOLD_DATA_FOLDS``) on the two
+    gloo ranks sharing ``cuda:0``: each rank all the folds and its half of
+    each fold's rows, BatchNorm's statistics and the gradients summed over
+    the two. On each rank, with the recipe's augmentation, K1 once a
+    stacked step and K2 and K3 once per fold a step (each rank's share of
+    a fold's chain rows is 3), each call held against its plain twin
+    (``K1_TOL``, ``K2_TOL``, ``K3_REL_TOL``); each rank's stacked steps/s
+    beside one process stacking the folds over whole rows. Without
+    augmentation (each rank draws its own) and with the model in float64
+    from K1's float32 features, against that one process: each fold's
+    per-step losses within ``STEP_TOL_LOSS`` (the whole batch's, alike on
+    both ranks) and its last gradients within ``STEP_TOL_GRAD`` of the
+    fold's largest entry, their relative L2 distance printed. In float32
+    the same comparison measured a relative L2 of 1.02e-2 and 2.03e-2 of
+    a fold's largest entry on an NVIDIA H100: the rounding of BatchNorm
+    sums over two ranks, which max-pool near-ties amplify, as large as
+    the stack width's (``fold_mesh_ranks``: 1.14e-2 and 1.83e-2 in the
+    same run)."""
+    from freesound_classification_tpu_torch.probes.fold_parallel import (
+        gradient_distance,
+    )
+
+    ranks = [r["by_data"] for r in results]
+    plain = [r["by_data_plain"] for r in results]
+    torch.cuda.empty_cache()
+    want = fold_mesh_steps(None, DEVICE, folds)
+    want_plain = fold_mesh_steps(None, DEVICE, folds, augmented=False,
+                                 dtype=torch.float64)
+    n = want["steps"]
+    expect = {"K1": n, "K2": len(folds) * n, "K3": len(folds) * n}
+    tols = {"K1": K1_TOL, "K2": K2_TOL, "K3": K3_REL_TOL}
+    for r, got in enumerate(ranks):
+        log(f"fold data mesh rank {r} (1 x 2, folds {got['folds']}, half "
+            f"the rows): launches {got['launches']} in {got['steps']} "
+            f"stacked steps (expected {expect}); each call against its "
+            f"twin: K1 {got['twins']['K1']:.2e} (tolerance {K1_TOL:g}), K2 "
+            f"{got['twins']['K2']:.2e} ({K2_TOL:g}), K3 "
+            f"{got['twins']['K3']:.2e} of its largest ({K3_REL_TOL:g}); "
+            f"{got['steps_per_s']:.3f} stacked steps/s")
+        if got["folds"] != list(range(len(folds))) or got["steps"] != n:
+            raise RuntimeError(f"fold data mesh rank {r}: folds "
+                               f"{got['folds']}, {got['steps']} steps")
+        if got["launches"] != expect:
+            raise RuntimeError(f"fold data mesh rank {r}: launches "
+                               f"{got['launches']}, expected {expect}")
+        if any(not got["twins"][k] <= tol for k, tol in tols.items()):
+            raise RuntimeError(f"fold data mesh rank {r}: a kernel "
+                               f"disagrees with its twin: {got['twins']}")
+    losses, grads = [], []
+    for got in plain:
+        for fold in got["folds"]:
+            losses.append(max(abs(a - b) for a, b in zip(
+                got["loss"][fold], want_plain["loss"][fold])))
+            grads.append(gradient_distance(got["grads"][fold],
+                                           want_plain["grads"][fold]))
+    l2, top = [d["l2"] for d in grads], [d["max"] for d in grads]
+    log(f"1 x 2 fold group of 2 gloo ranks on cuda:0 against one process, "
+        f"{len(folds)} folds of {list(FOLD_MESH_ROWS[:len(folds)])} x "
+        f"{FOLD_MESH_SECONDS} s, {n} steps without augmentation at lr "
+        f"{FOLD_MESH_LR:g}, the model in float64: per fold (rank 0's, then "
+        f"rank 1's) loss |d| {[f'{d:.2e}' for d in losses]} (tolerance "
+        f"{STEP_TOL_LOSS:g}); last "
+        f"gradients' largest |d| over each fold's largest entry "
+        f"{[f'{d:.2e}' for d in top]} (tolerance {STEP_TOL_GRAD:g}), "
+        f"relative L2 {[f'{d:.2e}' for d in l2]}, at "
+        f"{[d['at'] for d in grads]}; the one process launched "
+        f"{want['launches']} augmented; stacked steps/s: ranks "
+        f"{[round(g['steps_per_s'], 3) for g in ranks]} (all {len(folds)} "
+        f"folds each, half the rows, at once), one process "
+        f"{want['steps_per_s']:.3f} (whole rows) on {smi}")
+    if want["launches"] != expect:
+        raise RuntimeError(f"fold data mesh: the one process launched "
+                           f"{want['launches']}")
+    if not max(losses) <= STEP_TOL_LOSS:
+        raise RuntimeError("fold data mesh: the losses disagree")
+    if not max(top) <= STEP_TOL_GRAD:
+        raise RuntimeError("fold data mesh: the gradients disagree")
 
 
 def fold_mesh_cli(root: str, inputs: dict, smi: str) -> None:
@@ -3475,9 +3582,10 @@ def fold_mesh_cli(root: str, inputs: dict, smi: str) -> None:
 
 
 def phase_fold_mesh(root: str, inputs: dict, smi: str) -> None:
-    """M5.2a on the one card: 4 folds on two gloo ranks sharing it, 2 a
-    rank, against one process, and the fold-parallel train CLI on one
-    NCCL rank under ``torchrun`` against a plain child."""
+    """M5.2a and M5.2b on the one card: 4 folds on two gloo ranks sharing
+    it, 2 a rank, and 3 folds on the same ranks in the 1 x 2 layout, each
+    against one process, and the fold-parallel train CLI on one NCCL rank
+    under ``torchrun`` against a plain child."""
     t0 = time.time()
     fold_mesh_ranks(smi)
     fold_mesh_cli(root, inputs, smi)

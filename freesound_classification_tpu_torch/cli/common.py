@@ -37,13 +37,14 @@ writes. Without ``torchrun`` the run is today's single process, and
 ``--mesh_devices`` above 1 raises.
 With ``--fold_parallel`` and two or more folds under ``torchrun`` the
 folds train over the ranks in JAX's fold layout (``training/multifold.
-fold_layout``): each rank trains its fold group's folds as one stacked
-model, writes those folds' files, and sends their results to rank 0,
-which registers them and runs ``finalize_results`` once every owner has
-written (the gather waits for it). The ranks share the experiment
-directory. ``refuse_unported`` raises on the layouts not ported yet,
-those of data width above 1 and the fold-local one (ROADMAP M5.2b),
-before any work.
+fold_layout``), for any number of ranks: each rank trains its fold
+group's folds as one stacked model, on a group of d > 1 ranks data
+parallel over the group (its rows of every fold, and the template engine
+validating and predicting on the group: the valid, test and holdout
+loaders go over the group's ranks). The group's place 0 writes those
+folds' files and sends their results to rank 0, which registers them and
+runs ``finalize_results`` once every owner has written (the gather waits
+for it). The ranks share the experiment directory.
 ``log_launches_at_exit`` lets a run of several CLI processes (the recipe
 kit, the ranks of a job) count each one's kernel launches.
 
@@ -209,8 +210,8 @@ def add_train_arguments(parser: argparse.ArgumentParser) -> None:
              "<experiment>/summaries/profile")
     add("--fold_parallel", action="store_true", default=False,
         help="train every fold of --folds together as one stacked model "
-             "on the card (training/multifold.py); under torchrun, the "
-             "folds' groups over the ranks, one group a rank")
+             "on the card (training/multifold.py); under torchrun, over "
+             "the ranks in JAX's fold layout (fold groups, or fold-local)")
     add_mesh_argument(parser)
 
 
@@ -224,26 +225,11 @@ def add_mesh_argument(parser: argparse.ArgumentParser) -> None:
              "(default: torchrun's world size, 1 without it)")
 
 
-def refuse_unported(args) -> None:
-    """Raise on a part of the train CLI not ported yet: ``--fold_parallel``
-    over two or more folds on a number of ranks (``--mesh_devices`` or
-    ``torchrun``'s world size) where JAX's layout has a data width above 1
-    or is fold-local (ROADMAP M5.2b), e.g. 5 folds on 2-4 or 6-9 ranks."""
-    world = max(int(os.environ.get("WORLD_SIZE", 1)),
-                getattr(args, "mesh_devices", None) or 1)
-    folds = getattr(args, "folds", None) or []
-    if getattr(args, "fold_parallel", False) and len(folds) > 1:
-        multifold.refuse_unported_layout(
-            multifold.fold_layout(len(folds), world))
-
-
 @contextlib.contextmanager
 def data_parallel(args):
     """The run's ``parallel.mesh.Mesh`` from ``--mesh_devices``,
-    ``--device`` and ``torchrun``'s environment, after
-    ``refuse_unported``; ranks above 0 print nothing inside, and the
-    process group is destroyed on the way out."""
-    refuse_unported(args)
+    ``--device`` and ``torchrun``'s environment; ranks above 0 print
+    nothing inside, and the process group is destroyed on the way out."""
     mesh = mesh_lib.make_mesh(args.mesh_devices, args.device)
     try:
         with mesh.quiet():
@@ -489,13 +475,22 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
         class_names = class_names_from_classmap(class_map)
         predictions = experiment.register_directory("predictions")
         fold_parallel = args.fold_parallel and len(args.folds) > 1
-        # the fold-parallel ranks train whole folds: their loaders are the
-        # folds' own, unsharded (JAX's ``fold_loaders(f, 1)``)
-        loader_mesh = None if fold_parallel else dp
+        folds = list(args.folds)
+        # under torchrun the folds' groups go over the ranks, even on one
+        # rank, so that its run goes through the collectives
+        fold_mesh = (multifold.make_fold_mesh(mesh, folds)
+                     if fold_parallel and mesh.distributed else None)
+        # a fold group of d > 1 ranks: its template engine is on the group
+        group = fold_mesh.data_group if fold_mesh is not None else None
+        # the fold-parallel ranks take whole folds' train batches: their
+        # train loaders are the folds' own, unsharded (JAX's
+        # ``fold_loaders(f, 1)``); the other loaders go over the group
+        train_mesh = None if fold_parallel else dp
+        loader_mesh = group if fold_parallel else dp
         batching = dict(
             batch_size=None if args.max_batch_elems else args.batch_size,
             max_batch_elems=args.max_batch_elems,
-            num_workers=args.num_workers, mesh=loader_mesh)
+            num_workers=args.num_workers)
 
         def dataset(manifest, data_dir):
             return ClipDataset(
@@ -513,9 +508,9 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
             return (make_loader(
                         train_ds, ladder, train=True, seed=args.kfold_seed,
                         size_multiple=1 if fold_parallel else mesh.world_size,
-                        **batching),
+                        mesh=train_mesh, **batching),
                     make_loader(dataset(valid, args.train_data_dir),
-                                full_ladder, **batching),
+                                full_ladder, mesh=loader_mesh, **batching),
                     valid)
 
         def train_stats(epoch_stats: list) -> dict:
@@ -544,7 +539,7 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
             if sets.test is not None:
                 test_loader = make_loader(
                     dataset(sets.test, args.test_data_dir), full_ladder,
-                    **batching)
+                    mesh=loader_mesh, **batching)
                 write(f"test_preds_fold_{fold}.csv", sets.test.fnames,
                       engine.predict(test_loader))
             if sets.holdout is None:
@@ -557,29 +552,30 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
             return {"holdout_metric": holdout_metric}
 
         if fold_parallel:
-            folds = list(args.folds)
-            # under torchrun the folds' groups go over the ranks, even on
-            # one rank, so that its run goes through the collectives
-            fold_mesh = (multifold.make_fold_mesh(mesh, folds)
-                         if mesh.distributed else None)
             own = fold_mesh.own_folds if fold_mesh is not None else folds
             layout = (", layout " + multifold.layout_record(
                 fold_mesh.layout, folds) if fold_mesh is not None else "")
             print(f"\n   -----  Folds {folds} (parallel{layout})\n")
             loaders = [fold_loaders(fold) for fold in own]
             # the head's dropout draws from PyTorch's default generator;
-            # every rank's template is the one process's
-            torch.manual_seed(args.kfold_seed + folds[0])
+            # every rank's template is the one process's, and at place j
+            # of a fold group dropout starts from the place's seed
+            seed = args.kfold_seed + folds[0]
+            torch.manual_seed(seed)
             template = build_engine(args, experiment, n_classes, device,
-                                    model_kind=model_kind)
+                                    model_kind=model_kind, mesh=group)
+            if group is not None:
+                torch.manual_seed(group.rank_seed(seed))
             stack = MultiFoldEngine(template, own, fold_mesh=fold_mesh)
             best = stack.fit([t for t, _, _ in loaders],
                              [v for _, v, _ in loaders], epochs=args.epochs,
                              log_interval=args.log_interval,
                              resume=args.resume)
             stack.save_fold_models("final_model")
-            # each fold's files are its owner's; its results reach rank 0
-            # by a gather that returns once every owner has written
+            # each fold's files are its group's place 0's; their results
+            # reach rank 0 by a gather that returns once every owner has
+            # written
+            writes = group is None or group.is_writer
             results = []
             for k, fold in enumerate(own):
                 stats = train_stats([
@@ -589,8 +585,9 @@ def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,
                 results.append((fold, {"metric": float(best[k]), **stats,
                                        **emit_fold_artifacts(
                                            template, fold, *loaders[k][1:],
-                                           writes=True)}))
-            for rank_results in mesh.all_gather_object(results):
+                                           writes=writes)}))
+            for rank_results in mesh.all_gather_object(
+                    results if writes else []):
                 for fold, fold_results in rank_results:
                     register(fold, fold_results)
         else:

@@ -231,22 +231,34 @@ def all_reduce_sum_(x: torch.Tensor, group: dist.ProcessGroup
 
 class _AllReduceSum(torch.autograd.Function):
     """Forward: the sum over the ranks. Backward: the sum over the ranks of
-    the gradient, since every rank's loss reads the same sum."""
+    the gradient, since every rank's loss reads the same sum. Under
+    ``torch.func.vmap`` (the stacked folds of ``training/multifold.py``)
+    the rule moves the batch dim to 0 and sums the whole batched tensor in
+    one all-reduce, forward and backward: one collective for all of a
+    rank's folds."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
+    def forward(x: torch.Tensor, group) -> torch.Tensor:
         return all_reduce_sum_(x.clone(), group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        ctx.group = inputs[1]
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         return all_reduce_sum_(grad.contiguous().clone(), ctx.group), None
 
+    @staticmethod
+    def vmap(info, in_dims, x: torch.Tensor, group):
+        del info
+        return _AllReduceSum.apply(x.movedim(in_dims[0], 0), group), 0
+
 
 def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup
                    ) -> torch.Tensor:
     """The sum of ``x`` over the ranks, with gradients (statistics that a
-    loss reads, as BatchNorm's)."""
+    loss reads, as BatchNorm's); under ``torch.func.vmap`` too."""
     return _AllReduceSum.apply(x, group)
 
 
@@ -282,19 +294,21 @@ def all_reduce_gradients(params: Sequence[torch.Tensor],
                          group: dist.ProcessGroup,
                          extra: Sequence[torch.Tensor] = ()) -> list:
     """Sum the parameters' gradients over the ranks in one flat buffer,
-    with the 0-d tensors ``extra`` (the rank's share of the reported loss)
-    appended; returns the summed ``extra``. A parameter without a gradient
-    has none on every rank (the same graph), and is left out. The buffer
-    is one concatenation of the gradients in memory order, copied back
-    with one foreach copy."""
+    with the tensors ``extra`` (the rank's share of the reported loss: 0-d,
+    or one entry a fold of a stacked step) appended; returns the summed
+    ``extra``, each in its shape. A parameter without a gradient has none
+    on every rank (the same graph), and is left out. The buffer is one
+    concatenation of the gradients in memory order, copied back with one
+    foreach copy."""
     grads = [_memory_order(p.grad) for p in params if p.grad is not None]
     dtype = grads[0].dtype if grads else torch.float32
     if any(g.dtype != dtype for g in grads):
         raise TypeError("all_reduce_gradients: gradients of one dtype only")
-    flat = torch.cat(grads + [e.detach().reshape(1).to(dtype)
+    flat = torch.cat(grads + [e.detach().reshape(-1).to(dtype)
                               for e in extra])
     all_reduce_sum_(flat, group)
-    parts = flat.split([g.numel() for g in grads] + [1] * len(extra))
+    parts = flat.split([g.numel() for g in grads] + [e.numel() for e in extra])
     if grads:
         torch._foreach_copy_(grads, list(parts[:len(grads)]))
-    return [p[0].to(e.dtype) for p, e in zip(parts[len(grads):], extra)]
+    return [p.view(e.shape).to(e.dtype)
+            for p, e in zip(parts[len(grads):], extra)]

@@ -1,6 +1,6 @@
 """Fold-parallel training: K folds trained together, one train step over
 the K folds' stacked batch (JAX ``training/multifold.py``), on one card or
-over several ranks, one fold group a rank.
+over several ranks in JAX's fold layouts.
 
 The JAX package stacks the K fold train states and ``vmap``s its step over
 them. Here ``FoldStack`` holds the K folds' parameters and BatchNorm
@@ -63,26 +63,45 @@ Correctness parity with the sequential path:
 Over several ranks (``FoldMesh``, under ``torchrun``): ``fold_layout``
 picks JAX's ``make_fold_dp_mesh(K, layout="auto")`` layout for K folds on
 n ranks: f fold groups of d ranks, f the largest divisor of K at most n,
-where f x d == n, else the fold-local layout (every rank all K folds, the
-rows over all n). The layouts of data width 1 (d == 1: 5 folds on 5
-ranks, 4 on 2 or 4, K on 1) are ported: rank r trains the K / f folds of
-group r, the r-th slice of ``--folds``, with this engine, and nothing
-crosses ranks inside the step. The rest (ROADMAP M5.2b) is refused. What
-makes a rank's folds train as in the one-process stack of all K:
+where f x d == n, else the fold-local layout (one group of all n ranks
+holding every fold, f 1 and d n). Rank r trains the K / f folds of its
+group, a slice of ``--folds``, with this engine, the same stacked states
+on each of the group's d ranks. What makes a rank's folds train as in
+the one-process stack of all K:
 
 - fold k's augmenter generator starts from ``seed + k``, k its position
-  in the whole fold list;
+  in the whole fold list (``+ RANK_SEED_STRIDE * j`` at place j of a
+  group of d > 1: place 0 keeps it);
 - an epoch runs to the longest loader of all K folds (gathered once a
   fit), and so does the 1cycle schedule's ``steps_per_epoch``;
 - each step pads to the (rows, length) of all K folds' batches, gathered
   in one small all-gather (padded rows enter BatchNorm's statistics, so a
-  rank-local pad would change the results), which keys the MixUp pool;
+  rank-local pad would change the results), the rows rounded up to a
+  multiple of d (JAX's ``row_multiple``);
 - each fold group writes its own stacked bundle,
   ``multifold_resume_folds_<ids>.pt`` (``multifold_resume.pt`` where one
   group holds every fold), which records the layout; ``resume`` refuses
   a bundle of another layout, naming both;
-- rank 0 prints each epoch's line over all K folds. The checkpoint
-  directory is one the ranks share.
+- rank 0 prints each epoch's line over all K folds, each fold counted
+  once. The checkpoint directory is one the ranks share.
+
+A group of d > 1 ranks (JAX's ``P("fold", "data")``, or ``P(None,
+"data")`` fold-local, inside its ``shard_map`` over "fold") is the data
+parallel of ``training/engine.py`` over the group, per fold: every place
+builds the same padded stacked batch from the folds' own unsharded loaders
+and takes its contiguous 1/d of every fold's rows (``FoldLayout.rows``);
+BatchNorm's statistics go through the group's all-reduce inside the vmap
+(``mesh.all_reduce_sum``'s vmap rule: one collective a layer for all of
+the rank's folds); each fold's loss is its masked sum over the rank's rows
+over the fold's real rows in the whole batch, and the stacked gradients
+with the (K,) reported loss are summed over the group in one buffer
+(``Engine._learn``); the batch lwlrap gathers the group's rows. Each
+place's chain takes its share of the fold's ``round(p B)`` rows
+(``augment.effects_count``), and MixUp partners come from the rank's own
+rows (JAX's are the fold's whole batch). The template engine, on the fold
+group, validates and predicts data parallel over it; the group's place 0
+writes the fold files, the summaries and the group's bundle, which holds
+every place's generator states.
 """
 
 from __future__ import annotations
@@ -98,7 +117,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from freesound_classification_tpu_torch.models.blocks import MaskedBiGRU
+from freesound_classification_tpu_torch.models.blocks import (
+    BatchNorm,
+    MaskedBiGRU,
+)
 from freesound_classification_tpu_torch.ops import metrics as metrics_lib
 from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 from freesound_classification_tpu_torch.training import checkpoints
@@ -151,11 +173,6 @@ class FoldLayout:
     def shape(self) -> tuple:
         return (self.f, self.d) if self.kind == "fold_dp" else (self.n_ranks,)
 
-    @property
-    def ported(self) -> bool:
-        """A layout of data width 1: each rank trains whole folds."""
-        return self.kind == "fold_dp" and self.d == 1
-
     def describe(self) -> str:
         ranks = f"{self.n_ranks} rank{'s' if self.n_ranks > 1 else ''}"
         if self.kind == "fold_local":
@@ -167,6 +184,18 @@ class FoldLayout:
         per = self.n_folds // self.f
         start = (rank // self.d if self.kind == "fold_dp" else 0) * per
         return range(start, start + per)
+
+    def place(self, rank: int) -> int:
+        """``rank``'s place in its fold group: its index on "data"."""
+        return rank % self.d
+
+    def rows(self, rank: int, n_rows: int) -> slice:
+        """The rows ``rank`` takes of each of its folds in a stacked batch
+        of ``n_rows`` (a multiple of d): its contiguous 1/d, where JAX's
+        ``P("fold", "data")`` (``P(None, "data")`` fold-local) puts them."""
+        per = n_rows // self.d
+        start = self.place(rank) * per
+        return slice(start, start + per)
 
     def group_ranks(self) -> list:
         """Each fold group's ranks, in group order."""
@@ -185,19 +214,6 @@ def fold_layout(n_folds: int, n_ranks: int) -> FoldLayout:
     return FoldLayout(n_folds, n_ranks, f, d, "fold_dp")
 
 
-def refuse_unported_layout(layout: FoldLayout) -> None:
-    """Raise on a layout of data width above 1, or the fold-local one."""
-    if not layout.ported:
-        raise NotImplementedError(
-            f"--fold_parallel with {layout.n_folds} folds on "
-            f"{layout.n_ranks} ranks: JAX's layout is {layout.describe()}, "
-            "not ported yet (ROADMAP M5.2b: fold layouts of data width "
-            "above 1, and the fold-local one); the ported layouts train "
-            "whole folds on each rank: f fold groups of one rank, f a "
-            "divisor of the fold count (5 folds on 1 or 5 ranks, 4 on 1, 2 "
-            "or 4)")
-
-
 def layout_record(layout: FoldLayout, folds: Sequence[int]) -> str:
     """What a stacked bundle records of the layout that wrote it."""
     return f"{layout.describe()}, folds {list(folds)}"
@@ -207,8 +223,8 @@ def layout_record(layout: FoldLayout, folds: Sequence[int]) -> str:
 class FoldMesh:
     """A rank's place in a fold-parallel job: the ``layout`` of the run's
     ``folds`` over ``world``'s ranks, and ``group``, the rank's fold group
-    (d ranks: one in the ported layouts, where ``MultiFoldEngine`` runs no
-    collective inside the step; ROADMAP M5.2b adds the group's)."""
+    of d ranks (``MultiFoldEngine`` runs the group's collectives inside the
+    step where d > 1)."""
     layout: FoldLayout
     folds: tuple
     world: mesh_lib.Mesh
@@ -223,14 +239,18 @@ class FoldMesh:
         """The folds this rank trains, in ``folds`` order."""
         return [self.folds[i] for i in self.positions]
 
+    @property
+    def data_group(self) -> Optional[mesh_lib.Mesh]:
+        """The fold group where its rows go over d > 1 ranks, else None
+        (whole folds on each rank: no collective inside the step)."""
+        return self.group if self.layout.d > 1 else None
+
 
 def make_fold_mesh(world: mesh_lib.Mesh, folds: Sequence[int]) -> FoldMesh:
     """The rank's ``FoldMesh`` for ``folds`` over ``world`` (a distributed
-    ``parallel.mesh.Mesh``; every rank calls this): refuses an unported
-    layout before any group is made, then makes the f fold groups of d
-    ranks."""
+    ``parallel.mesh.Mesh``; every rank calls this): JAX's layout, and the
+    f fold groups of d ranks."""
     layout = fold_layout(len(folds), world.world_size)
-    refuse_unported_layout(layout)
     group = mesh_lib.sub_mesh(world, layout.group_ranks())
     return FoldMesh(layout, tuple(folds), world, group)
 
@@ -259,16 +279,19 @@ def bundle_layout(path: str, folds: Sequence[int]) -> str:
 
 
 def stack_batches(batches: Sequence[dict],
-                  shape: Optional[tuple] = None) -> tuple:
+                  shape: Optional[tuple] = None,
+                  row_multiple: int = 1) -> tuple:
     """Pad K per-fold batches to a common (largest batch, longest length),
-    or to ``shape`` = (rows, length) where it is larger, and stack each
-    key to (K, B, ...) (JAX ``_stack_batches``): the signal is zero-padded
-    in time, short batches repeat their last row. Each key is written once
-    into its stacked array. Returns (stacked numpy dict, ``n_real`` (K,)
-    int32, each fold's real rows)."""
+    or to ``shape`` = (rows, length) where it is larger, the rows rounded
+    up to a multiple of ``row_multiple`` (a fold group's d ranks), and
+    stack each key to (K, B, ...) (JAX ``_stack_batches``): the signal is
+    zero-padded in time, short batches repeat their last row. Each key is
+    written once into its stacked array. Returns (stacked numpy dict,
+    ``n_real`` (K,) int32, each fold's real rows)."""
     rows, length = shape if shape is not None else (0, 0)
     max_len = max([length] + [b["signal"].shape[1] for b in batches])
     max_bs = max([rows] + [b["signal"].shape[0] for b in batches])
+    max_bs += (-max_bs) % row_multiple
     n_real = np.array([b["signal"].shape[0] for b in batches], np.int32)
     out = {}
     for key in batches[0]:
@@ -317,7 +340,8 @@ class FoldStack(nn.Module):
     has no batching rule and raises under vmap), the same function. The inputs and the logits are the
     folds' rows one after another, (K * B, ...). Dropout draws differ per
     fold (``randomness="different"``). BatchNorm's in-place update of the
-    running statistics writes each fold's slice of the stacked buffers."""
+    running statistics writes each fold's slice of the stacked buffers; on
+    a fold group (``set_group``) its statistics are the group's rows'."""
 
     def __init__(self, model: nn.Module, n_folds: int):
         super().__init__()
@@ -330,12 +354,23 @@ class FoldStack(nn.Module):
             self.register_buffer(_key(name), value)
         # the model as a function of the tensors handed to it; a list keeps
         # it out of this module's parameters. Its GRUs take their step-by-
-        # step route: vmap has no batching rule for the fused GRU's op
-        base = copy.deepcopy(model).to("meta")
+        # step route: vmap has no batching rule for the fused GRU's op. A
+        # BatchNorm's process group is not copied: the engine sets the
+        # stack's (``set_group``)
+        base = copy.deepcopy(model, {
+            id(m.group): None for m in model.modules()
+            if isinstance(m, BatchNorm) and m.group is not None}).to("meta")
         for module in base.modules():
             if isinstance(module, MaskedBiGRU):
                 module.route = "scan"
         self._base = [base]
+
+    def set_group(self, group) -> None:
+        """Train-mode BatchNorm takes its statistics over ``group``'s ranks
+        (a process group; None: this rank's rows)."""
+        for module in self._base[0].modules():
+            if isinstance(module, BatchNorm):
+                module.group = group
 
     def train(self, mode: bool = True) -> "FoldStack":
         super().train(mode)
@@ -393,7 +428,10 @@ class MultiFoldEngine(Engine):
     fold's weights loaded into its model. ``deterministic`` (the default)
     runs each stacked step with cuDNN's deterministic algorithms. On a
     ``fold_mesh`` the engine is a rank of a fold-parallel job and
-    ``fold_ids`` are the rank's own folds (the module docstring)."""
+    ``fold_ids`` are the rank's own folds (the module docstring); where
+    the rank's fold group has d > 1 ranks, ``self.mesh`` is that group and
+    the template must be an engine on it (``cli/common.build_engine(...,
+    mesh=fold_mesh.group)``), which validates and writes for the group."""
 
     def __init__(self, template: Engine, fold_ids: Sequence[int],
                  deterministic: bool = True,
@@ -402,13 +440,20 @@ class MultiFoldEngine(Engine):
         self.fold_ids = list(fold_ids)
         self.deterministic = deterministic
         self.fold_mesh = fold_mesh
-        positions = range(len(self.fold_ids))
+        positions, group = range(len(self.fold_ids)), None
         if fold_mesh is not None:
             if self.fold_ids != fold_mesh.own_folds:
                 raise ValueError(f"folds {self.fold_ids} on a rank that owns "
                                  f"{fold_mesh.own_folds}")
-            positions = fold_mesh.positions
+            positions, group = fold_mesh.positions, fold_mesh.data_group
+            if group is not None and template.mesh != group:
+                raise ValueError(
+                    f"a fold group of {group.world_size} ranks needs a "
+                    "template engine on that group (mesh=fold_mesh.group): "
+                    "it validates, predicts and writes for the group")
         seed = template.generator.initial_seed()
+        if group is not None:  # the template's is its rank's seed
+            seed -= mesh_lib.RANK_SEED_STRIDE * group.rank
         super().__init__(
             FoldStack(template.model, len(self.fold_ids)), template.frontend,
             template.train_config, augment=template.augment,
@@ -416,13 +461,26 @@ class MultiFoldEngine(Engine):
             device=template.device,
             warm_start_path=template.warm_start_path,
             profile_dir=template.profile_dir,
-            summary_writer_factory=template._writer_factory)
+            summary_writer_factory=template._writer_factory, mesh=group)
         self.loss_fn = template.loss_fn
-        # fold k of the whole fold list draws from seed + k
+        # fold k of the whole fold list draws from seed + k, at place j of
+        # a fold group from seed + k + RANK_SEED_STRIDE * j
         self.generators = [
-            torch.Generator(device=self.device).manual_seed(seed + k)
+            torch.Generator(device=self.device).manual_seed(
+                self.mesh.rank_seed(seed + k) if self.mesh else seed + k)
             for k in positions]
         self.fold_writers: list = []  # (train, valid) per fold, in a fit
+
+    def _replicate(self) -> None:
+        """``Engine._replicate``, and the stack's BatchNorms (in the model
+        it runs under vmap) take their statistics over the fold group."""
+        super()._replicate()
+        self.model.set_group(self.mesh.group if self.mesh else None)
+
+    @property
+    def _shard(self) -> Optional[tuple]:
+        """(place, d) on a fold group of d > 1 ranks, else None."""
+        return (self.mesh.rank, self.mesh.world_size) if self.mesh else None
 
     # ------------------------------------------------------------------
     # the job's ranks
@@ -449,7 +507,8 @@ class MultiFoldEngine(Engine):
     def step_shape(self, batches: Sequence[dict]) -> Optional[tuple]:
         """The (rows, length) every rank pads this step's batches to, the
         largest of all the job's folds', in one all-gather of each rank's
-        pairs; None alone (``stack_batches`` takes the local largest)."""
+        pairs (``stack_batches`` rounds the rows up to a multiple of d);
+        None alone (``stack_batches`` takes the local largest)."""
         if self.fold_mesh is None:
             return None
         world = self.fold_mesh.world
@@ -458,6 +517,20 @@ class MultiFoldEngine(Engine):
         rows, length = mesh_lib.all_gather_rows(
             local, world.group).amax(dim=0).tolist()
         return rows, length
+
+    def stack_step(self, batches: Sequence[dict]) -> tuple:
+        """``stack_batches`` of the rank's folds' ``batches`` to the job's
+        ``step_shape``, the rows a multiple of d; on a fold group of d > 1
+        ranks, this place's rows of every fold (``FoldLayout.rows``).
+        Returns (stacked numpy dict, each fold's real rows in the whole
+        stacked batch)."""
+        if self.mesh is None:
+            return stack_batches(batches, self.step_shape(batches))
+        stacked, n_real = stack_batches(batches, self.step_shape(batches),
+                                        row_multiple=self.mesh.world_size)
+        rows = self.fold_mesh.layout.rows(self.fold_mesh.world.rank,
+                                          stacked["signal"].shape[1])
+        return {k: v[:, rows] for k, v in stacked.items()}, n_real
 
     # ------------------------------------------------------------------
     # steps
@@ -470,20 +543,25 @@ class MultiFoldEngine(Engine):
         """One stacked micro-batch of (K, B, ...) tensors whose first
         ``n_real[k]`` rows of fold k are real; returns (K,) ``loss`` and
         ``metric`` over each fold's real rows and the (K, B)
-        ``per_sample`` losses."""
+        ``per_sample`` losses. On a fold group of d ranks the tensors are
+        this place's B rows of a stacked batch of d B, whose first
+        ``n_real[k]`` rows of fold k are real; the loss and the metric are
+        the whole batch's."""
         self.model.train()
         if self.augment is not None and aug_scale > 0.0:
             with torch.no_grad(), self._stage("augment"):
                 folds = [self.augment(
                     wave[k], lengths[k], labels[k], gen, aug_scale,
                     partner=(None if partner is None
-                             else tuple(t[k] for t in partner)))
+                             else tuple(t[k] for t in partner)),
+                    shard=self._shard)
                     for k, gen in enumerate(self.generators)]
                 wave, lengths, labels = (torch.stack(t) for t in zip(*folds))
         n_folds, rows = wave.shape[:2]
-        mask = (torch.arange(rows, device=wave.device)[None, :]
+        first = self.mesh.rank * rows if self.mesh else 0
+        mask = ((first + torch.arange(rows, device=wave.device))[None, :]
                 < n_real[:, None]).float()
-        count = mask.sum(dim=1).clamp(min=1.0)
+        count = n_real.to(mask.dtype).clamp(min=1.0)
 
         def reduce(per_sample):
             per_fold = (per_sample.view(n_folds, rows) * mask).sum(1) / count
@@ -495,6 +573,15 @@ class MultiFoldEngine(Engine):
                 labels.flatten(0, 1), reduce)
         with torch.no_grad():
             probs = torch.sigmoid(logits).view(n_folds, rows, -1)
+            if self.mesh is not None:  # the whole stacked batch's rows
+                total = rows * self.mesh.world_size
+                probs, labels = (
+                    t.view(total, n_folds, -1).transpose(0, 1).float()
+                    for t in self._gather_rows(
+                        total, *(b.transpose(0, 1).flatten(1)
+                                 for b in (probs, labels))))
+                mask = (torch.arange(total, device=wave.device)[None, :]
+                        < n_real[:, None]).float()
             metric = torch.func.vmap(metrics_lib.lwlrap_torch)(
                 labels, probs, mask)
         return {"loss": loss, "metric": metric,
@@ -520,12 +607,11 @@ class MultiFoldEngine(Engine):
         timer.start()
         for batch_idx, batches in enumerate(
                 zip(*(cycle_to(loader, n_steps) for loader in loaders))):
-            stacked, n_real = stack_batches(batches,
-                                            self.step_shape(batches))
+            stacked, n_real = self.stack_step(batches)
             wave, lengths, labels = self.to_device(stacked)
             # MixUp partners: the previous clean stacked batch of the same
             # shape (the job's: every rank pads to it), each fold's own
-            # slice of it
+            # slice of it (this place's rows of it on a fold group)
             pool_key = tuple(wave.shape)
             clean = (wave, lengths, labels)
             partner = self._mixup_pool.get(pool_key, clean)
@@ -627,9 +713,10 @@ class MultiFoldEngine(Engine):
                     continue
                 if epoch % save_every == 0:
                     self.template.save_model(fold, f"model_on_epoch_{epoch}")
-                    checkpoints.prune_epoch_checkpoints(
-                        os.path.join(self.checkpoint_dir, f"fold_{fold}"),
-                        keep)
+                    if self._writes:
+                        checkpoints.prune_epoch_checkpoints(
+                            os.path.join(self.checkpoint_dir,
+                                         f"fold_{fold}"), keep)
                 if score > best[k]:
                     self.template.save_model(fold, "best_model")
                 best[k] = max(best[k], score)
@@ -648,10 +735,13 @@ class MultiFoldEngine(Engine):
     def print_epoch(self, epoch: int, stats: dict, scores: list) -> None:
         """The epoch's line over every fold of the job (JAX's ``epoch N:
         loss [...] val [...]``): the train loss and batch lwlrap, the
-        validation lwlrap, and the clips/s of all ranks together."""
-        rows = self.all_ranks((stats["loss"].tolist(),
+        validation lwlrap, and the clips/s of all fold groups together,
+        each group's numbers from its place 0."""
+        rows = self.all_ranks((self.mesh.rank if self.mesh else 0,
+                               stats["loss"].tolist(),
                                stats["metric"].tolist(), list(scores),
                                float(stats["clips_per_sec"])))
+        rows = [r[1:] for r in rows if r[0] == 0]
         loss, metric, val = (np.array(sum((r[i] for r in rows), []))
                              for i in range(3))
         print(f"Epoch {epoch}: loss {np.round(loss, 4)} metric "
@@ -696,9 +786,13 @@ class MultiFoldEngine(Engine):
                             loaders: List) -> None:
         """Write the stacked resume bundle: ``train_state``, each fold
         loader's epoch counter, the ``layout`` and the progress ``{epoch,
-        best, global_step}``, in one atomic step."""
+        best, global_step}``, in one atomic step. Every place of a fold
+        group takes part; its place 0 writes."""
+        state = self.train_state()
+        if not self._writes:
+            return
         checkpoints.save_bundle(self.stacked_bundle_path(), dict(
-            self.train_state(),
+            state,
             loader_epochs=[int(getattr(loader, "_epoch", 0))
                            for loader in loaders],
             layout=self.layout_record,
@@ -733,12 +827,17 @@ class MultiFoldEngine(Engine):
             self.to_template(k).save_model(fold, name)
 
     def train_state(self) -> dict:
-        """``Engine.train_state`` and each fold's augmenter generator."""
-        return dict(super().train_state(),
-                    fold_augment_rngs=[g.get_state()
-                                       for g in self.generators])
+        """``Engine.train_state`` and each fold's augmenter generator; on a
+        fold group every place's, in place order."""
+        rngs = [g.get_state() for g in self.generators]
+        return dict(super().train_state(), fold_augment_rngs=(
+            self.mesh.all_gather_object(rngs) if self.mesh else rngs))
 
     def load_train_state(self, bundle: dict) -> dict:
-        for gen, state in zip(self.generators, bundle["fold_augment_rngs"]):
+        meta = super().load_train_state(bundle)
+        rngs = bundle["fold_augment_rngs"]
+        if self.mesh is not None:
+            rngs = rngs[self.mesh.rank]
+        for gen, state in zip(self.generators, rngs):
             gen.set_state(state)
-        return super().load_train_state(bundle)
+        return meta

@@ -1,6 +1,8 @@
-"""Ranks of ``tests/test_torch_fold_mesh.py``: each process is one rank of a
-gloo group on the CPU, trains its fold group's folds with the port's
-``MultiFoldEngine`` on a ``FoldMesh``, and imports only the port.
+"""Ranks of ``tests/test_torch_fold_mesh.py`` and
+``tests/test_torch_fold_data_mesh.py``: each process is one rank of a gloo
+group on the CPU, trains its fold group's folds with the port's
+``MultiFoldEngine`` on a ``FoldMesh`` (or runs a stacked BatchNorm over
+the ranks), and imports only the port.
 
 Usage: python tests/_fold_mesh_worker.py CASE RANK WORLD INIT_FILE INPUTS
     OUT_DIR
@@ -24,11 +26,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch.distributed as dist  # noqa: E402
 
+from freesound_classification_tpu_torch.models.blocks import (  # noqa: E402
+    BatchNorm,
+)
 from freesound_classification_tpu_torch.models.classifiers import (  # noqa
     TwoDimensionalCNN,
 )
 from freesound_classification_tpu_torch.models.frontend import (  # noqa
     Frontend,
+)
+from freesound_classification_tpu_torch.ops import (  # noqa: E402
+    augment as augment_lib,
 )
 from freesound_classification_tpu_torch.ops.augment import (  # noqa: E402
     AugmentConfig,
@@ -44,7 +52,6 @@ from freesound_classification_tpu_torch.training.multifold import (  # noqa
     MultiFoldEngine,
     fold_layout,
     make_fold_mesh,
-    stack_batches,
 )
 
 CFG = dict(num_conv_blocks=2, start_deep_supervision_on=0,
@@ -59,15 +66,17 @@ def unflatten(feats, frames):
 
 
 def _stack(fold_mesh, inp, frontend, augment, seed):
-    """The template (``inp["state"]``'s weights) and the stacked engine
-    over the rank's folds, or over all of them alone; with the positions
-    of those folds in the run's fold list."""
+    """The template (``inp["state"]``'s weights; on the rank's fold group
+    where it has d > 1 ranks) and the stacked engine over the rank's folds,
+    or over all of them alone; with the positions of those folds in the
+    run's fold list."""
     model = TwoDimensionalCNN(**CFG, aggregation_type="max",
                               n_classes=inp["n_classes"])
     model.load_state_dict(inp["state"])
     template = Engine(model, frontend, types.SimpleNamespace(**inp["cfg"]),
                       loss="lsep_naive", augment=augment, seed=seed,
-                      device="cpu")
+                      device="cpu", mesh=(None if fold_mesh is None
+                                          else fold_mesh.data_group))
     folds = list(inp["folds"])
     own = fold_mesh.own_folds if fold_mesh is not None else folds
     stack = MultiFoldEngine(template, own, fold_mesh=fold_mesh)
@@ -149,8 +158,7 @@ def case_jax_steps(fold_mesh, inp):
         stack.model.load_fold(k, {n: t[p] for n, t in inp["stacked"].items()})
     losses, metrics = [], []
     for step in inp["steps"]:
-        batches = [step[p] for p in positions]
-        batch, n_real = stack_batches(batches, stack.step_shape(batches))
+        batch, n_real = stack.stack_step([step[p] for p in positions])
         out = stack.train_step(*stack.to_device(batch),
                                torch.from_numpy(n_real), aug_scale=0.0)
         losses.append(out["loss"].detach().clone())
@@ -162,7 +170,65 @@ def case_jax_steps(fold_mesh, inp):
             for k, fold in enumerate(stack.fold_ids)}
 
 
-CASES = {"epochs": case_epochs, "jax_steps": case_jax_steps}
+def case_effects(fold_mesh, inp):
+    """One stacked step of the chain alone (``p_aug`` ``inp["p"]``) over
+    each step's per-fold batches: the chain's row count of each owned
+    fold on this rank, per step (``augment.draw_effects``' rows)."""
+    counts = []
+    draw = augment_lib.draw_effects
+
+    def counting(gen, b, p, shard=None):
+        draws = draw(gen, b, p, shard)
+        counts.append(len(draws.rows))
+        return draws
+
+    augment_lib.draw_effects = counting
+    stack, positions = _stack(
+        fold_mesh, inp, Frontend(DESCRIPTOR, "2d", sr=SR, device="cpu"),
+        make_augmenter(AugmentConfig(p_aug=inp["p"])), seed=7)
+    stack.make_optimizer(len(inp["steps"]), len(inp["steps"]))
+    out = []
+    for step in inp["steps"]:
+        counts.clear()
+        batch, n_real = stack.stack_step([step[p] for p in positions])
+        stack.train_step(*stack.to_device(batch), torch.from_numpy(n_real))
+        out.append({"rows": batch["signal"].shape[1],
+                    "counts": dict(zip(stack.fold_ids, counts))})
+    return out
+
+
+def case_vmap_bn(fold_mesh, inp):
+    """A ``BatchNorm`` of ``inp["channels"]`` stacked over the folds
+    (``torch.func.stack_module_state``) and run under ``torch.func.vmap``
+    on this rank's contiguous half of each fold's rows of ``inp["x"]``,
+    its statistics over the world's ranks: the forward, the gradients of
+    ``(y * inp["g"]).sum()`` as to the rank's rows and as to the stacked
+    weight and bias, and the stacked running statistics."""
+    del fold_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    per = inp["x"].shape[1] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    x = inp["x"][:, rows].clone().requires_grad_(True)
+    bn = BatchNorm(inp["channels"])
+    params, buffers = torch.func.stack_module_state(
+        [bn] * inp["x"].shape[0])
+    params = {n: t.detach().copy_(inp[n]).requires_grad_(True)
+              for n, t in params.items()}
+    bn.group = dist.group.WORLD
+    bn.to("meta")
+
+    def one_fold(p, b, xs):
+        return torch.func.functional_call(bn, (p, b), (xs,))
+
+    y = torch.func.vmap(one_fold)(params, buffers, x)
+    (y * inp["g"][:, rows]).sum().backward()
+    return {"y": y.detach(), "x_grad": x.grad,
+            **{f"{n}_grad": t.grad for n, t in params.items()},
+            **{n: t for n, t in buffers.items()}}
+
+
+CASES = {"epochs": case_epochs, "jax_steps": case_jax_steps,
+         "effects": case_effects, "vmap_bn": case_vmap_bn}
 
 
 def main() -> None:
@@ -175,7 +241,8 @@ def main() -> None:
     mesh = mesh_lib.Mesh(rank, world, dist.group.WORLD, torch.device("cpu"))
     try:
         inp = torch.load(inputs, weights_only=False)
-        out = CASES[case](make_fold_mesh(mesh, inp["folds"]), inp)
+        out = CASES[case](make_fold_mesh(mesh, inp["folds"])
+                          if "folds" in inp else None, inp)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -25,6 +25,7 @@ import jax
 import torch
 
 import _dp_worker as worker
+from _cli_mesh import accepted_by_the_cli
 from freesound_classification_tpu.data import loader as jloader
 from freesound_classification_tpu.models.classifiers import (
     TwoDimensionalCNN as JaxCNN,
@@ -32,7 +33,6 @@ from freesound_classification_tpu.models.classifiers import (
 from freesound_classification_tpu.parallel import mesh as jmesh
 from freesound_classification_tpu.training.engine import Engine as JaxEngine
 from freesound_classification_tpu_torch import interop
-from freesound_classification_tpu_torch.cli import common
 from freesound_classification_tpu_torch.cli import train_2d_cnn, train_apc
 from freesound_classification_tpu_torch.data import audio_io, bucketing
 from freesound_classification_tpu_torch.data.loader import DataLoader
@@ -641,10 +641,11 @@ def test_mesh_refuses_a_launch_it_cannot_run(monkeypatch):
     launch; a count other than ``WORLD_SIZE`` raises; a rank whose
     ``LOCAL_RANK`` has no card of its own raises before any process group
     (no fallback to the CPU or another rank's card); ``--fold_parallel``
-    with 5 folds over 2 ranks (JAX's 1 x 2 fold x data layout) is refused
-    naming M5.2, where 2 folds over 2 ranks (a fold a rank) are not; and
-    without ``torchrun`` the mesh is the single process on the asked
-    device."""
+    with 5 folds over 2 ranks (JAX's 1 x 2 fold x data layout) and 2 folds
+    over 2 ranks (a fold a rank) are launches it runs, with
+    ``--mesh_devices`` or ``torchrun``'s world size alone (the mesh is
+    made, the process group's set-up stubbed); and without ``torchrun``
+    the mesh is the single process on the asked device."""
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         mesh_lib.make_mesh(2, "cpu", env={})
     alone = mesh_lib.make_mesh(None, "cpu", env={})
@@ -657,20 +658,13 @@ def test_mesh_refuses_a_launch_it_cannot_run(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="LOCAL_RANK 1 has no card"):
         mesh_lib.make_mesh(2, "cuda", env=env)
-    five = list(range(5))
-    args = types.SimpleNamespace(fold_parallel=True, mesh_devices=2,
-                                 folds=five)
-    with pytest.raises(NotImplementedError, match="M5.2"):
-        common.refuse_unported(args)
-    common.refuse_unported(types.SimpleNamespace(
-        fold_parallel=True, mesh_devices=2, folds=[0, 1]))
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="M5.2"):
-        common.refuse_unported(types.SimpleNamespace(fold_parallel=True,
-                                                     mesh_devices=None,
-                                                     folds=five))
-    common.refuse_unported(types.SimpleNamespace(
-        fold_parallel=True, mesh_devices=None, folds=[0, 1]))
+    for folds in (list(range(5)), [0, 1]):
+        for devices in (2, None):  # --mesh_devices, or torchrun's alone
+            args = types.SimpleNamespace(fold_parallel=True, folds=folds,
+                                         mesh_devices=devices, device="cpu")
+            mesh = accepted_by_the_cli(monkeypatch, args, 1, world=2)
+            assert (mesh.rank, mesh.world_size) == (1, 2)
+            assert mesh.device == torch.device("cpu")
 
 
 def test_engine_without_a_group_takes_the_single_process_path():

@@ -1,6 +1,7 @@
 """Fold-parallel training over several ranks (``training/multifold.py``'s
 ``fold_layout`` and ``FoldMesh``; ROADMAP M5.2a, the layouts of data width
-1), on the CPU: the layout against JAX's ``make_fold_dp_mesh``, two gloo
+1; M5.2b's are ``tests/test_torch_fold_data_mesh.py``'s), on the CPU: every
+layout against JAX's ``make_fold_dp_mesh``, two gloo
 ranks against one process that stacks every fold and against JAX's
 ``MultiFoldEngine`` on a 2 x 1 (fold, data) mesh, and the train CLI under
 ``python -m torch.distributed.run --nproc_per_node 2 ... --fold_parallel``.
@@ -39,15 +40,16 @@ from freesound_classification_tpu.training.multifold import (
 import torch
 
 import _fold_mesh_worker as worker
+from _cli_mesh import accepted_by_the_cli
 from freesound_classification_tpu_torch import interop
-from freesound_classification_tpu_torch.cli import common, train_2d_cnn
+from freesound_classification_tpu_torch.cli import train_2d_cnn
 from freesound_classification_tpu_torch.models.classifiers import (
     TwoDimensionalCNN,
 )
+from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 from freesound_classification_tpu_torch.training import multifold
 from freesound_classification_tpu_torch.training.multifold import (
     fold_layout,
-    refuse_unported_layout,
 )
 from tests.test_torch_hierarchical import _train_argv, _write_dataset
 
@@ -143,43 +145,46 @@ def _worst(got: dict, want: dict, names) -> float:
 
 @pytest.mark.parametrize("n_ranks", range(1, 9))
 @pytest.mark.parametrize("n_folds", range(1, 6))
-def test_layout_matches_jax_fold_dp_mesh(n_folds, n_ranks):
+def test_layout_matches_jax_fold_dp_mesh(n_folds, n_ranks, monkeypatch):
     """``fold_layout(K, n)`` has the axis names and shape of JAX's
-    ``make_fold_dp_mesh(K, devices[:n])`` (auto), and on a (fold, data)
-    mesh each rank's fold positions are the slice of the fold axis that
-    JAX's ``P("fold")`` puts on the rank's device. The layouts of data
-    width 1 pass the refusal; every other one is refused naming M5.2b,
-    and so is the train CLI's ``--fold_parallel`` over K >= 2 folds on n
-    ranks, before any work."""
+    ``make_fold_dp_mesh(K, devices[:n])`` (auto); on a (fold, data) mesh
+    each rank's fold positions are the slice of the fold axis that JAX's
+    ``P("fold")`` puts on the rank's device, and each rank's rows of a
+    stacked batch (``FoldLayout.rows``) the slice of the row axis that
+    ``P("fold", "data")`` puts there (fold-local: every fold, and the rows
+    of ``P(None, "data")``). Every layout is accepted: the train CLI's
+    ``--fold_parallel`` over K folds on n ranks makes its mesh, and
+    ``make_fold_mesh`` gives each rank its folds, each fold held by d
+    ranks."""
     devices = jax.devices()[:n_ranks]
     want = make_fold_dp_mesh(n_folds, devices=devices)
     got = fold_layout(n_folds, n_ranks)
     assert got.axis_names == tuple(want.axis_names)
     assert got.shape == tuple(want.devices.shape)
-    if got.kind == "fold_dp":
-        slices = NamedSharding(want, P("fold")).devices_indices_map(
-            (n_folds,))
-        for rank, device in enumerate(devices):
-            assert (got.positions(rank)
-                    == range(n_folds)[slices[device][0]]), rank
-        assert sorted(sum((list(got.positions(r[0]))
-                           for r in got.group_ranks()), [])) == list(
-            range(n_folds))
+    assert got.f * got.d == n_ranks
+    rows = 3 * got.d
+    spec = P("fold", "data") if got.kind == "fold_dp" else P(None, "data")
+    slices = NamedSharding(want, spec).devices_indices_map((n_folds, rows))
+    for rank, device in enumerate(devices):
+        assert (got.positions(rank)
+                == range(n_folds)[slices[device][0]]), rank
+        assert (range(rows)[got.rows(rank, rows)]
+                == range(rows)[slices[device][1]]), rank
+    assert sorted(sum((list(got.positions(r[0]))
+                       for r in got.group_ranks()), [])) == list(
+        range(n_folds))
     args = types.SimpleNamespace(fold_parallel=True, mesh_devices=n_ranks,
-                                 folds=list(range(n_folds)))
-    if got.ported:
-        assert got.d == 1 and got.kind == "fold_dp"
-        refuse_unported_layout(got)
-        common.refuse_unported(args)
-        return
-    with pytest.raises(NotImplementedError, match="M5.2b") as err:
-        refuse_unported_layout(got)
-    assert got.describe() in str(err.value)
-    if n_folds > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP M5.2b"):
-            common.refuse_unported(args)
-    else:  # one fold never takes the fold-parallel path (M5.1's path)
-        common.refuse_unported(args)
+                                 folds=list(range(n_folds)), device="cpu")
+    held = []
+    for rank in range(n_ranks):
+        world = accepted_by_the_cli(monkeypatch, args, rank)
+        assert (world.rank, world.world_size) == (rank, n_ranks)
+        fold_mesh = multifold.make_fold_mesh(
+            mesh_lib.Mesh(rank, n_ranks), args.folds)
+        assert fold_mesh.layout == got
+        assert fold_mesh.own_folds == list(got.positions(rank))
+        held += fold_mesh.own_folds
+    assert sorted(held) == sorted(args.folds * got.d)
 
 
 # ---------------------------------------------------------------------------

@@ -602,8 +602,11 @@ def test_train_cli_writes_test_predictions_submission_and_holdout(tmp_path):
 
 
 def test_refuse_unported_accepts_the_recipe_flags(tmp_path):
-    """The flags the recipe passes raise and warn of nothing; a test set
-    without its data directory is refused before the CSVs are read."""
+    """The flags the recipe passes, with and without the kit's
+    ``--fold_parallel`` over folds 0-4, raise and warn of nothing where the
+    CLI reads them before any work (``data_parallel``'s mesh, the
+    experiment config); a test set without its data directory passes the
+    launch and is refused before the CSVs are read."""
     import warnings
 
     root = str(tmp_path)
@@ -611,10 +614,17 @@ def test_refuse_unported_accepts_the_recipe_flags(tmp_path):
         common.add_train_arguments, root, noisy_train_df="n.csv",
         noisy_train_data_dir="n", share_noisy=True, holdout_size=0.1,
         max_samples=5, profile=True, save_every=20, keep_checkpoints=3)
+    stacked = type(args)(**dict(vars(args), fold_parallel=True,
+                                folds=[0, 1, 2, 3, 4]))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        common.refuse_unported(args)
+        for run in (args, stacked):
+            with common.data_parallel(run) as mesh:
+                assert not mesh.distributed
+            config = common.experiment_config(run, 3, 32)
+            assert config["data"]["_share_noisy"] is True
     bad = type(args)(**dict(vars(args), test_data_dir=None))
-    common.refuse_unported(bad)
+    with common.data_parallel(bad):
+        pass
     with pytest.raises(ValueError, match="--test_data_dir"):
         common.training_sets(bad, {})

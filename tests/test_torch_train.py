@@ -26,6 +26,7 @@ from freesound_classification_tpu.ops import losses as jlosses
 from freesound_classification_tpu.ops import metrics as jmetrics
 from freesound_classification_tpu.ops import schedules as jsched
 from freesound_classification_tpu.training import optimizers as jopt
+from _cli_mesh import accepted_by_the_cli
 from freesound_classification_tpu_torch import interop
 from freesound_classification_tpu_torch.cli import common
 from freesound_classification_tpu_torch.cli import predict_2d_cnn
@@ -37,7 +38,7 @@ from freesound_classification_tpu_torch.models.classifiers import (
     TwoDimensionalCNN,
 )
 from freesound_classification_tpu_torch.ops import losses, metrics, schedules
-from freesound_classification_tpu_torch.training import optimizers
+from freesound_classification_tpu_torch.training import multifold, optimizers
 
 SR = 44100
 N_CLASSES = 6
@@ -498,23 +499,31 @@ def train_2d_cnn_args(root, exp_dir):
         "--device", "cpu", "--experiments_dir", exp_dir])
 
 
-def test_train_cli_refuses_what_waits_and_a_missing_card(tmp_path):
-    """What waits: ``--fold_parallel`` with 5 folds over 2 ranks (JAX's
-    1 x 2 fold x data layout, ROADMAP M5.2b); one rank of it, 2 folds
+def test_train_cli_refuses_what_waits_and_a_missing_card(tmp_path,
+                                                         monkeypatch):
+    """Nothing waits: ``--fold_parallel`` with 5 folds over 2 ranks (JAX's
+    1 x 2 fold x data layout, ROADMAP M5.2b), one rank of it, 2 folds
     over 2 ranks (a fold a rank), one fold over 2 ranks (the
-    data-parallel path) and 2 ranks without it are not refused."""
+    data-parallel path) and 2 ranks without it each make their mesh
+    (``common.data_parallel`` on rank 1, the process group's set-up
+    stubbed); the 5 folds on 2 ranks take the 1 x 2 layout, each rank
+    all 5 folds. A missing card raises."""
     args = train_2d_cnn_args(str(tmp_path), str(tmp_path))
     for flags in ({"fold_parallel": True, "mesh_devices": 2,
-                   "folds": [0, 1, 2, 3, 4]},):
-        bad = type(args)(**dict(vars(args), **flags))
-        with pytest.raises(NotImplementedError, match="ROADMAP M5.2"):
-            common.refuse_unported(bad)
-    for flags in ({"fold_parallel": True, "mesh_devices": 1},
+                   "folds": [0, 1, 2, 3, 4]},
+                  {"fold_parallel": True, "mesh_devices": 1},
                   {"fold_parallel": True, "mesh_devices": 2,
                    "folds": [0, 1]},
                   {"fold_parallel": True, "mesh_devices": 2},
                   {"mesh_devices": 2}):
-        common.refuse_unported(type(args)(**dict(vars(args), **flags)))
+        run = type(args)(**dict(vars(args), **flags))
+        rank = run.mesh_devices - 1
+        mesh = accepted_by_the_cli(monkeypatch, run, rank)
+        assert (mesh.rank, mesh.world_size) == (rank, run.mesh_devices)
+    layout = multifold.fold_layout(5, 2)
+    assert layout.describe() == "1 x 2 (fold x data) on 2 ranks"
+    assert [list(layout.positions(r)) for r in (0, 1)] == [
+        [0, 1, 2, 3, 4]] * 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             common.resolve_device("cuda")
