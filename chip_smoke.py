@@ -3145,6 +3145,56 @@ def fold_mesh_batches() -> list:
     return folds
 
 
+def fold_mesh_template(fold_mesh, device, augmented: bool,
+                       dtype: torch.dtype, record: dict, checking: list,
+                       checkpoint_dir: str | None = None):
+    """The template engine of ``fold_mesh_steps`` and ``fold_mesh_fit``:
+    the 2d CNN at ``NETWORK``'s width in ``dtype`` (dropout 0, weights
+    from a seed) over ``FEATURES`` through K1, each K1 call appending its
+    largest difference from its twin to ``record["K1"]`` while
+    ``checking[0]``; the recipe's augmentation where ``augmented``;
+    momentum at lr ``FOLD_MESH_LR``; on ``fold_mesh``'s fold group where
+    it has two ranks."""
+    import types
+
+    from freesound_classification_tpu_torch import interop
+    from freesound_classification_tpu_torch.models.classifiers import (
+        TwoDimensionalCNN,
+    )
+    from freesound_classification_tpu_torch.models.frontend import Frontend
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.ops.augment import (
+        AugmentConfig,
+        make_augmenter,
+    )
+    from freesound_classification_tpu_torch.training.engine import Engine
+
+    net = {k: v for k, v in NETWORK.items() if k != "output_dropout"}
+    params, stats = interop.random_jax_variables(
+        **net, n_classes=TRAIN_CLASSES, seed=13)
+    model = TwoDimensionalCNN(**dict(NETWORK, output_dropout=0.0),
+                              n_classes=TRAIN_CLASSES, dtype=dtype)
+    model.load_state_dict(interop.from_jax_variables(params, stats))
+
+    def k1(spec, fb):
+        got = kernels.mel_project_log(spec, fb)
+        if checking[0]:
+            want = kernels.mel_project_log_reference(spec, fb)
+            record["K1"].append((got - want).abs().max().item())
+        return got
+
+    return Engine(
+        model, Frontend(FEATURES, "2d", sr=SR, device=device, mel_project=k1),
+        types.SimpleNamespace(optimizer="momentum",
+                              learning_rate=FOLD_MESH_LR,
+                              scheduler="steplr_1_0.5", weight_decay=0.0),
+        loss="lsep_naive", augment=make_augmenter(AugmentConfig(
+            p_mixup=0.5, p_aug=0.75, p_shuffle=0.5, sr=SR))
+        if augmented else None,
+        checkpoint_dir=checkpoint_dir, seed=7, device=device,
+        mesh=None if fold_mesh is None else fold_mesh.data_group)
+
+
 def fold_mesh_steps(fold_mesh, device, folds: list,
                     alone: list | None = None, augmented: bool = True,
                     dtype: torch.dtype = torch.float32) -> dict:
@@ -3166,49 +3216,15 @@ def fold_mesh_steps(fold_mesh, device, folds: list,
     fold's per-step losses and last gradients, the first epoch's launches,
     each kernel's largest difference from its twin and the timed epoch's
     stacked steps/s (None in another ``dtype``)."""
-    import types
-
-    from freesound_classification_tpu_torch import interop
-    from freesound_classification_tpu_torch.models.classifiers import (
-        TwoDimensionalCNN,
-    )
-    from freesound_classification_tpu_torch.models.frontend import Frontend
     from freesound_classification_tpu_torch.ops import kernels
-    from freesound_classification_tpu_torch.ops.augment import (
-        AugmentConfig,
-        make_augmenter,
-    )
-    from freesound_classification_tpu_torch.training.engine import Engine
     from freesound_classification_tpu_torch.training.multifold import (
         MultiFoldEngine,
     )
 
-    net = {k: v for k, v in NETWORK.items() if k != "output_dropout"}
-    params, stats = interop.random_jax_variables(
-        **net, n_classes=TRAIN_CLASSES, seed=13)
-    model = TwoDimensionalCNN(**dict(NETWORK, output_dropout=0.0),
-                              n_classes=TRAIN_CLASSES, dtype=dtype)
-    model.load_state_dict(interop.from_jax_variables(params, stats))
     record = {"K1": [], "K2": [], "K3": [], "n_fft": []}
     checking = [True]
-
-    def k1(spec, fb):
-        got = kernels.mel_project_log(spec, fb)
-        if checking[0]:
-            want = kernels.mel_project_log_reference(spec, fb)
-            record["K1"].append((got - want).abs().max().item())
-        return got
-
-    template = Engine(
-        model, Frontend(FEATURES, "2d", sr=SR, device=device, mel_project=k1),
-        types.SimpleNamespace(optimizer="momentum",
-                              learning_rate=FOLD_MESH_LR,
-                              scheduler="steplr_1_0.5", weight_decay=0.0),
-        loss="lsep_naive", augment=make_augmenter(AugmentConfig(
-            p_mixup=0.5, p_aug=0.75, p_shuffle=0.5, sr=SR))
-        if augmented else None,
-        seed=7, device=device,
-        mesh=None if fold_mesh is None else fold_mesh.data_group)
+    template = fold_mesh_template(fold_mesh, device, augmented, dtype,
+                                  record, checking)
     fold_ids = list(range(len(folds)))
     own = (fold_mesh.own_folds if fold_mesh is not None
            else fold_ids if alone is None else list(alone))
@@ -3267,6 +3283,98 @@ def fold_mesh_steps(fold_mesh, device, folds: list,
             "steps_per_s": steps_per_s}
 
 
+class FoldBatches(list):
+    """A fold's batches as its train loader, with the epoch counter that
+    the stacked bundle keeps."""
+    _epoch = 0
+
+
+def fold_mesh_fit(fold_mesh, device, folds: list, root: str,
+                  augmented: bool = True, dtype: torch.dtype = torch.float32,
+                  stop: int | None = None, resume: bool = False) -> dict:
+    """``MultiFoldEngine.fit`` of 2 epochs of ``fold_mesh_template``'s
+    stacked engine over each fold's batches (its first one to validate),
+    with the checkpoints under ``root``: on ``fold_mesh``'s rank over its
+    folds, or over all of them in one process; stopped before epoch
+    ``stop`` as a crash would, or resumed from ``root``'s bundle. With
+    every kernel wrapper's count from 0 and every call of K1, K2 and K3
+    held against its plain twin. Returns the fit's launches, each
+    kernel's largest difference from its twin, each owned fold's per-step
+    losses of the run and last gradients, and on world rank 0 (or alone)
+    each bundle save's ms, of it the gather's, and the bundle's bytes."""
+    from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.training.multifold import (
+        BUNDLE,
+        MultiFoldEngine,
+    )
+
+    record = {"K1": [], "K2": [], "K3": [], "n_fft": []}
+    template = fold_mesh_template(
+        fold_mesh, device, augmented, dtype, record, [True],
+        checkpoint_dir=os.path.join(root, "checkpoints"))
+    own = (fold_mesh.own_folds if fold_mesh is not None
+           else list(range(len(folds))))
+    stack = MultiFoldEngine(template, own, fold_mesh=fold_mesh)
+    losses, saves = [], {"save_ms": [], "gather_ms": []}
+    step, gather, save = (stack.train_step, stack.gather_fold_tensors,
+                          stack.save_stacked_bundle)
+
+    def recording(*args, **kwargs):
+        out = step(*args, **kwargs)
+        losses.append(out["loss"].detach().double().cpu())
+        return out
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            saves[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    stack.train_step = recording
+    stack.gather_fold_tensors = timed(gather, "gather_ms")
+    stack.save_stacked_bundle = timed(save, "save_ms")
+    if stop is not None:
+        train_epoch, started = stack.train_epoch, []
+
+        def stopping(*args, **kwargs):
+            if len(started) == stop:
+                raise KeyboardInterrupt(f"stopped before epoch {stop}")
+            started.append(1)
+            return train_epoch(*args, **kwargs)
+
+        stack.train_epoch = stopping
+    for name in kernels.launch_counts():
+        getattr(kernels, name).launches = 0
+    try:
+        with kernels_against_twins(record):
+            stack.fit([FoldBatches(folds[f]) for f in own],
+                      [[folds[f][0]] for f in own], epochs=2,
+                      log_interval=10**6, resume=resume)
+    except KeyboardInterrupt:
+        pass
+    torch.cuda.synchronize()
+    names = stack.model.param_names
+    stacked = list(stack.model.stacked()[0].values())
+    bundle = os.path.join(root, "checkpoints", BUNDLE)
+    writer = fold_mesh is None or fold_mesh.world.rank == 0
+    return {"folds": own,
+            "launches": {WRAPPER_KERNEL[k]: n
+                         for k, n in kernels.launch_counts().items() if n},
+            "twins": {k: max(record[k], default=0.0)
+                      for k in ("K1", "K2", "K3")},
+            "loss": {fold: [float(x[k]) for x in losses]
+                     for k, fold in enumerate(own)},
+            "grads": {fold: {n: p.grad[k].detach().cpu()
+                             for n, p in zip(names, stacked)}
+                      for k, fold in enumerate(own)},
+            **(dict(saves, bundle_bytes=os.path.getsize(bundle))
+               if writer else {})}
+
+
 def fold_mesh_rank(rank: int, rendezvous: str, inputs_path: str,
                    out: str) -> None:
     """Rank ``rank`` of 2 sharing ``cuda:0`` over a gloo group (NCCL
@@ -3275,7 +3383,11 @@ def fold_mesh_rank(rank: int, rendezvous: str, inputs_path: str,
     (``by_fold``); then over the first ``FOLD_DATA_FOLDS`` folds, JAX's 1
     x 2 layout, a fold group of both ranks holding every fold, with the
     recipe's augmentation (``by_data``) and without it, the model in
-    float64 (``by_data_plain``)."""
+    float64 (``by_data_plain``); then ``fold_mesh_fit`` over the 4 folds,
+    the job's bundle of epoch 0 of 2 left under ``inputs_path``'s
+    directory with the augmentation (``stopped``) and, without it in
+    float64, 2 epochs straight (``straight_plain``) and a bundle of epoch
+    0 for ``fold_mesh_resume`` to resume."""
     import datetime
 
     import torch.distributed as dist
@@ -3298,6 +3410,17 @@ def fold_mesh_rank(rank: int, rendezvous: str, inputs_path: str,
         result["by_data"] = fold_mesh_steps(group, device, three)
         result["by_data_plain"] = fold_mesh_steps(
             group, device, three, augmented=False, dtype=torch.float64)
+        # the job's bundles, for one process to resume
+        work = os.path.dirname(inputs_path)
+        result["stopped"] = fold_mesh_fit(
+            fold_mesh, device, folds, os.path.join(work, "resume_aug"),
+            stop=1)
+        result["straight_plain"] = fold_mesh_fit(
+            fold_mesh, device, folds, os.path.join(work, "straight_plain"),
+            augmented=False, dtype=torch.float64)
+        fold_mesh_fit(fold_mesh, device, folds,
+                      os.path.join(work, "resume_plain"), augmented=False,
+                      dtype=torch.float64, stop=1)
         torch.save(result, out)
     finally:
         dist.destroy_process_group()
@@ -3319,7 +3442,8 @@ def fold_mesh_ranks(smi: str) -> None:
     turns into percents of a gradient (as ``fold_parallel_truth``'s single
     step against itself on reversed rows shows); each rank's stacked
     steps/s beside the one process's. Then the 1 x 2 layout on the same
-    ranks (``fold_data_mesh``)."""
+    ranks (``fold_data_mesh``), and the ranks' bundle resumed by one
+    process (``fold_mesh_resume``)."""
     from freesound_classification_tpu_torch.probes.fold_parallel import (
         gradient_distance,
     )
@@ -3425,6 +3549,92 @@ def fold_mesh_ranks(smi: str) -> None:
     if not max(d["max"] for d in grads) <= STEP_TOL_GRAD:
         raise RuntimeError("fold mesh: the gradients disagree")
     fold_data_mesh(results, folds[:FOLD_DATA_FOLDS], smi)
+    fold_mesh_resume(results, work, folds, smi)
+
+
+def fold_mesh_resume(results: list, work: str, folds: list,
+                     smi: str) -> None:
+    """Elastic resume on the card: the job's one bundle of epoch 0 of 2,
+    written by the two gloo ranks sharing ``cuda:0`` (the 2 x 1 layout,
+    the recipe's augmentation), resumed by one process over all 4 folds
+    for epoch 1: K1 once a stacked step and once a fold's validation
+    batch, K2 and K3 once a fold a step, each call held against its plain
+    twin (``K1_TOL``, ``K2_TOL``, ``K3_REL_TOL``). Without augmentation
+    and with the model in float64, the ranks' bundle of epoch 0 resumed in
+    one process against the ranks' uninterrupted 2 epochs: each fold's
+    epoch 1 losses within ``STEP_TOL_LOSS`` and its last gradients within
+    ``STEP_TOL_GRAD`` of the fold's largest. Prints each bundle save's ms
+    on rank 0, the gather to rank 0 among them, and the bundle's size."""
+    from freesound_classification_tpu_torch.probes.fold_parallel import (
+        gradient_distance,
+    )
+
+    stopped, straight = (results[0]["stopped"],
+                         results[0]["straight_plain"])
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    got = fold_mesh_fit(None, DEVICE, folds, os.path.join(work, "resume_aug"),
+                        resume=True)
+    n = FOLD_MESH_BATCHES
+    expect = {"K1": n + len(folds), "K2": len(folds) * n,
+              "K3": len(folds) * n}
+    tols = {"K1": K1_TOL, "K2": K2_TOL, "K3": K3_REL_TOL}
+
+    def ms(values):
+        return [round(v, 1) for v in values]
+
+    log(f"fold mesh bundle of {len(folds)} folds (the 2 x 1 layout on 2 "
+        f"gloo ranks sharing cuda:0, {NETWORK['num_conv_blocks']} blocks, "
+        f"depth {NETWORK['conv_base_depth']}, weights and momentum): "
+        f"float32 {stopped['bundle_bytes'] / 1e6:.1f} MB, a save "
+        f"{ms(stopped['save_ms'])} ms, of it the gather to rank 0 "
+        f"{ms(stopped['gather_ms'])} ms; the float64 runs' (float64 "
+        f"arithmetic, float32 weights) {straight['bundle_bytes'] / 1e6:.1f} "
+        f"MB, saves {ms(straight['save_ms'])} ms, gathers "
+        f"{ms(straight['gather_ms'])} ms; one process's save of the resumed "
+        f"epoch (no gather) "
+        f"{ms(got['save_ms'])} ms on {smi}")
+    log(f"fold mesh resume of the ranks' bundle in one process on cuda:0 "
+        f"(epoch 1 of 2, {len(folds)} folds, augmented): launches "
+        f"{got['launches']} (expected {expect}); each call against its twin: "
+        f"K1 {got['twins']['K1']:.2e} (tolerance {K1_TOL:g}), K2 "
+        f"{got['twins']['K2']:.2e} ({K2_TOL:g}), K3 "
+        f"{got['twins']['K3']:.2e} of its largest ({K3_REL_TOL:g})")
+    if got["launches"] != expect:
+        raise RuntimeError(f"fold mesh resume: launches {got['launches']}, "
+                           f"expected {expect}")
+    if any(not got["twins"][k] <= tol for k, tol in tols.items()):
+        raise RuntimeError(f"fold mesh resume: a kernel disagrees with its "
+                           f"twin: {got['twins']}")
+    plain = fold_mesh_fit(None, DEVICE, folds,
+                          os.path.join(work, "resume_plain"), augmented=False,
+                          dtype=torch.float64, resume=True)
+    want = {"loss": {}, "grads": {}}
+    for r in results:
+        for key in want:
+            want[key].update(r["straight_plain"][key])
+    losses, top, l2 = [], [], []
+    for fold in range(len(folds)):
+        losses.append(max(abs(a - b) for a, b in zip(
+            plain["loss"][fold], want["loss"][fold][-n:])))
+        d = gradient_distance(plain["grads"][fold], want["grads"][fold])
+        top.append(d["max"])
+        l2.append(d["l2"])
+
+    def fmt(values):
+        return [f"{v:.2e}" for v in values]
+
+    log(f"fold mesh resume without augmentation, the model in float64: the "
+        f"ranks' bundle of epoch 0 resumed in one process against the "
+        f"ranks' 2 epochs straight, per fold epoch 1 loss |d| {fmt(losses)} "
+        f"(tolerance {STEP_TOL_LOSS:g}), last gradients' largest |d| over "
+        f"the fold's largest {fmt(top)} (tolerance {STEP_TOL_GRAD:g}), "
+        f"relative L2 {fmt(l2)}; the two resumes {time.time() - t0:.1f} s "
+        f"on {smi}")
+    if not max(losses) <= STEP_TOL_LOSS:
+        raise RuntimeError("fold mesh resume: the losses disagree")
+    if not max(top) <= STEP_TOL_GRAD:
+        raise RuntimeError("fold mesh resume: the gradients disagree")
 
 
 def fold_data_mesh(results: list, folds: list, smi: str) -> None:
@@ -3584,8 +3794,9 @@ def fold_mesh_cli(root: str, inputs: dict, smi: str) -> None:
 def phase_fold_mesh(root: str, inputs: dict, smi: str) -> None:
     """M5.2a and M5.2b on the one card: 4 folds on two gloo ranks sharing
     it, 2 a rank, and 3 folds on the same ranks in the 1 x 2 layout, each
-    against one process, and the fold-parallel train CLI on one NCCL rank
-    under ``torchrun`` against a plain child."""
+    against one process, the ranks' bundle resumed by one process (elastic
+    resume), and the fold-parallel train CLI on one NCCL rank under
+    ``torchrun`` against a plain child."""
     t0 = time.time()
     fold_mesh_ranks(smi)
     fold_mesh_cli(root, inputs, smi)

@@ -22,7 +22,8 @@ the global out-of-fold lwlrap as ``metric`` once every fold has its result,
 and writes the mean-of-folds ``submission.csv`` once every fold's test
 predictions exist. ``--resume`` enters an existing experiment and continues
 each fold from its ``last_model.pt`` bundle (the stacked run from
-``checkpoints/multifold_resume.pt``); each fold's summaries go to
+``checkpoints/multifold_resume.pt``), at any number of ranks and under any
+fold layout; each fold's summaries go to
 ``summaries/fold_k/{train,valid}`` through tensorboardX where it imports.
 
 Data parallel (``data_parallel``, JAX's ``--mesh_devices``): under

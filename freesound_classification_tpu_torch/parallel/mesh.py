@@ -20,6 +20,13 @@ same arithmetic explicit:
 - metrics and predictions gather the ranks' rows (``all_gather_rows``) and
   drop the padded ones.
 
+A run resumed at another width than the one that wrote its bundle cannot
+take back the writer's per-rank random streams: it draws new ones, each
+seeded ``resume_seed(seed, *ids, global_step)`` (``ids`` a rank, or a fold
+and a place), which no fresh run draws and every resume of one bundle at
+one width draws alike. Bundles pass between ranks tensor by tensor
+(``Mesh.broadcast_tensors``), never pickled whole.
+
 ``make_mesh`` reads ``torchrun``'s ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK``. Without them no process group is made and the caller takes
 the single-process path. Under ``torchrun`` a group is made even for one
@@ -49,6 +56,60 @@ from freesound_classification_tpu_torch.utils.device import resolve_device
 RANK_SEED_STRIDE = 1_000_003
 # a collective that waits longer than this ends the job instead of hanging
 TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def resume_seed(seed: int, *ids: int, global_step: int) -> int:
+    """The seed of random stream ``ids`` (a rank; a fold and a place) of a
+    run resumed from a bundle of step ``global_step`` at another width or
+    layout than the one that wrote it. A 64-bit draw of
+    ``numpy.random.SeedSequence([seed, *ids, global_step])``: the same for
+    every resume of one bundle, and none of the small seeds ``seed + k +
+    RANK_SEED_STRIDE * j`` of a fresh run but by a 2^-64 chance."""
+    state = np.random.SeedSequence([seed, *ids, global_step])
+    return int(state.generate_state(1, np.uint64)[0])
+
+
+@dataclass(frozen=True)
+class _TensorSlot:
+    """A tensor's place in an object that ``broadcast_tensors`` sends."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _take_tensors(obj, out: list):
+    """``obj`` with each tensor of one or more dimensions replaced by a
+    ``_TensorSlot``, the tensors appended to ``out`` in order."""
+    if isinstance(obj, torch.Tensor) and obj.dim() > 0:
+        out.append(obj)
+        return _TensorSlot(tuple(obj.shape), obj.dtype)
+    if isinstance(obj, dict):
+        return {k: _take_tensors(v, out) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_take_tensors(v, out) for v in obj)
+    return obj
+
+
+def _slots(obj) -> Iterator[_TensorSlot]:
+    """The ``_TensorSlot``s of a ``_take_tensors`` skeleton, in order."""
+    if isinstance(obj, _TensorSlot):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _slots(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _slots(v)
+
+
+def _put_tensors(obj, tensors: Iterator[torch.Tensor]):
+    """``_take_tensors`` undone: each slot replaced by the next tensor."""
+    if isinstance(obj, _TensorSlot):
+        return next(tensors)
+    if isinstance(obj, dict):
+        return {k: _put_tensors(v, tensors) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_put_tensors(v, tensors) for v in obj)
+    return obj
 
 
 @dataclass(frozen=True)
@@ -88,6 +149,37 @@ class Mesh:
         dist.broadcast_object_list(box, src=dist.get_global_rank(
             self.group, 0), group=self.group)
         return box[0]
+
+    @property
+    def wire(self) -> torch.device:
+        """Where the group's messages take their tensors: the card under
+        NCCL, the host under gloo (whose send and receive read host
+        memory)."""
+        if self.group is not None and dist.get_backend(self.group) == "nccl":
+            return self.device
+        return torch.device("cpu")
+
+    def broadcast_tensors(self, obj):
+        """Rank 0's ``obj`` (dicts, lists and tuples of tensors and
+        picklable values) on every rank: its skeleton by
+        ``broadcast_object``, then each tensor of one or more dimensions by
+        a broadcast of its own, so that a bundle of hundreds of MB is never
+        pickled whole. The tensors arrive on the CPU."""
+        if self.group is None:
+            return obj
+        tensors: list = []
+        skeleton = self.broadcast_object(
+            _take_tensors(obj, tensors) if self.rank == 0 else None)
+        if self.rank != 0:
+            tensors = list(_slots(skeleton))
+        src = dist.get_global_rank(self.group, 0)
+        got = []
+        for t in tensors:
+            buf = (t.to(self.wire).contiguous() if self.rank == 0 else
+                   torch.empty(t.shape, dtype=t.dtype, device=self.wire))
+            dist.broadcast(buf, src=src, group=self.group)
+            got.append(t if self.rank == 0 else buf.cpu())
+        return _put_tensors(skeleton, iter(got))
 
     def all_gather_object(self, obj) -> list:
         """Every rank's ``obj``, in rank order."""

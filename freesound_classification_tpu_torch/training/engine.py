@@ -82,7 +82,10 @@ global batch's), and the arithmetic is JAX's over the global batch.
   from the rank's own rows; the effects chain runs on the rank's share of
   the global batch's ``round(p * B)`` rows.
 - The resume bundle holds every rank's generator states and the world
-  size, and a bundle of another world size is refused.
+  size. A resume at that world size takes each rank's back; at another
+  one (the bundle's other state is the same on every rank) rank r draws
+  from ``mesh.resume_seed(seed, r, global_step)``, augmenter and dropout
+  alike: JAX's resume, whose key is global, goes on at any mesh size.
 """
 
 from __future__ import annotations
@@ -195,6 +198,7 @@ class Engine:
         self.train_writer = None
         self.valid_writer = None
         self._stage = _no_range  # ``annotate`` while an epoch is traced
+        self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.mesh.rank_seed(seed) if self.mesh else seed)
         self.optimizer: Optional[torch.optim.Optimizer] = None
@@ -574,7 +578,7 @@ class Engine:
             bundle = (checkpoints.load_bundle(self.bundle_path(fold))
                       if self._writes else None)
             if self.mesh:
-                bundle = self.mesh.broadcast_object(bundle)
+                bundle = self.mesh.broadcast_tensors(bundle)
             if bundle is not None:
                 meta = self.load_train_state(bundle)
                 self._replicate()
@@ -690,14 +694,10 @@ class Engine:
         return state
 
     def load_train_state(self, bundle: dict) -> dict:
-        """Load a ``train_state`` bundle; returns its progress meta. A
-        bundle written by another number of ranks is refused."""
-        world = self.mesh.world_size if self.mesh else 1
-        if bundle.get("world_size", 1) != world:
-            raise ValueError(
-                f"the resume bundle was written by {bundle['world_size']} "
-                f"ranks and this run has {world}: resume at the world size "
-                "that wrote it (each rank's random streams are its own)")
+        """Load a ``train_state`` bundle; returns its progress meta. At the
+        world size that wrote it each rank takes back its own generator
+        states; at another one rank r reseeds its augmenter and dropout
+        from ``mesh.resume_seed(seed, r, global_step)``."""
         self.model.load_state_dict(bundle["model"])
         self.optimizer.load_state_dict(bundle["optimizer"])
         acc = bundle["accumulated"]
@@ -706,13 +706,25 @@ class Engine:
         self.micro_step = int(bundle["micro_step"])
         self.updates = int(bundle["updates"])
         self.global_step = int(bundle["global_step"])
+        rank, world = ((self.mesh.rank, self.mesh.world_size) if self.mesh
+                       else (0, 1))
+        if bundle.get("world_size", 1) != world:
+            self.reseed(mesh_lib.resume_seed(self.seed, rank,
+                                             global_step=self.global_step))
+            return bundle["meta"]
         augment_rng, dropout_rng = bundle["augment_rng"], bundle["dropout_rng"]
         if "world_size" in bundle:
-            rank = self.mesh.rank if self.mesh else 0
             augment_rng, dropout_rng = augment_rng[rank], dropout_rng[rank]
         self.generator.set_state(augment_rng)
         _set_default_rng_state(self.device, dropout_rng)
         return bundle["meta"]
+
+    def reseed(self, seed: int) -> None:
+        """Seed the augmenter's generator and the device's default one
+        (dropout's) with ``seed``."""
+        self.generator.manual_seed(seed)
+        _set_default_rng_state(self.device, torch.Generator(
+            device=self.device).manual_seed(seed).get_state())
 
     def warm_start(self, path: str) -> None:
         """Load the weights and BatchNorm statistics of another

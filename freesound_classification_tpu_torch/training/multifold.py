@@ -78,10 +78,20 @@ the one-process stack of all K:
   in one small all-gather (padded rows enter BatchNorm's statistics, so a
   rank-local pad would change the results), the rows rounded up to a
   multiple of d (JAX's ``row_multiple``);
-- each fold group writes its own stacked bundle,
-  ``multifold_resume_folds_<ids>.pt`` (``multifold_resume.pt`` where one
-  group holds every fold), which records the layout; ``resume`` refuses
-  a bundle of another layout, naming both;
+- the job writes one stacked bundle, ``multifold_resume.pt``, as the
+  one process stacking all K folds writes it (JAX's one bundle of all
+  folds, ``multifold.py:500-509``): each fold group's place 0 sends its
+  folds' slices of the stacked model, optimizer state and gradient mean
+  to world rank 0, tensor by tensor, and rank 0 writes the file in one
+  atomic rename, so no kill leaves folds at two epochs. Beside them: the
+  layout, each fold's best score, loader epoch and every place's
+  augmenter generator, and every rank's dropout generator. ``resume``
+  takes it under any layout (JAX re-shards its bundle, ``_shard_states``):
+  world rank 0 reads it and every rank takes its folds' slices by
+  broadcast. Under the layout that wrote it every place takes back its
+  generators; under another, fold k at place j draws from
+  ``mesh.resume_seed(seed, k, j, global_step)`` and rank r's dropout from
+  ``resume_seed(seed, r, global_step)``;
 - rank 0 prints each epoch's line over all K folds, each fold counted
   once. The checkpoint directory is one the ranks share.
 
@@ -100,8 +110,8 @@ place's chain takes its share of the fold's ``round(p B)`` rows
 (``augment.effects_count``), and MixUp partners come from the rank's own
 rows (JAX's are the fold's whole batch). The template engine, on the fold
 group, validates and predicts data parallel over it; the group's place 0
-writes the fold files, the summaries and the group's bundle, which holds
-every place's generator states.
+writes the fold files and the summaries, and sends its folds' part of
+the bundle.
 """
 
 from __future__ import annotations
@@ -115,6 +125,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from freesound_classification_tpu_torch.models.blocks import (
@@ -126,7 +137,9 @@ from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
 from freesound_classification_tpu_torch.training import checkpoints
 from freesound_classification_tpu_torch.training.engine import (
     Engine,
+    _default_rng_state,
     _no_range,
+    _set_default_rng_state,
 )
 from freesound_classification_tpu_torch.utils.profiling import (
     StepTimer,
@@ -255,20 +268,9 @@ def make_fold_mesh(world: mesh_lib.Mesh, folds: Sequence[int]) -> FoldMesh:
     return FoldMesh(layout, tuple(folds), world, group)
 
 
-def bundle_name(group_folds: Sequence[int], folds: Sequence[int]) -> str:
-    """The stacked bundle's file name of the fold group owning
-    ``group_folds`` of the run's ``folds``."""
-    if list(group_folds) == list(folds):
-        return BUNDLE
-    return f"multifold_resume_folds_{'_'.join(map(str, group_folds))}.pt"
-
-
-def bundle_layout(path: str, folds: Sequence[int]) -> str:
-    """The layout a stacked bundle records (its tensors are mapped, not
-    read); a bundle from before layouts were recorded is the one-process
-    stack of ``folds``."""
-    bundle = torch.load(path, map_location="cpu", weights_only=True,
-                        mmap=True)
+def bundle_layout(bundle: dict, folds: Sequence[int]) -> str:
+    """The layout a stacked bundle records; a bundle from before layouts
+    were recorded is the one-process stack of ``folds``."""
     return bundle.get("layout") or layout_record(fold_layout(len(folds), 1),
                                                  folds)
 
@@ -463,6 +465,7 @@ class MultiFoldEngine(Engine):
             profile_dir=template.profile_dir,
             summary_writer_factory=template._writer_factory, mesh=group)
         self.loss_fn = template.loss_fn
+        self.positions = positions  # of the rank's folds in the job's list
         # fold k of the whole fold list draws from seed + k, at place j of
         # a fold group from seed + k + RANK_SEED_STRIDE * j
         self.generators = [
@@ -685,12 +688,6 @@ class MultiFoldEngine(Engine):
             best = list(meta["best"])
             print(f"resuming folds {self.fold_ids} from epoch "
                   f"{start_epoch} (best {np.round(best, 4)})")
-        starts = self.all_ranks(start_epoch)
-        if len(set(starts)) > 1:
-            raise ValueError(
-                f"the fold groups' stacked bundles resume at epochs "
-                f"{starts} (in rank order): a run stopped between two "
-                "groups' saves cannot resume")
         self.epoch_stats = []
         for epoch in range(start_epoch, epochs):
             traced = self.profile_dir if epoch == 1 else None
@@ -724,7 +721,7 @@ class MultiFoldEngine(Engine):
             if self.checkpoint_dir is not None:
                 self.save_stacked_bundle(epoch, best, train_loaders)
                 if self.fold_mesh is not None:
-                    # every group's bundle of the epoch is on disk
+                    # the epoch's bundle is on disk
                     self.fold_mesh.world.barrier()
         for writers in self.fold_writers:
             for writer in writers:
@@ -778,66 +775,203 @@ class MultiFoldEngine(Engine):
                   else fold_layout(len(self.fold_ids), 1))
         return layout_record(layout, self.job_folds)
 
+    @property
+    def world(self) -> Optional[mesh_lib.Mesh]:
+        """The job's ranks (None alone)."""
+        return self.fold_mesh.world if self.fold_mesh is not None else None
+
     def stacked_bundle_path(self) -> str:
-        return os.path.join(self.checkpoint_dir,
-                            bundle_name(self.fold_ids, self.job_folds))
+        return os.path.join(self.checkpoint_dir, BUNDLE)
+
+    def fold_tensors(self) -> dict:
+        """This rank's stacked tensors with a fold axis first, by name:
+        the model's state (``model/<name>``), the optimizer's state of each
+        parameter i (``optimizer/<i>/<name>``: all but Adam's shared step)
+        and the gradient mean (``accumulated/<i>``)."""
+        out = {f"model/{n}": t for n, t in self.model.state_dict().items()}
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for i, p in enumerate(params):
+            for name, t in self.optimizer.state.get(p, {}).items():
+                if torch.is_tensor(t) and t.dim() > 0:
+                    out[f"optimizer/{i}/{name}"] = t
+        for i, t in enumerate(self._accumulated or []):
+            out[f"accumulated/{i}"] = t
+        return out
+
+    def gather_fold_tensors(self) -> Optional[dict]:
+        """On world rank 0 (or alone) ``fold_tensors`` of every fold of
+        the job, in ``--folds`` order, on the device that carries the
+        world's messages (``Mesh.wire``); None on the other ranks. Each
+        fold group's place 0 but rank 0's own sends its slices to rank 0,
+        tensor by tensor (a fold of the bench's 2d model is 34 MB of
+        weights, and Adam's state three times that)."""
+        local = self.fold_tensors()
+        world = self.world
+        if world is None:
+            return local
+        layout, rank = self.fold_mesh.layout, world.rank
+        owners = [g[0] for g in layout.group_ranks()]
+        if rank != 0:
+            if rank in owners:
+                for t in local.values():
+                    dist.send(t.detach().to(world.wire).contiguous(),
+                              dst=dist.get_global_rank(world.group, 0),
+                              group=world.group)
+            return None
+        full = {}
+        for name, t in local.items():
+            full[name] = torch.empty((layout.n_folds, *t.shape[1:]),
+                                     dtype=t.dtype, device=world.wire)
+            full[name][:len(t)].copy_(t.detach())
+        for owner in owners[1:]:
+            held = layout.positions(owner)
+            for out in full.values():
+                dist.recv(out[held.start:held.stop],
+                          src=dist.get_global_rank(world.group, owner),
+                          group=world.group)
+        return full
 
     def save_stacked_bundle(self, epoch: int, best: Sequence[float],
                             loaders: List) -> None:
-        """Write the stacked resume bundle: ``train_state``, each fold
-        loader's epoch counter, the ``layout`` and the progress ``{epoch,
-        best, global_step}``, in one atomic step. Every place of a fold
-        group takes part; its place 0 writes."""
-        state = self.train_state()
-        if not self._writes:
+        """Write the job's stacked bundle (the module docstring) in one
+        atomic step: every fold's model and optimizer state, gradient mean,
+        best score, loader epoch counter and every place's augmenter
+        generator, every rank's dropout generator, the layout and the
+        progress ``{epoch, best, global_step}``. Every rank takes part;
+        world rank 0 writes."""
+        place = self.mesh.rank if self.mesh else 0
+        ranks = self.all_ranks({
+            "positions": list(self.positions), "place": place,
+            "rngs": [g.get_state() for g in self.generators],
+            "dropout": _default_rng_state(self.device),
+            "best": [float(b) for b in best],
+            "epochs": [int(getattr(loader, "_epoch", 0))
+                       for loader in loaders]})
+        tensors = self.gather_fold_tensors()
+        if tensors is None:
             return
-        checkpoints.save_bundle(self.stacked_bundle_path(), dict(
-            state,
-            loader_epochs=[int(getattr(loader, "_epoch", 0))
-                           for loader in loaders],
-            layout=self.layout_record,
-            meta={"epoch": int(epoch), "best": [float(b) for b in best],
-                  "global_step": self.global_step}))
+        n, d = len(self.job_folds), max(r["place"] for r in ranks) + 1
+        rngs = [[None] * d for _ in range(n)]
+        fold_best, loader_epochs = [None] * n, [None] * n
+        for r in ranks:
+            for k, state, b, e in zip(r["positions"], r["rngs"], r["best"],
+                                      r["epochs"]):
+                rngs[k][r["place"]] = state
+                fold_best[k], loader_epochs[k] = b, e
+        optimizer = self.optimizer.state_dict()
+        optimizer["state"] = {
+            i: {name: tensors.get(f"optimizer/{i}/{name}", t)
+                for name, t in state.items()}
+            for i, state in optimizer["state"].items()}
+        checkpoints.save_bundle(self.stacked_bundle_path(), {
+            "model": {n: tensors[f"model/{n}"]
+                      for n in self.model.state_dict()},
+            "optimizer": optimizer,
+            "accumulated": (None if self._accumulated is None else
+                            [tensors[f"accumulated/{i}"]
+                             for i in range(len(self._accumulated))]),
+            "micro_step": self.micro_step, "updates": self.updates,
+            "global_step": self.global_step,
+            "folds": self.job_folds, "layout": self.layout_record,
+            "fold_augment_rngs": rngs,
+            "dropout_rng": [r["dropout"] for r in ranks],
+            "loader_epochs": loader_epochs,
+            "meta": {"epoch": int(epoch), "best": fold_best,
+                     "global_step": self.global_step}})
+
+    def read_stacked_bundle(self) -> Optional[dict]:
+        """The job's stacked bundle on every rank (None where there is
+        none): world rank 0 reads it and the others take it by
+        ``Mesh.broadcast_tensors``. A checkpoint directory with only the
+        per-group bundles of earlier versions of the port is refused on
+        every rank, naming them."""
+        bundle, refused = None, None
+        if self.world is None or self.world.rank == 0:
+            path = self.stacked_bundle_path()
+            old = sorted(os.path.basename(p) for p in glob.glob(
+                os.path.join(self.checkpoint_dir,
+                             "multifold_resume_folds_*.pt")))
+            if old and not os.path.isfile(path):
+                refused = (
+                    f"{self.checkpoint_dir} holds only per-group stacked "
+                    f"bundles ({', '.join(old)}), which this version of "
+                    f"the port does not read (it resumes from one {BUNDLE} "
+                    "of the whole job): start the run afresh, without "
+                    "--resume")
+            else:
+                bundle = checkpoints.load_bundle(path)
+        if self.world is not None:
+            refused = self.world.broadcast_object(refused)
+            bundle = self.world.broadcast_tensors(bundle)
+        if refused:
+            raise ValueError(refused)
+        return bundle
 
     def load_stacked_bundle(self, loaders: List) -> dict | None:
-        """Load the stacked bundle, where there is one, and set each fold
-        loader's epoch counter from it; returns its progress meta. Any
-        stacked bundle in the checkpoint directory written under another
-        layout is refused, naming both, on every rank alike."""
-        mine = self.layout_record
-        for path in sorted(glob.glob(os.path.join(
-                self.checkpoint_dir, "multifold_resume*.pt"))):
-            theirs = bundle_layout(path, self.job_folds)
-            if theirs != mine:
-                raise ValueError(
-                    f"the stacked bundle {os.path.basename(path)} was "
-                    f"written under the fold layout {theirs}, and this run's "
-                    f"is {mine}: resume under the layout that wrote it (each "
-                    "fold group's bundle holds its own folds)")
-        bundle = checkpoints.load_bundle(self.stacked_bundle_path())
+        """Load the job's stacked bundle, where there is one, into this
+        rank's folds under any layout (``load_train_state``) and set each
+        fold loader's epoch counter from it; returns its progress meta."""
+        bundle = self.read_stacked_bundle()
         if bundle is None:
             return None
-        for loader, epoch in zip(loaders, bundle["loader_epochs"]):
-            loader._epoch = epoch
-        return self.load_train_state(bundle)
+        meta = self.load_train_state(bundle)
+        for loader, k in zip(loaders, self.positions):
+            loader._epoch = bundle["loader_epochs"][k]
+        return dict(meta, best=[meta["best"][k] for k in self.positions])
 
     def save_fold_models(self, name: str) -> None:
         """Every fold's current weights as ``fold_k/{name}.npz``."""
         for k, fold in enumerate(self.fold_ids):
             self.to_template(k).save_model(fold, name)
 
-    def train_state(self) -> dict:
-        """``Engine.train_state`` and each fold's augmenter generator; on a
-        fold group every place's, in place order."""
-        rngs = [g.get_state() for g in self.generators]
-        return dict(super().train_state(), fold_augment_rngs=(
-            self.mesh.all_gather_object(rngs) if self.mesh else rngs))
-
     def load_train_state(self, bundle: dict) -> dict:
-        meta = super().load_train_state(bundle)
-        rngs = bundle["fold_augment_rngs"]
-        if self.mesh is not None:
-            rngs = rngs[self.mesh.rank]
-        for gen, state in zip(self.generators, rngs):
-            gen.set_state(state)
-        return meta
+        """Load this rank's folds' slices of a stacked bundle of the job
+        (every fold, in ``--folds`` order); returns its progress meta.
+        Under the layout that wrote it every place takes back its
+        generators; under another fold k at place j reseeds from
+        ``mesh.resume_seed(seed, k, j, global_step)``, and rank r's dropout
+        from ``resume_seed(seed, r, global_step)``."""
+        folds = bundle.get("folds", self.job_folds)
+        if list(folds) != self.job_folds:
+            raise ValueError(f"the stacked bundle holds folds {list(folds)} "
+                             f"and this run trains {self.job_folds}")
+        own = slice(self.positions.start, self.positions.stop)
+
+        def mine(t):
+            return t[own].clone()
+
+        self.model.load_state_dict({n: mine(t)
+                                    for n, t in bundle["model"].items()})
+        optimizer = dict(bundle["optimizer"])
+        optimizer["state"] = {
+            i: {name: mine(t) if torch.is_tensor(t) and t.dim() > 0 else t
+                for name, t in state.items()}
+            for i, state in optimizer["state"].items()}
+        self.optimizer.load_state_dict(optimizer)
+        acc = bundle["accumulated"]
+        self._accumulated = (None if acc is None
+                             else [mine(t).to(self.device) for t in acc])
+        self.micro_step = int(bundle["micro_step"])
+        self.updates = int(bundle["updates"])
+        self.global_step = int(bundle["global_step"])
+        place = self.mesh.rank if self.mesh else 0
+        rank = self.world.rank if self.world is not None else 0
+        if bundle_layout(bundle, self.job_folds) == self.layout_record:
+            # each fold's states, one a place; a bundle without ``folds``
+            # is an earlier version's of one process: a state a fold
+            rngs = bundle["fold_augment_rngs"]
+            if "folds" not in bundle:
+                rngs = [[state] for state in rngs]
+            for gen, k in zip(self.generators, self.positions):
+                gen.set_state(rngs[k][place])
+            dropout = bundle["dropout_rng"]
+            _set_default_rng_state(self.device, dropout[rank]
+                                   if isinstance(dropout, list) else dropout)
+        else:
+            step = self.global_step
+            for gen, k in zip(self.generators, self.positions):
+                gen.manual_seed(mesh_lib.resume_seed(self.seed, k, place,
+                                                     global_step=step))
+            self.reseed(mesh_lib.resume_seed(self.seed, rank,
+                                             global_step=step))
+        return bundle["meta"]

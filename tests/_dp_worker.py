@@ -292,9 +292,57 @@ def case_warm_start(mesh, inp):
     return engine.model.state_dict()
 
 
+def _fit_feature_batches(mesh, inp, root, stop=None, resume=False):
+    """``Engine.fit_validate`` of the 2d CNN (``inp["state"]``'s weights,
+    in ``inp["dtype"]``) over the global feature batches ``inp["batches"]``
+    an epoch, validated on ``inp["valid"]``, augmentation off, ``epochs``
+    2, with the checkpoints under ``root``: stopped before epoch ``stop``
+    as a crash would, or resumed from ``root``'s bundle. Returns the
+    scores, the final state, the epochs' per-step losses, the step count
+    and the generator's seed (None for a stopped run)."""
+    dtype = inp["dtype"]
+    model = TwoDimensionalCNN(**CFG, aggregation_type="max",
+                              n_classes=inp["n_classes"], dtype=dtype)
+    if dtype == torch.float64:
+        model = model.double()
+    model.load_state_dict(inp["state"])
+    engine = Engine(model, unflatten, types.SimpleNamespace(**inp["cfg"]),
+                    loss="lsep_naive",
+                    checkpoint_dir=os.path.join(root, "checkpoints"),
+                    seed=7, device="cpu", mesh=mesh)
+    if stop is not None:
+        train_epoch, started = engine.train_epoch, []
+
+        def stopping(*args, **kwargs):
+            if len(started) == stop:
+                raise KeyboardInterrupt(f"stopped before epoch {stop}")
+            started.append(1)
+            return train_epoch(*args, **kwargs)
+
+        engine.train_epoch = stopping
+    try:
+        scores = engine.fit_validate(
+            [_rows(mesh, b) for b in inp["batches"]],
+            [_rows(mesh, b) for b in inp["valid"]], epochs=2, fold=0,
+            log_interval=100, resume=resume)
+    except KeyboardInterrupt:
+        return None
+    return {"scores": scores, "state": model.state_dict(),
+            "losses": [e["losses"] for e in engine.epoch_stats],
+            "global_step": engine.global_step,
+            "seed": engine.generator.initial_seed()}
+
+
+def case_elastic(mesh, inp):
+    """``_fit_feature_batches`` of each of ``inp["runs"]`` (its keyword
+    arguments) in turn."""
+    return [_fit_feature_batches(mesh, inp, **run) for run in inp["runs"]]
+
+
 CASES = {"batchnorm": case_batchnorm, "steps": case_steps, "ssl": case_ssl,
          "eval": case_eval, "resume": case_resume, "mixup": case_mixup,
-         "rank0_files": case_rank0_files, "warm_start": case_warm_start}
+         "rank0_files": case_rank0_files, "warm_start": case_warm_start,
+         "elastic": case_elastic}
 
 
 def main() -> None:

@@ -48,6 +48,9 @@ from freesound_classification_tpu_torch.parallel import (  # noqa: E402
 from freesound_classification_tpu_torch.training.engine import (  # noqa
     Engine,
 )
+from freesound_classification_tpu_torch.training import (  # noqa: E402
+    multifold,
+)
 from freesound_classification_tpu_torch.training.multifold import (  # noqa
     MultiFoldEngine,
     fold_layout,
@@ -65,7 +68,7 @@ def unflatten(feats, frames):
     return feats.reshape(feats.shape[0], 32, -1)[..., None], frames
 
 
-def _stack(fold_mesh, inp, frontend, augment, seed):
+def _stack(fold_mesh, inp, frontend, augment, seed, checkpoint_dir=None):
     """The template (``inp["state"]``'s weights; on the rank's fold group
     where it has d > 1 ranks) and the stacked engine over the rank's folds,
     or over all of them alone; with the positions of those folds in the
@@ -74,7 +77,8 @@ def _stack(fold_mesh, inp, frontend, augment, seed):
                               n_classes=inp["n_classes"])
     model.load_state_dict(inp["state"])
     template = Engine(model, frontend, types.SimpleNamespace(**inp["cfg"]),
-                      loss="lsep_naive", augment=augment, seed=seed,
+                      loss="lsep_naive", augment=augment,
+                      checkpoint_dir=checkpoint_dir, seed=seed,
                       device="cpu", mesh=(None if fold_mesh is None
                                           else fold_mesh.data_group))
     folds = list(inp["folds"])
@@ -227,8 +231,105 @@ def case_vmap_bn(fold_mesh, inp):
             **{n: t for n, t in buffers.items()}}
 
 
+class Batches(list):
+    """A fold's fixed batches as its train loader, with the epoch counter
+    that the stacked bundle keeps."""
+    _epoch = 0
+
+
+# the exit code of a rank killed at a kill point of ``_fit``
+KILLED = 9
+
+
+def _kill_at_bundle_rename(n: int) -> None:
+    """World rank 0 dies as by SIGKILL at its ``n``-th rename of the
+    stacked bundle: after the gather, with the new bundle whole in its
+    temporary file."""
+    real, renames = os.replace, []
+
+    def replace(src, dst, *args, **kwargs):
+        if os.path.basename(dst) == multifold.BUNDLE:
+            renames.append(dst)
+            if len(renames) == n:
+                os._exit(KILLED)
+        return real(src, dst, *args, **kwargs)
+
+    os.replace = replace
+
+
+def _fit(fold_mesh, inp, root, stop=None, kill=None, resume=False):
+    """``MultiFoldEngine.fit`` of ``inp["epochs"]`` epochs over each fold's
+    ``inp["batches"]`` (and ``inp["valid"]``, one batch a fold), from
+    ``inp["stacked"]``'s fold states where given, with the checkpoints
+    under ``root``; the model's inputs are waves through the frontend with
+    ``inp["waves"]``, else flattened spectrograms, and with
+    ``inp["augment"]`` the chain and chunk shuffle run (MixUp off: its
+    partner pool restarts on resume, as in JAX). ``stop`` ends the run
+    before that epoch as a crash would; ``kill`` makes world rank 0 die as
+    by SIGKILL at its second bundle's rename ("rename") or before epoch 1
+    ("epoch"); ``resume`` goes on from ``root``'s bundle. Returns each
+    owned fold's final state and best score, the step count and the
+    augmenter generators' seeds (None for a stopped run)."""
+    frontend = (Frontend(DESCRIPTOR, "2d", sr=SR, device="cpu")
+                if inp.get("waves") else unflatten)
+    augment = (make_augmenter(AugmentConfig(p_aug=0.75, p_shuffle=0.5))
+               if inp.get("augment") else None)
+    stack, positions = _stack(fold_mesh, inp, frontend, augment, seed=7,
+                              checkpoint_dir=os.path.join(root,
+                                                          "checkpoints"))
+    for k, p in enumerate(positions):
+        if "stacked" in inp:
+            stack.model.load_fold(
+                k, {n: t[p] for n, t in inp["stacked"].items()})
+    group = fold_mesh.data_group if fold_mesh is not None else None
+    valid = [[inp["valid"][p] if group is None else mesh_lib.shard_batch(
+        inp["valid"][p], group.rank, group.world_size)] for p in positions]
+    world_rank = dist.get_rank() if fold_mesh is not None else 0
+    if kill == "rename" and world_rank == 0:
+        _kill_at_bundle_rename(2)
+    end = 1 if kill == "epoch" else stop
+    if end is not None:
+        train_epoch, started = stack.train_epoch, []
+
+        def stopping(*args, **kwargs):
+            if len(started) == end:
+                if kill is None:
+                    raise KeyboardInterrupt(f"stopped before epoch {end}")
+                if world_rank == 0:
+                    os._exit(KILLED)
+            started.append(1)
+            return train_epoch(*args, **kwargs)
+
+        stack.train_epoch = stopping
+    try:
+        best = stack.fit([Batches(inp["batches"][p]) for p in positions],
+                         valid, epochs=inp["epochs"], log_interval=100,
+                         resume=resume)
+    except KeyboardInterrupt:
+        return None
+    return {"folds": {fold: {"state": {n: t.clone() for n, t in
+                                       stack.model.fold_state(k).items()},
+                             "best": best[k]}
+                      for k, fold in enumerate(stack.fold_ids)},
+            "global_step": stack.global_step,
+            "seeds": [g.initial_seed() for g in stack.generators]}
+
+
+def case_fit(fold_mesh, inp):
+    """``_fit`` of each of ``inp["runs"]`` (its keyword arguments) in
+    turn; on a rank the results so far are written after each run, so
+    that a run killed after them leaves them."""
+    results = []
+    for run in inp["runs"]:
+        results.append(_fit(fold_mesh, inp, **run))
+        if fold_mesh is not None:
+            torch.save(results, os.path.join(
+                inp["out_dir"], f"rank{dist.get_rank()}.pt"))
+    return results
+
+
 CASES = {"epochs": case_epochs, "jax_steps": case_jax_steps,
-         "effects": case_effects, "vmap_bn": case_vmap_bn}
+         "effects": case_effects, "vmap_bn": case_vmap_bn, "fit": case_fit}
 
 
 def main() -> None:

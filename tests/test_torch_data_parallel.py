@@ -457,13 +457,15 @@ def test_evaluate_and_predict_on_two_ranks_equal_one_process(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_two_rank_resume_is_bit_for_bit_and_needs_the_same_world(tmp_path):
+def test_two_rank_resume_is_bit_for_bit_and_resumes_in_one_process(
+        tmp_path):
     """2 ranks, 2 epochs straight against 1 epoch, a kill and ``resume``:
     with the effects chain, chunk shuffle, head dropout and a partial
     accumulation in the bundle, the resumed weights, scores and step count
     equal the straight run's bit for bit (each rank's generators come back
-    from the bundle). The bundle of 2 ranks is refused by one process,
-    naming both sizes."""
+    from the bundle). One process then resumes the bundle of 2 ranks (JAX
+    resumes at any mesh size) for a third epoch, its augmenter and dropout
+    drawn from ``resume_seed(seed, 0, global_step)``."""
     files, labels = _write_clips(str(tmp_path), 12, seconds=(1.1, 1.6))
     cfg = dict(_train_cfg("adam", 3e-3, 2), _save_every=1)
     inp = {"files": files, "labels": labels, "n_classes": N_CLASSES,
@@ -481,8 +483,13 @@ def test_two_rank_resume_is_bit_for_bit_and_needs_the_same_world(tmp_path):
     assert not torch.equal(*bundle["augment_rng"])
     alone, train, valid = worker._resume_engine(None, inp,
                                                 str(tmp_path / "b"))
-    with pytest.raises(ValueError, match="written by 2 ranks.*has 1"):
-        alone.fit_validate(train, valid, epochs=3, fold=0, resume=True)
+    scores = alone.fit_validate(train, valid, epochs=3, fold=0, resume=True)
+    assert scores[:2] == got["scores"] and len(scores) == 3
+    assert alone.global_step == 9
+    assert alone.generator.initial_seed() == mesh_lib.resume_seed(
+        7, 0, global_step=6)
+    assert max((alone.model.state_dict()[k].float()
+                - got["got"][k].float()).abs().max() for k in got["got"]) > 0
 
 
 def test_ranks_take_rank_0s_files_by_broadcast(tmp_path):

@@ -17,6 +17,7 @@ masks than a stack of K (ROADMAP Queue 3).
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -448,16 +449,16 @@ def _predictions(path):
         [[float(v) for v in r[1:]] for r in rows[1:]])
 
 
-def test_train_cli_on_two_ranks_writes_the_one_process_files(tmp_path):
+def test_train_cli_on_two_ranks_writes_the_one_process_files_and_resumes(
+        tmp_path):
     """The 2d train CLI with ``--fold_parallel --folds 0 1`` (augmentation
     on, 1 epoch, so that each run's best model is its epoch 0: the toy
     folds' validation lwlrap ties across epochs, which rounding may break
     either way) under ``torch.distributed.run`` against the same command
     in one process. On one rank (the layout path, its collectives on a
     group of one) every model file is the one process's bit for bit. On 2
-    gloo ranks: the same files, but for the stacked bundle, one per fold
-    group (``multifold_resume_folds_{0,1}.pt``, each recording the 2 x 1
-    layout) where the one process writes ``multifold_resume.pt``; each
+    gloo ranks: the same files, the one stacked bundle of the job
+    (``multifold_resume.pt``, recording the 2 x 1 layout) among them; each
     fold's models within 1e-4 of their largest entry, its OOF and test
     predictions and the submission within 1e-4, its metric and train
     losses within 1e-4 relative, the global OOF metric within 1e-4 (each
@@ -465,11 +466,13 @@ def test_train_cli_on_two_ranks_writes_the_one_process_files(tmp_path):
     rounding of the stack width, 2.2e-5 of the largest weight after 2
     epoch). Every file has one writer: the rank that owns its fold (rank
     1: fold 1's checkpoints, predictions and summaries) or rank 0 (the
-    rest). Then a 2-epoch run (MixUp off, whose partner pool restarts on
-    resume, as in JAX) stopped before epoch 1 and resumed with
-    ``--resume`` on 2 ranks ends with the straight 2-epoch run's weights
-    bit for bit; and one process refuses to resume the 2-rank bundles,
-    naming both layouts."""
+    rest: the bundle too). Then a 2-epoch run (MixUp off, whose partner
+    pool restarts on resume, as in JAX) stopped before epoch 1 and resumed
+    with ``--resume`` on 2 ranks ends with the straight 2-epoch run's
+    weights bit for bit; and one process resumes the same stopped run's
+    bundle of 2 ranks (JAX resumes under any layout): it trains epoch 1
+    alone, with other augmentation draws than the ranks', and writes the
+    job's bundle of epoch 1 under its own layout."""
     root = str(tmp_path)
     _write_dataset(root)
     one = train_2d_cnn.main(_cli_argv(root, "one", epochs=1))
@@ -489,17 +492,13 @@ def test_train_cli_on_two_ranks_writes_the_one_process_files(tmp_path):
                                 _cli_argv(root, "two", epochs=1))
     assert rc == 0, out[-4000:]
     two = _experiment(root, "two")
-    bundles = {"checkpoints/multifold_resume_folds_0.pt",
-               "checkpoints/multifold_resume_folds_1.pt"}
     two_files = _files(two)
-    assert _named(two_files) == (_named(_files(one.experiment_dir))
-                                 - {"checkpoints/multifold_resume.pt"}
-                                 | bundles)
-    for path in bundles:
-        bundle = torch.load(os.path.join(two, path), weights_only=True)
-        assert bundle["layout"] == ("2 x 1 (fold x data) on 2 ranks, folds "
-                                    "[0, 1]")
-        assert bundle["meta"]["epoch"] == 0
+    assert _named(two_files) == _named(_files(one.experiment_dir))
+    bundle = torch.load(os.path.join(two, "checkpoints", multifold.BUNDLE),
+                        weights_only=True)
+    assert bundle["layout"] == ("2 x 1 (fold x data) on 2 ranks, folds "
+                                "[0, 1]")
+    assert bundle["meta"]["epoch"] == 0 and bundle["folds"] == [0, 1]
     for fold in (0, 1):
         for name in ("best_model", "final_model", "model_on_epoch_0"):
             want = _weights(one.experiment_dir, fold, name)
@@ -529,7 +528,7 @@ def test_train_cli_on_two_ranks_writes_the_one_process_files(tmp_path):
     for rel in two_files:
         path = os.path.join(two, rel)
         ranks = [r for r in (0, 1) if path in writes[r]]
-        owner = int(any(tag in rel for tag in ("fold_1", "folds_1")))
+        owner = int("fold_1" in rel)
         assert ranks == [owner], (rel, ranks)
 
     # a run stopped before epoch 1, then resumed on 2 ranks
@@ -543,11 +542,11 @@ def test_train_cli_on_two_ranks_writes_the_one_process_files(tmp_path):
                            stop=1)
     assert rc != 0 and "stopped before epoch 1" in out, out[-4000:]
     resumed = _experiment(root, "resumed")
-    for fold in (0, 1):
-        bundle = torch.load(os.path.join(
-            resumed, "checkpoints", f"multifold_resume_folds_{fold}.pt"),
-            weights_only=True)
-        assert bundle["meta"]["epoch"] == 0
+    bundle = torch.load(os.path.join(resumed, "checkpoints",
+                                     multifold.BUNDLE), weights_only=True)
+    assert bundle["meta"]["epoch"] == 0
+    stopped = os.path.join(root, "stopped_copy")
+    shutil.copytree(resumed, stopped)
     rc, out, _ = _on_ranks(root, "resume", _cli_argv(
         root, "resumed", "--p_mixup", "0", "--resume"))
     assert rc == 0, out[-4000:]
@@ -559,11 +558,20 @@ def test_train_cli_on_two_ranks_writes_the_one_process_files(tmp_path):
         for key, value in want.items():
             np.testing.assert_array_equal(got[key], value, err_msg=key)
 
-    with pytest.raises(ValueError, match=(
-            r"multifold_resume_folds_0\.pt was written under the fold "
-            r"layout 2 x 1 \(fold x data\) on 2 ranks, folds \[0, 1\], and "
-            r"this run's is 1 x 1 \(fold x data\) on 1 rank, folds "
-            r"\[0, 1\]")):
-        train_2d_cnn.main(_cli_argv(root, "resumed", "--p_mixup", "0",
-                                    "--resume"))
-    assert multifold.bundle_name([0, 1], [0, 1]) == multifold.BUNDLE
+    # the stopped run again, resumed in one process
+    shutil.move(resumed, os.path.join(root, "resumed_on_ranks"))
+    shutil.copytree(stopped, resumed)
+    train_2d_cnn.main(_cli_argv(root, "resumed", "--p_mixup", "0",
+                                "--resume"))
+    results = json.load(open(os.path.join(resumed, "results.json")))
+    assert results["fold1"]["train_steps"] == [2.0]
+    bundle = torch.load(os.path.join(resumed, "checkpoints",
+                                     multifold.BUNDLE), weights_only=True)
+    assert bundle["meta"]["epoch"] == 1
+    assert bundle["layout"] == ("1 x 1 (fold x data) on 1 rank, folds "
+                                "[0, 1]")
+    for fold in (0, 1):
+        want = _weights(straight, fold, "final_model")
+        got = _weights(resumed, fold, "final_model")
+        assert all(np.isfinite(v).all() for v in got.values())
+        assert any(not np.array_equal(got[k], v) for k, v in want.items())
