@@ -667,6 +667,56 @@ def k3_design_bytes(mag, rate, rows: int, hop: int) -> dict:
     return parts
 
 
+@contextlib.contextmanager
+def plain_twins(*names: str):
+    """``ops/kernels``' wrappers ``names`` swapped for their plain twins
+    (``<name>_reference``) inside the block."""
+    from freesound_classification_tpu_torch.ops import kernels
+
+    real = {name: getattr(kernels, name) for name in names}
+    try:
+        for name in names:
+            setattr(kernels, name, getattr(kernels, f"{name}_reference"))
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name, fn)
+
+
+def k3_pitch_shift() -> None:
+    """``pv.pitch_shift`` of the chain's rows (n_fft 1024, hop 256, cents
+    U(-300, 300), every other row half long) through K3 and K2 against
+    the same call with both wrappers swapped for their plain twins: the
+    lengths equal and the waves within ``K3_REL_TOL`` of the largest."""
+    from freesound_classification_tpu_torch.ops import kernels, pv
+
+    wave = chain_wave(CHAIN_ROWS, CHAIN_LEN, 6)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cents = 600 * torch.rand(CHAIN_ROWS, device="cuda", generator=gen) - 300
+    lengths = torch.full((CHAIN_ROWS,), CHAIN_LEN, dtype=torch.int32,
+                         device="cuda")
+    lengths[1::2] = CHAIN_LEN // 2
+    wave[1::2, CHAIN_LEN // 2:] = 0.0
+    before = (kernels.pv_resynth.launches, kernels.resample_linear.launches)
+    got, got_len = pv.pitch_shift(wave, lengths, cents, 1024, 256)
+    launched = (kernels.pv_resynth.launches - before[0],
+                kernels.resample_linear.launches - before[1])
+    with plain_twins("pv_resynth", "resample_linear"):
+        want, want_len = pv.pitch_shift(wave, lengths, cents, 1024, 256)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = K3_REL_TOL * want.abs().max().item()
+    log(f"K3 and K2 in pv.pitch_shift {tuple(wave.shape)}: launches K3 "
+        f"{launched[0]}, K2 {launched[1]}; against the plain twins' route "
+        f"max_abs_err {err:.3e} (tolerance {tol:.3e}), lengths equal "
+        f"{bool(torch.equal(got_len, want_len))}")
+    if min(launched) < 1 or not torch.isfinite(got).all():
+        raise RuntimeError(f"pitch_shift: launches {launched}")
+    if not (err <= tol and torch.equal(got_len, want_len)):
+        raise RuntimeError(f"pitch_shift disagrees with its plain route: "
+                           f"{err}")
+
+
 def phase_k3() -> dict:
     from freesound_classification_tpu_torch.ops import kernels
 
@@ -692,6 +742,7 @@ def phase_k3() -> dict:
         raise RuntimeError(f"K3 disagrees with its plain twin: {err}")
     if not shifted > 10 * tol:
         raise RuntimeError("K3's comparison cannot tell shifted frames")
+    k3_pitch_shift()
     ms, plain_ms, times = timed_in_turns(
         lambda: kernels.pv_resynth(*args),
         lambda: kernels.pv_resynth_reference(*args))
@@ -2451,25 +2502,138 @@ def final_params(fold_dir: str) -> np.ndarray:
     return np.concatenate([v.ravel() for _, v in sorted(_leaves(params))])
 
 
+def save_record(fold_dir: str) -> str:
+    """Each save under ``fold_dir`` in ``checkpoints.save_times``: its
+    file, its ms on the loop's thread and its write's ms."""
+    from freesound_classification_tpu_torch.training import checkpoints
+
+    return "; ".join(
+        f"{os.path.basename(r['path'])} {r['loop_ms']:.1f} / "
+        f"{r['write_ms']:.1f}" for r in checkpoints.save_times
+        if os.path.dirname(r["path"]) == os.path.abspath(fold_dir))
+
+
+# the writer-overlap turns: steps timed a turn, and bundles enqueued before
+# a busy turn, enough that the writer is still writing when the turn's
+# steps end (the line says whether it was)
+OVERLAP_STEPS = 20
+OVERLAP_SAVES = 6
+
+
+def card_writer_checks() -> list:
+    """A bundle of a live model on the card (the recipe's width, float32)
+    and its Adam state enqueued on the writer, an optimizer step at once
+    (in place, on the card), then a drain: the file holds the values
+    before the step, bit for bit. Then that train step's ms, by the host's
+    clock around synchronized runs of ``OVERLAP_STEPS``, in turns with the
+    writer idle and busy (``OVERLAP_SAVES`` bundles enqueued before the
+    turn, untimed): the writer's cost to the steps it overlaps. Returns
+    the two log lines' words."""
+    from freesound_classification_tpu_torch.models.classifiers import (
+        TwoDimensionalCNN,
+    )
+    from freesound_classification_tpu_torch.training import checkpoints
+
+    torch.manual_seed(21)
+    model = TwoDimensionalCNN(**F32_NET, aggregation_type="max",
+                              n_classes=TRAIN_CLASSES).to(DEVICE).train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    x = torch.randn(4, 128, 431, 1, device=DEVICE)
+    frames = torch.tensor([431, 300, 431, 200], device=DEVICE)
+
+    def step():
+        opt.zero_grad()
+        model(x, frames).float().pow(2).mean().backward()
+        opt.step()
+
+    step()
+    want = {"model": {k: t.to("cpu", copy=True)
+                      for k, t in model.state_dict().items()},
+            "optimizer": {i: {k: t.to("cpu", copy=True)
+                              for k, t in state.items()}
+                          for i, state in opt.state_dict()["state"].items()}}
+    path = os.path.join(tempfile.mkdtemp(prefix="snapshot_"), "last.pt")
+    t0 = time.perf_counter()
+    checkpoints.save_bundle(path, {"model": model.state_dict(),
+                                   "optimizer": opt.state_dict()})
+    loop_ms = 1e3 * (time.perf_counter() - t0)
+    step()
+    torch.cuda.synchronize()
+    moved = not all(torch.equal(t.cpu(), want["model"][k])
+                    for k, t in model.state_dict().items())
+    got = checkpoints.load_bundle(path)
+    same = all(torch.equal(got["model"][k], t)
+               for k, t in want["model"].items()) and all(
+        torch.equal(got["optimizer"]["state"][i][k], t)
+        for i, state in want["optimizer"].items() for k, t in state.items())
+    n_bytes = os.path.getsize(path)
+    if not (moved and same):
+        raise RuntimeError(f"card snapshot: the step moved the weights "
+                           f"{moved}, the file holds the pre-step values "
+                           f"{same}")
+
+    def steps_ms() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OVERLAP_STEPS):
+            step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / OVERLAP_STEPS
+
+    turns = ("idle", "busy", "busy", "idle", "idle", "busy")
+    ms, busy_through = {"idle": [], "busy": []}, []
+    steps_ms()  # warm
+    for turn in turns:
+        if turn == "busy":
+            for _ in range(OVERLAP_SAVES):
+                checkpoints.save_bundle(path, {"model": model.state_dict(),
+                                               "optimizer": opt.state_dict()})
+            last = checkpoints.save_times[-1]
+        ms[turn].append(steps_ms())
+        if turn == "busy":
+            busy_through.append(last["write_ms"] is None)
+            checkpoints.wait_for_saves()
+    ratio = float(np.median(ms["busy"]) / np.median(ms["idle"]))
+    return [f"card snapshot: a {n_bytes / 1e6:.1f} MB bundle of a live "
+            f"model and its Adam state enqueued ({loop_ms:.1f} ms on the "
+            f"loop), an Adam step at once, the file equal to the pre-step "
+            f"values bit for bit",
+            f"writer overlap: that float32 step (B=4 x 431 frames), "
+            f"{OVERLAP_STEPS} steps a turn in turns {list(turns)}: ms a "
+            f"step with the writer idle "
+            f"{[round(v, 3) for v in ms['idle']]}, busy writing "
+            f"{OVERLAP_SAVES} bundles {[round(v, 3) for v in ms['busy']]} "
+            f"(still writing at each busy turn's end: {busy_through}); "
+            f"busy over idle, medians, {ratio:.3f}"]
+
+
 def phase_resume(root: str, inputs: dict, smi: str) -> None:
     """Three runs of the 2d train CLI (``resume_argv``): (i) straight
     through; (ii) a child process SIGKILLed once its epoch-0 bundle is on
     disk, then run again with ``--resume``; (iii) straight through on other
-    folds (``--kfold_seed 43``), the yardstick of "different". The resumed
+    folds (``--kfold_seed 43``), the yardstick of "different", with its
+    saves synchronous (``checkpoints.ASYNC_SAVES`` off). The resumed
     run must start at epoch 1, launch K1, K2 and K3, end with (i)'s
     ``global_step`` and epoch-0 score, and its final weights must lie
     within ``RESUME_WEIGHT_TOL`` of (i)'s and 10x nearer to them than to
-    (iii)'s."""
+    (iii)'s. Prints each save's ms on the loop's thread beside its
+    write's, of (i) and (iii), and the last epoch's steps/s of (i) (its
+    epoch 1 overlaps epoch 0's writes), of (ii)'s resumed run (the same
+    epoch, no write in flight) and of (iii); and
+    ``card_writer_checks``' lines."""
     from freesound_classification_tpu_torch.cli import train_2d_cnn
     from freesound_classification_tpu_torch.ops import kernels
     from freesound_classification_tpu_torch.training import checkpoints
 
     base = os.path.join(root, "resume")
+    checkpoints.save_times.clear()
     t0 = time.time()
     train_2d_cnn.main(resume_argv(inputs, os.path.join(base, "straight")))
     torch.cuda.synchronize()
     straight_s = time.time() - t0
-    straight_dir, _ = fold0_files(os.path.join(base, "straight"))
+    straight_dir, straight_exp = fold0_files(os.path.join(base, "straight"))
+    straight_saves = save_record(straight_dir)
+    straight_rate = last_epoch_rate(straight_exp, 0)
     want = checkpoints.load_bundle(os.path.join(straight_dir,
                                                 "last_model.pt"))
 
@@ -2521,12 +2685,22 @@ def phase_resume(root: str, inputs: dict, smi: str) -> None:
     launches = {k: fn.launches for k, fn in counted.items()}
     got = checkpoints.load_bundle(bundle_path)
     epochs_run = len(resumed_exp.results["fold0"]["train_steps"])
+    resumed_rate = (resumed_exp.results["fold0"]["train_steps"][-1],
+                    resumed_exp.results["fold0"]["train_seconds"][-1])
 
+    checkpoints.save_times.clear()
+    checkpoints.ASYNC_SAVES = False
     t0 = time.time()
-    train_2d_cnn.main(resume_argv(inputs, os.path.join(base, "other"), 43))
+    try:
+        train_2d_cnn.main(resume_argv(inputs, os.path.join(base, "other"),
+                                      43))
+    finally:
+        checkpoints.ASYNC_SAVES = True
     torch.cuda.synchronize()
     other_s = time.time() - t0
-    other_dir, _ = fold0_files(os.path.join(base, "other"))
+    other_dir, other_exp = fold0_files(os.path.join(base, "other"))
+    other_saves = save_record(other_dir)
+    other_rate = last_epoch_rate(other_exp, 0)
 
     w_straight = final_params(straight_dir)
     w_resumed = final_params(os.path.dirname(bundle_path))
@@ -2545,6 +2719,17 @@ def phase_resume(root: str, inputs: dict, smi: str) -> None:
         f"against {want['meta']['scores'][0]!r}; final weights, relative "
         f"L2: resumed to (i) {d_same:.3e} (tolerance {RESUME_WEIGHT_TOL:g}),"
         f" resumed to (iii) {d_other:.3e}")
+    log(f"resume saves, file ms on the loop / ms of the write: (i) on the "
+        f"writer: {straight_saves}; (iii) synchronous: {other_saves}; "
+        f"the last epoch's steps/s: (i) {straight_rate[0]} steps in "
+        f"{straight_rate[1]:.3f} s = "
+        f"{straight_rate[0] / straight_rate[1]:.3f} (epoch 0's writes in "
+        f"flight), (ii) the same epoch resumed {resumed_rate[0]} in "
+        f"{resumed_rate[1]:.3f} s = {resumed_rate[0] / resumed_rate[1]:.3f} "
+        f"(none), (iii) {other_rate[0]} in {other_rate[1]:.3f} s = "
+        f"{other_rate[0] / other_rate[1]:.3f} (none) on {smi}")
+    for line in card_writer_checks():
+        log(f"resume: {line} on {smi}")
     if epochs_run != 1:
         raise RuntimeError(f"the resumed run trained {epochs_run} epochs")
     if min(launches.values()) <= 0:
@@ -3301,8 +3486,10 @@ def fold_mesh_fit(fold_mesh, device, folds: list, root: str,
     held against its plain twin. Returns the fit's launches, each
     kernel's largest difference from its twin, each owned fold's per-step
     losses of the run and last gradients, and on world rank 0 (or alone)
-    each bundle save's ms, of it the gather's, and the bundle's bytes."""
+    each bundle save's ms on the loop (of it the gather's) and its write's
+    on the checkpoint writer, and the bundle's bytes."""
     from freesound_classification_tpu_torch.ops import kernels
+    from freesound_classification_tpu_torch.training import checkpoints
     from freesound_classification_tpu_torch.training.multifold import (
         BUNDLE,
         MultiFoldEngine,
@@ -3349,6 +3536,7 @@ def fold_mesh_fit(fold_mesh, device, folds: list, root: str,
         stack.train_epoch = stopping
     for name in kernels.launch_counts():
         getattr(kernels, name).launches = 0
+    checkpoints.save_times.clear()
     try:
         with kernels_against_twins(record):
             stack.fit([FoldBatches(folds[f]) for f in own],
@@ -3357,10 +3545,13 @@ def fold_mesh_fit(fold_mesh, device, folds: list, root: str,
     except KeyboardInterrupt:
         pass
     torch.cuda.synchronize()
+    checkpoints.wait_for_saves()  # a stopped fit leaves its last in flight
     names = stack.model.param_names
     stacked = list(stack.model.stacked()[0].values())
     bundle = os.path.join(root, "checkpoints", BUNDLE)
     writer = fold_mesh is None or fold_mesh.world.rank == 0
+    saves["write_ms"] = [r["write_ms"] for r in checkpoints.save_times
+                         if r["path"] == os.path.abspath(bundle)]
     return {"folds": own,
             "launches": {WRAPPER_KERNEL[k]: n
                          for k, n in kernels.launch_counts().items() if n},
@@ -3564,7 +3755,9 @@ def fold_mesh_resume(results: list, work: str, folds: list,
     one process against the ranks' uninterrupted 2 epochs: each fold's
     epoch 1 losses within ``STEP_TOL_LOSS`` and its last gradients within
     ``STEP_TOL_GRAD`` of the fold's largest. Prints each bundle save's ms
-    on rank 0, the gather to rank 0 among them, and the bundle's size."""
+    on rank 0's loop (the gather to rank 0 and the snapshot), the gather
+    among them, the write's ms on its checkpoint writer, and the bundle's
+    size."""
     from freesound_classification_tpu_torch.probes.fold_parallel import (
         gradient_distance,
     )
@@ -3586,14 +3779,17 @@ def fold_mesh_resume(results: list, work: str, folds: list,
     log(f"fold mesh bundle of {len(folds)} folds (the 2 x 1 layout on 2 "
         f"gloo ranks sharing cuda:0, {NETWORK['num_conv_blocks']} blocks, "
         f"depth {NETWORK['conv_base_depth']}, weights and momentum): "
-        f"float32 {stopped['bundle_bytes'] / 1e6:.1f} MB, a save "
-        f"{ms(stopped['save_ms'])} ms, of it the gather to rank 0 "
-        f"{ms(stopped['gather_ms'])} ms; the float64 runs' (float64 "
+        f"float32 {stopped['bundle_bytes'] / 1e6:.1f} MB, a save on the "
+        f"loop {ms(stopped['save_ms'])} ms, of it the gather to rank 0 "
+        f"{ms(stopped['gather_ms'])} ms, its write on the writer "
+        f"{ms(stopped['write_ms'])} ms; the float64 runs' (float64 "
         f"arithmetic, float32 weights) {straight['bundle_bytes'] / 1e6:.1f} "
-        f"MB, saves {ms(straight['save_ms'])} ms, gathers "
-        f"{ms(straight['gather_ms'])} ms; one process's save of the resumed "
-        f"epoch (no gather) "
-        f"{ms(got['save_ms'])} ms on {smi}")
+        f"MB, saves on the loop {ms(straight['save_ms'])} ms, gathers "
+        f"{ms(straight['gather_ms'])} ms, writes "
+        f"{ms(straight['write_ms'])} ms; one process's save of the resumed "
+        f"epoch (no gather) on the loop "
+        f"{ms(got['save_ms'])} ms, its write {ms(got['write_ms'])} ms on "
+        f"{smi}")
     log(f"fold mesh resume of the ranks' bundle in one process on cuda:0 "
         f"(epoch 1 of 2, {len(folds)} folds, augmented): launches "
         f"{got['launches']} (expected {expect}); each call against its twin: "

@@ -103,8 +103,8 @@ from freesound_classification_tpu_torch.ops.augment import (
 from freesound_classification_tpu_torch.ops.dsp import parse_features
 from freesound_classification_tpu_torch.ops.metrics import lwlrap
 from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
+from freesound_classification_tpu_torch.training import checkpoints, multifold
 from freesound_classification_tpu_torch.training.engine import Engine
-from freesound_classification_tpu_torch.training import multifold
 from freesound_classification_tpu_torch.training.multifold import (
     MultiFoldEngine,
 )
@@ -452,9 +452,12 @@ def run_training(args, model_kind: str = "2d_cnn",
     then ``finalize_results``. With ``--fold_parallel`` and more than one
     fold the folds train together (``MultiFoldEngine``). Under ``torchrun``
     each fold trains data-parallel over the ranks (``data_parallel``).
-    ``extra_network`` goes into the config's network section."""
+    ``extra_network`` goes into the config's network section. Returns
+    once every checkpoint is written."""
     with data_parallel(args) as mesh:
-        return _run_training(args, mesh, model_kind, extra_network)
+        experiment = _run_training(args, mesh, model_kind, extra_network)
+    checkpoints.wait_for_saves()
+    return experiment
 
 
 def _run_training(args, mesh: mesh_lib.Mesh, model_kind: str,

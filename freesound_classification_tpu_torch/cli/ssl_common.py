@@ -43,6 +43,7 @@ from freesound_classification_tpu_torch.ops.augment import (
     make_augmenter,
 )
 from freesound_classification_tpu_torch.ops.dsp import parse_features
+from freesound_classification_tpu_torch.training import checkpoints as ckpt_lib
 from freesound_classification_tpu_torch.training.engine import Engine
 from freesound_classification_tpu_torch.utils.experiment import Experiment
 from freesound_classification_tpu_torch.utils.projection import (
@@ -158,9 +159,11 @@ def ssl_config(args, kind: str, n_classes: int, input_dim: int) -> dict:
 def run_ssl_training(args, kind: str) -> Experiment:
     """Pretrain a ``kind`` model on each of ``args.folds`` (data-parallel
     under ``torchrun``: rank 0 writes, and runs the representation probe);
-    returns the experiment."""
+    returns the experiment once every checkpoint is written."""
     with common.data_parallel(args) as mesh:
-        return _run_ssl_training(args, kind, mesh)
+        experiment = _run_ssl_training(args, kind, mesh)
+    ckpt_lib.wait_for_saves()
+    return experiment
 
 
 def _run_ssl_training(args, kind: str, mesh) -> Experiment:

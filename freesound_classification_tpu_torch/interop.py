@@ -375,7 +375,11 @@ def save_fold_npz(path: str, params: Mapping, batch_stats: Mapping) -> None:
 
 
 def load_fold_npz(path: str) -> Tuple[dict, dict]:
-    """Read a ``save_fold_npz`` file back into (params, batch_stats)."""
+    """Read a ``save_fold_npz`` file back into (params, batch_stats), once
+    every save enqueued on the checkpoint writer is written."""
+    from freesound_classification_tpu_torch.training import checkpoints
+
+    checkpoints.wait_for_saves()
     trees: dict = {c: {} for c in _COLLECTIONS}
     with np.load(path) as data:
         for key in data.files:

@@ -304,6 +304,41 @@ def masked_max_pool_2d(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, h, NEG_INF).amax(dim=(2, 3))
 
 
+def masked_mean_time(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Mean over the valid frames of a (B, C, T) map -> (B, C) (JAX
+    ``blocks.masked_mean_time``, there over (B, T, C)); a row of no valid
+    frame gives 0."""
+    mask = time_mask(lengths, h.shape[2])[:, None, :].to(h.dtype)
+    return (h * mask).sum(dim=2) / mask.sum(dim=2).clamp(min=1.0)
+
+
+class ConvLockedDropout(nn.Module):
+    """Per-channel dropout of a (B, C, T) map, one mask entry per row and
+    channel shared across time (JAX ``blocks.ConvLockedDropout``, there
+    over (B, T, C); reference ``networks/classifiers.py:21-34``). In train
+    mode a channel of a row is kept with probability 1 - ``dropout_rate``
+    and zeroed otherwise; kept values are not rescaled, as in JAX. The
+    mask draws from ``generator`` (PyTorch's default one where None);
+    ``keep``, a (B, C, 1) mask, replaces the draw."""
+
+    def __init__(self, dropout_rate: float = 0.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.training or not self.dropout_rate:
+            return x
+        if keep is None:
+            keep = torch.bernoulli(
+                torch.full((x.shape[0], x.shape[1], 1),
+                           1.0 - self.dropout_rate, device=x.device),
+                generator=self.generator)
+        return x * keep.to(x.dtype)
+
+
 class MLPHead(nn.Module):
     """BN -> Linear -> BN -> PReLU -> Dropout -> Linear(n_classes) (JAX
     ``blocks.MLPHead``). Dropout zeroes with probability ``dropout`` and

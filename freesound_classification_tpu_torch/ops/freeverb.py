@@ -126,3 +126,19 @@ def reverb_batch(wave: torch.Tensor, lengths: torch.Tensor,
     tail = decay_samples(reverberance, room_scale, sr)
     new_len = torch.clamp(lengths + tail, max=length)
     return out, torch.clamp(new_len, min=1).to(lengths.dtype)
+
+
+def freeverb_ir(reverberance: torch.Tensor, room_scale: torch.Tensor,
+                sr: int, ir_len: int, hf_damping: float = 50.0,
+                pre_delay_ms: float = 20.0,
+                wet_gain_db: float = 0.0) -> torch.Tensor:
+    """(B,) params -> (B, ir_len) wet impulse responses (JAX
+    ``freeverb.freeverb_ir``): the inverse rFFT of ``wet_response`` on a
+    power-of-two grid of at least 2 ir_len - 1 and 2.4 s, about twice the
+    slowest -120 dB decay of the parameters' range (reverberance and room
+    in [0, 50)), so the grid's time aliasing stays below -120 dB."""
+    grid = 1 << max(2 * ir_len - 1, int(2.4 * sr)).bit_length()
+    h = wet_response(reverberance, room_scale, grid, sr,
+                     hf_damping=hf_damping, pre_delay_ms=pre_delay_ms,
+                     wet_gain_db=wet_gain_db)
+    return torch.fft.irfft(h, grid, dim=-1)[..., :ir_len]

@@ -93,3 +93,23 @@ def phase_vocoder_stretch(wave: torch.Tensor, lengths: torch.Tensor,
     valid = (torch.arange(length, device=wave.device)[None]
              < new_len[:, None])
     return torch.where(valid, out, 0.0), new_len.to(lengths.dtype)
+
+
+def pitch_shift(wave: torch.Tensor, lengths: torch.Tensor,
+                cents: torch.Tensor, n_fft: int = 2048, hop: int = 512):
+    """Duration-preserving pitch shift of each (B, L) row by ``cents`` (B,)
+    in [-300, 300] (JAX ``pv.pitch_shift``): a PV stretch by rate 1/f (K3)
+    scales the duration by f, and a resample by f (K2) scales the pitch by
+    f and the duration back, f = 2^(cents/1200). The stretch runs in a
+    buffer of ~1.2 L, so the resample sees the whole stretched clip."""
+    from freesound_classification_tpu_torch.ops.augment import resample_rate
+
+    length = wave.shape[1]
+    padded = ((int(length * 1.2) + hop - 1) // hop) * hop
+    wave = torch.nn.functional.pad(wave, (0, padded - length))
+    factor = torch.exp2(cents.float() / 1200.0)
+    stretched, new_len = phase_vocoder_stretch(wave, lengths, 1.0 / factor,
+                                               n_fft, hop)
+    out, new_len = resample_rate(stretched, new_len, factor)
+    return (out[:, :length],
+            torch.clamp(new_len, max=length).to(lengths.dtype))

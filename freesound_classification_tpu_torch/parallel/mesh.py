@@ -133,14 +133,6 @@ class Mesh:
     def rank_seed(self, seed: int) -> int:
         return seed + RANK_SEED_STRIDE * self.rank
 
-    def barrier(self) -> None:
-        """Every rank's host waits here for the others (a no-op alone).
-        Under NCCL an all-reduce only queues on the card's stream, so the
-        host waits for its result."""
-        if self.group is not None:
-            all_reduce_sum_(torch.zeros(1, device=self.device),
-                            self.group).item()
-
     def broadcast_object(self, obj):
         """Rank 0's ``obj`` on every rank (picklable objects)."""
         if self.group is None:

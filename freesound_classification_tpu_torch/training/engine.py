@@ -27,6 +27,11 @@ after the warm-up epoch 0) into that directory. While it traces, each
 step's stages are named ranges in the trace (``augment``, ``frontend``,
 ``forward``, ``backward``, ``optimizer``); untraced steps open none.
 
+Saves go through ``checkpoints``' writer thread: each epoch's periodic
+model, best model and bundle are enqueued in that order, snapshots taken
+on the loop, and the pruning after them (``write_after_saves``); a fit
+returns once they are written.
+
 Resume: with a checkpoint dir, every epoch ends by writing the fold's
 ``last_model.pt`` bundle (``checkpoints.save_bundle``): the model's and the
 optimizer's state, the accumulated gradients and micro-step, the update
@@ -73,10 +78,11 @@ global batch's), and the arithmetic is JAX's over the global batch.
 - The batch lwlrap, validation and predictions gather the ranks' rows and
   drop the padded ones: every rank sees the single-process numbers and
   makes the same best-model decision.
-- Rank 0 alone writes files; the others wait at a barrier (one that
-  holds the host) after each epoch's writes. Rank 0 alone reads them too:
-  a model file or a resume bundle reaches the others by broadcast, so no
-  rank needs to see rank 0's disk.
+- Rank 0 alone writes files, through the checkpoint writer
+  (``checkpoints``: the snapshot on the loop, the write on the writer's
+  thread), and no rank waits for them. Rank 0 alone reads them too, once
+  its writer has drained: a model file or a resume bundle reaches the
+  others by broadcast, so no rank needs to see rank 0's disk.
 - Each rank draws its augmentation from its own generator, seeded
   ``mesh.rank_seed(seed)`` (JAX's key is global), and MixUp partners come
   from the rank's own rows; the effects chain runs on the rank's share of
@@ -91,6 +97,7 @@ global batch's), and the arithmetic is JAX's over the global batch.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from typing import Callable, Optional
 
@@ -611,15 +618,16 @@ class Engine:
             scores.append(score)
             if self.checkpoint_dir is not None:
                 # every rank takes part in gathering the generator states;
-                # rank 0 alone writes, and the others wait for its files
+                # rank 0 alone enqueues the writes, and no rank waits
                 state = self.train_state()
             if self.checkpoint_dir is not None and self._writes:
                 if epoch % save_every == 0:
                     checkpoints.save_model(self.model_path(
                         fold, f"model_on_epoch_{epoch}"), self.model)
-                    checkpoints.prune_epoch_checkpoints(
+                    checkpoints.write_after_saves(functools.partial(
+                        checkpoints.prune_epoch_checkpoints,
                         os.path.join(self.checkpoint_dir, f"fold_{fold}"),
-                        keep)
+                        keep))
                 if score > best:
                     checkpoints.save_model(self.model_path(fold, "best_model"),
                                            self.model)
@@ -629,12 +637,11 @@ class Engine:
                           "best_score": float(max(best, score)),
                           "scores": [float(s) for s in scores],
                           "global_step": self.global_step}))
-            if self.mesh:
-                self.mesh.barrier()
             best = max(best, score)
         for writer in (self.train_writer, self.valid_writer):
             if writer is not None:
                 writer.close()
+        checkpoints.wait_for_saves()
         return scores
 
     # ------------------------------------------------------------------
@@ -656,17 +663,19 @@ class Engine:
         return self.mesh is None or self.mesh.is_writer
 
     def save_model(self, fold: int, name: str) -> None:
-        """Rank 0 writes; on a mesh every rank then waits for the file."""
+        """Rank 0 writes ``fold``'s ``{name}.npz`` and returns once it is
+        on disk (a one-off save, as the final model's, has no epoch to
+        overlap); the other ranks do not wait."""
         if self._writes:
             checkpoints.save_model(self.model_path(fold, name), self.model)
-        if self.mesh:
-            self.mesh.barrier()
+            checkpoints.wait_for_saves()
 
     def load_model(self, fold: int, name: str) -> None:
         self._load_weights(self.model_path(fold, name))
 
     def _load_weights(self, path: str) -> None:
-        """Rank 0 reads the ``.npz`` at ``path``; on a mesh the other ranks
+        """Rank 0 reads the ``.npz`` at ``path`` (once its writer has
+        drained: ``checkpoints.load_model``); on a mesh the other ranks
         take its weights by broadcast and read no file (rank 0's files
         need not be theirs to see)."""
         if self._writes:

@@ -53,6 +53,9 @@ Correctness parity with the sequential path:
   template's model, which ``cli/common.build_engine`` makes alike for every
   fold), or with a ``warm_start_path`` from that file: JAX's ``fit`` draws
   fresh weights and drops the warm start;
+- every save goes through ``checkpoints``' writer thread (each fold's
+  files, then the bundle, in that order; a snapshot on the loop), and a
+  fit returns once they are written;
 - resume (one stacked bundle, ``checkpoints/multifold_resume.pt``),
   periodic ``_save_every`` checkpoints, per-fold tensorboard writers and
   the files of each fold (``fold_k/{best_model,model_on_epoch_N}.npz``)
@@ -83,7 +86,9 @@ the one-process stack of all K:
   folds, ``multifold.py:500-509``): each fold group's place 0 sends its
   folds' slices of the stacked model, optimizer state and gradient mean
   to world rank 0, tensor by tensor, and rank 0 writes the file in one
-  atomic rename, so no kill leaves folds at two epochs. Beside them: the
+  atomic rename, so no kill leaves folds at two epochs; rank 0 enqueues
+  it once the other ranks have drained their checkpoint writers, so the
+  bundle never lands ahead of an epoch's fold files. Beside them: the
   layout, each fold's best score, loader epoch and every place's
   augmenter generator, and every rank's dropout generator. ``resume``
   takes it under any layout (JAX re-shards its bundle, ``_shard_states``):
@@ -118,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import glob
 import os
 from dataclasses import dataclass
@@ -709,25 +715,32 @@ class MultiFoldEngine(Engine):
                     best[k] = max(best[k], score)
                     continue
                 if epoch % save_every == 0:
-                    self.template.save_model(fold, f"model_on_epoch_{epoch}")
+                    self.enqueue_fold_model(fold, f"model_on_epoch_{epoch}")
                     if self._writes:
-                        checkpoints.prune_epoch_checkpoints(
+                        checkpoints.write_after_saves(functools.partial(
+                            checkpoints.prune_epoch_checkpoints,
                             os.path.join(self.checkpoint_dir,
-                                         f"fold_{fold}"), keep)
+                                         f"fold_{fold}"), keep))
                 if score > best[k]:
-                    self.template.save_model(fold, "best_model")
+                    self.enqueue_fold_model(fold, "best_model")
                 best[k] = max(best[k], score)
             self.print_epoch(epoch, stats, scores)
             if self.checkpoint_dir is not None:
                 self.save_stacked_bundle(epoch, best, train_loaders)
-                if self.fold_mesh is not None:
-                    # the epoch's bundle is on disk
-                    self.fold_mesh.world.barrier()
         for writers in self.fold_writers:
             for writer in writers:
                 if writer is not None:
                     writer.close()
+        checkpoints.wait_for_saves()
         return best
+
+    def enqueue_fold_model(self, fold: int, name: str) -> None:
+        """The template's weights (fold ``fold``'s, loaded by
+        ``to_template``) as ``fold_{fold}/{name}.npz``, on the writer from
+        a snapshot taken now, where this rank writes."""
+        if self._writes:
+            checkpoints.save_model(self.template.model_path(fold, name),
+                                   self.template.model)
 
     def print_epoch(self, epoch: int, stats: dict, scores: list) -> None:
         """The epoch's line over every fold of the job (JAX's ``epoch N:
@@ -838,7 +851,10 @@ class MultiFoldEngine(Engine):
         best score, loader epoch counter and every place's augmenter
         generator, every rank's dropout generator, the layout and the
         progress ``{epoch, best, global_step}``. Every rank takes part;
-        world rank 0 writes."""
+        world rank 0 enqueues the write, once the other ranks have drained
+        their writers after the gather (which their writes overlap), so
+        that the bundle never lands ahead of a fold file of its epoch
+        (rank 0's own are ahead of it in its queue)."""
         place = self.mesh.rank if self.mesh else 0
         ranks = self.all_ranks({
             "positions": list(self.positions), "place": place,
@@ -848,6 +864,10 @@ class MultiFoldEngine(Engine):
             "epochs": [int(getattr(loader, "_epoch", 0))
                        for loader in loaders]})
         tensors = self.gather_fold_tensors()
+        if self.world is not None:
+            if self.world.rank != 0:
+                checkpoints.wait_for_saves()
+            self.all_ranks(None)  # every rank's fold files are on disk
         if tensors is None:
             return
         n, d = len(self.job_folds), max(r["place"] for r in ranks) + 1
@@ -920,9 +940,12 @@ class MultiFoldEngine(Engine):
         return dict(meta, best=[meta["best"][k] for k in self.positions])
 
     def save_fold_models(self, name: str) -> None:
-        """Every fold's current weights as ``fold_k/{name}.npz``."""
+        """Every fold's current weights as ``fold_k/{name}.npz``, on disk
+        when this returns."""
         for k, fold in enumerate(self.fold_ids):
-            self.to_template(k).save_model(fold, name)
+            self.to_template(k)
+            self.enqueue_fold_model(fold, name)
+        checkpoints.wait_for_saves()
 
     def load_train_state(self, bundle: dict) -> dict:
         """Load this rank's folds' slices of a stacked bundle of the job

@@ -49,6 +49,7 @@ from freesound_classification_tpu_torch.training.engine import (  # noqa
     Engine,
 )
 from freesound_classification_tpu_torch.training import (  # noqa: E402
+    checkpoints,
     multifold,
 )
 from freesound_classification_tpu_torch.training.multifold import (  # noqa
@@ -266,8 +267,9 @@ def _fit(fold_mesh, inp, root, stop=None, kill=None, resume=False):
     ``inp["augment"]`` the chain and chunk shuffle run (MixUp off: its
     partner pool restarts on resume, as in JAX). ``stop`` ends the run
     before that epoch as a crash would; ``kill`` makes world rank 0 die as
-    by SIGKILL at its second bundle's rename ("rename") or before epoch 1
-    ("epoch"); ``resume`` goes on from ``root``'s bundle. Returns each
+    by SIGKILL at its second bundle's rename ("rename", on its checkpoint
+    writer) or before epoch 1 once epoch 0's saves are on disk ("epoch");
+    ``resume`` goes on from ``root``'s bundle. Returns each
     owned fold's final state and best score, the step count and the
     augmenter generators' seeds (None for a stopped run)."""
     frontend = (Frontend(DESCRIPTOR, "2d", sr=SR, device="cpu")
@@ -296,6 +298,7 @@ def _fit(fold_mesh, inp, root, stop=None, kill=None, resume=False):
                 if kill is None:
                     raise KeyboardInterrupt(f"stopped before epoch {end}")
                 if world_rank == 0:
+                    checkpoints.wait_for_saves()
                     os._exit(KILLED)
             started.append(1)
             return train_epoch(*args, **kwargs)
