@@ -54,12 +54,14 @@ The paths, each driven through the CLI a user would call:
   spawn DataLoader workers.
 - the ``rnn`` aggregation: the recipe's train CLI with
   ``--aggregation_type rnn``, sequential and ``--fold_parallel``, and the
-  5-fold predict CLI on it; the self-supervised CLIs ``train_apc`` and
-  ``train_cpc`` at their default widths; ``adversarial_test``.
+  predict CLI on the stacked run; the self-supervised CLIs ``train_apc``
+  and ``train_cpc`` at their default widths; ``adversarial_test``.
 
 Phases, each of which raises on failure (none catches its own):
-  1. device: a CUDA card is required; prints nvidia-smi's name and power limit
-  2. build: compiles the port's CUDA sources, prints the seconds
+  1. device: a CUDA card is required; prints nvidia-smi's name and power
+     limit; the children's bytecode cache (``bytecode_cache``)
+  2. build: compiles the port's CUDA sources, prints the seconds, while
+     the host writes the paths' WAVs and random-weight experiments
   3. K1: the mel kernel against its plain twin at B=128 x 10 s,
      mel_2048_1024_128, float32, on the mel filterbank and on a dense one;
      the bands one bin up and the frames shifted by one fail by far; the
@@ -137,7 +139,11 @@ Phases, each of which raises on failure (none catches its own):
      SIGKILLed once its epoch-0 bundle (a partial mean in it) is on disk,
      then resumed with --resume (K1, K2 and K3 launched, epoch 1 only,
      the same global_step and epoch-0 score, final weights within
-     RESUME_WEIGHT_TOL and 10x nearer than a run on other folds)
+     RESUME_WEIGHT_TOL and 10x nearer than a run on other folds); a
+     temporary named for the killed child's pid, planted beside its
+     bundle, is gone after the resumed run, and no checkpoint directory of
+     the three runs (on the writer and synchronous) holds a ``*.tmp-*``
+     file
   fold parallel: the train CLI at the recipe's width with
      ``--fold_parallel`` over folds 0-4 of the 150 labelled clips, 2
      epochs: every fold's best and final models and OOF CSV, five fold
@@ -150,9 +156,10 @@ Phases, each of which raises on failure (none catches its own):
      the first float32 step's per-fold losses (1e-4) and gradients (1e-2
      of each fold's largest) against the single-fold steps', from
      ``phase_f32_step``'s weights on 5 of its batches, each beside the
-     single step's own spread on reversed rows; and the resume phase's
-     runs over three of the folds stacked (every fold's final weights
-     within RESUME_WEIGHT_TOL of the straight run's)
+     single step's own spread on reversed rows (run beside the resume's
+     killed child); and the resume phase's runs over two of the folds
+     stacked (every fold's final weights within RESUME_WEIGHT_TOL of the
+     straight run's)
   data parallel (M5.1): the train path's CLI under ``torchrun
      --standalone --nproc_per_node 1 ... --mesh_devices 1`` (NCCL's
      process group and collectives, rank-0 writes): the train path's
@@ -171,11 +178,12 @@ Phases, each of which raises on failure (none catches its own):
      the last gradients within 1e-2 of each fold's largest of the one
      process stacking the rank's folds alone (the stack of all 4 printed
      beside: float32's rounding of the stack width); each rank's stacked
-     steps/s beside the one process's; then the train path's CLI with
-     ``--fold_parallel --folds 0 1`` for 1 epoch under ``torchrun
-     --standalone --nproc_per_node 1`` (one NCCL rank, the layout path)
-     and as a plain child at once: the same files and launches, each
-     fold's final weights within RESUME_WEIGHT_TOL
+     steps/s beside the one process's; and, beside the ranks from the
+     start, the train path's CLI with ``--fold_parallel --folds 0 1``
+     for 1 epoch under ``torchrun --standalone --nproc_per_node 1`` (one
+     NCCL rank, the layout path) and as a plain child at once: the same
+     files and launches, each fold's final weights within
+     RESUME_WEIGHT_TOL
   profile: the train CLI at the recipe's width with ``--profile``, 2
      epochs of fold 0 apart from the train path: a trace of epoch 1 under
      ``summaries/profile`` that names K1, K2 and K3
@@ -187,16 +195,17 @@ Phases, each of which raises on failure (none catches its own):
      the hierarchical train and finetune CLIs and the backbone train CLI
      (K1-K3 launched, losses finite, parameters moved, steps/s)
   recipe: the kit as a child on the card, 2 epochs a round, batch 20, on
-     a mini dataset (the train path's 150 curated clips, 60 noisy clips of
-     which a third carry a wrong or an extra label, 20 test clips): exit
-     0; the class map's 8 classes; two experiments, each with five OOF and
-     five test prediction files, a submission.csv that is their mean
-     (1e-6), a results metric that is the lwlrap of its OOF CSVs (1e-9),
-     model_on_epoch_0.npz in every fold; noisy probabilities for all 60
-     clips; 60 relabelled rows (scoring_1000); a blend submission of the
-     8 classes for the 20 test clips; each step's wall time. Launches on
-     its two rounds are estimated from the train path's counts per fold
-     and epoch (the kit's children cannot report theirs)
+     a mini dataset (the first 50 of the train path's clips as the curated
+     set, 15 noisy clips of which a third carry a wrong or an extra label,
+     5 test clips): exit 0; the class map's 8 classes; two experiments,
+     each with five OOF and five test prediction files, a submission.csv
+     that is their mean (1e-6), a results metric that is the lwlrap of its
+     OOF CSVs (1e-9), model_on_epoch_0.npz in every fold; noisy
+     probabilities for all 15 clips; 15 relabelled rows (scoring_1000); a
+     blend submission of the 8 classes for the 5 test clips; each step's
+     wall time. Launches on its two rounds are estimated from the train
+     path's counts per fold and epoch (the kit's children cannot report
+     theirs)
   evaluate: evaluate_2d_cnn on the kit's curated experiment: its overall
      OOF lwlrap against results.json within one rank swap, K1 launched;
      then --n_tta 2 --tta_shift_max_s 0.5
@@ -210,13 +219,14 @@ Phases, each of which raises on failure (none catches its own):
      recipe's four GRU shapes (20 x 161 / 80 / 40 / 20 frames, float32,
      TF32 off; ``probes/rnn_step.ROUTE_TOL``), and what vmap does with the
      cuDNN route; the recipe's train CLI with ``--aggregation_type rnn``
-     over 2 epochs of fold 0, and with ``--fold_parallel`` over folds 0-4,
-     each a child whose K1-K3 launches come back through
-     ``$FSC_LAUNCH_LOG``: every kernel launched, losses finite, every
-     fold's files, last-epoch steps/s; the 5-fold bf16 predict CLI on the
-     stacked run (K1 launched, probabilities in [0, 1]); the rnn train
-     step against the max one in turns at B = 64 x 10 s, and the stacked
-     rnn step alone (``rnn_step.compare``)
+     over 2 epochs of fold 0, and with ``--fold_parallel`` over the two
+     folds of ``--n_folds 2``, each a child (the two at once, beside the
+     route checks) whose K1-K3 launches come back through
+     ``$FSC_LAUNCH_LOG``: every kernel launched, losses finite,
+     every fold's files, last-epoch steps/s; the bf16 predict CLI on the
+     stacked run's two folds (K1 launched, probabilities in [0, 1]); the
+     rnn train step against the max one in turns at B = 64 x 10 s, and
+     the stacked rnn step alone (``rnn_step.compare``)
   ssl: ``train_apc`` and ``train_cpc`` (mel_2048_1024_128, batch 32, 10 s,
      the chain at 0.75) over 2 epochs of fold 0 with K1-K3 counted: every
      fold file of the family, a finite validation score, steps/s, the KNN
@@ -240,12 +250,14 @@ float32 (TF32 is switched off below), so the comparisons measure the kernels.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import csv
 import json
 import os
 import re
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -362,9 +374,12 @@ BENCH_KEYS = ("value", "vs_baseline", "mfu", "train_step_ms_noaug",
               "train_mfu")
 BENCH_TIMEOUT = 600
 # the recipe phase: the port's kit on an FSDKaggle2019-layout mini dataset
-# (the curated set is the train path's clips), two epochs a round
-RECIPE_NOISY = 60
-RECIPE_TEST = 20
+# (the curated set is the first RECIPE_CURATED of the train path's clips:
+# 40 train clips a fold, 2 steps of 20 an epoch), two epochs a round, so
+# that epoch 0 runs the effects chain (K2, K3)
+RECIPE_CURATED = 50
+RECIPE_NOISY = 15
+RECIPE_TEST = 5
 RECIPE_EPOCHS = 2
 RECIPE_BATCH = 20
 RECIPE_TIMEOUT = 900
@@ -438,6 +453,23 @@ def phase_device() -> str:
         f"python {sys.version.split()[0]}")
     log(smi)
     return smi
+
+
+def bytecode_cache() -> None:
+    """Keep the compiled bytecode of every module this process and its
+    children import under the checkout's git-ignored ``build/pycache``
+    (``PYTHONPYCACHEPREFIX``, which the children inherit), written even
+    where ``PYTHONDONTWRITEBYTECODE`` is set. Where the interpreter's
+    packages ship no valid bytecode, each child otherwise compiles torch's
+    sources anew at its import; with the cache only the first children
+    do. ``probes/child_start.py`` times a child with and without it."""
+    prefix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    log(f"bytecode cache: {prefix}")
 
 
 def phase_build() -> None:
@@ -2228,7 +2260,8 @@ def phase_backbone_train(root: str, inputs: dict, smi: str) -> dict:
 
 def write_recipe_layout(root: str, curated: dict) -> dict:
     """An FSDKaggle2019-layout mini dataset under ``root/fsd``: the curated
-    set is ``write_train_inputs``' clips and CSV; ``train_noisy/`` holds
+    set is the first ``RECIPE_CURATED`` rows of ``write_train_inputs``'
+    CSV, over its clips; ``train_noisy/`` holds
     ``RECIPE_NOISY`` clips of ``TRAIN_SECONDS``, every third with a wrong
     or an extra label; ``test/`` holds ``RECIPE_TEST`` clips with the
     bench's lengths and ``sample_submission.csv`` (fname and a zero column
@@ -2239,7 +2272,7 @@ def write_recipe_layout(root: str, curated: dict) -> dict:
     os.symlink(curated["train_dir"], os.path.join(data, "train_curated"))
     with open(curated["train_csv"]) as f, \
             open(os.path.join(data, "train_curated.csv"), "w") as g:
-        g.write(f.read())
+        g.writelines(f.readlines()[:1 + RECIPE_CURATED])
     classes = curated["classes"]
     rng = np.random.RandomState(21)
     rows, jobs = [], []
@@ -2353,8 +2386,8 @@ def phase_recipe(root: str, curated: dict, smi: str) -> dict:
 
     t0 = time.time()
     layout = write_recipe_layout(root, curated)
-    log(f"recipe inputs: {RECIPE_NOISY} noisy and {RECIPE_TEST} test clips "
-        f"({time.time() - t0:.1f} s to write)")
+    log(f"recipe inputs: {RECIPE_CURATED} curated, {RECIPE_NOISY} noisy "
+        f"and {RECIPE_TEST} test clips ({time.time() - t0:.1f} s to write)")
     work = os.path.join(root, "recipe_work")
     here = os.path.dirname(os.path.abspath(__file__))
     launch_log = os.path.join(root, "recipe_launches.jsonl")
@@ -2672,6 +2705,11 @@ def phase_resume(root: str, inputs: dict, smi: str) -> None:
         raise RuntimeError(f"the kill came late: the bundle holds epoch "
                            f"{at_kill['meta']['epoch']}, micro-step "
                            f"{at_kill['micro_step']}")
+    # what a kill in the middle of the bundle's write would have left: the
+    # resumed run's next write of the bundle clears it (F6)
+    planted = f"{bundle_path}.tmp-{socket.gethostname()}-{proc.pid}"
+    with open(planted, "wb") as f:
+        f.write(b"half a bundle")
 
     counted = {"K1": kernels.mel_project_log, "K2": kernels.resample_linear,
                "K3": kernels.pv_resynth}
@@ -2728,8 +2766,19 @@ def phase_resume(root: str, inputs: dict, smi: str) -> None:
         f"{resumed_rate[1]:.3f} s = {resumed_rate[0] / resumed_rate[1]:.3f} "
         f"(none), (iii) {other_rate[0]} in {other_rate[1]:.3f} s = "
         f"{other_rate[0] / other_rate[1]:.3f} (none) on {smi}")
+    left = sorted(
+        os.path.relpath(os.path.join(d, name), base)
+        for d, _, files in os.walk(base) for name in files
+        if ".tmp-" in name)
+    log(f"resume: a dead writer's temporary {os.path.basename(planted)} "
+        f"planted beside the killed run's bundle: "
+        f"{'gone' if not os.path.exists(planted) else 'still there'} after "
+        f"the resumed run; temporaries left in the three runs' checkpoint "
+        f"directories: {left or 'none'}")
     for line in card_writer_checks():
         log(f"resume: {line} on {smi}")
+    if os.path.exists(planted) or left:
+        raise RuntimeError(f"resume: temporaries left behind: {left}")
     if epochs_run != 1:
         raise RuntimeError(f"the resumed run trained {epochs_run} epochs")
     if min(launches.values()) <= 0:
@@ -2743,9 +2792,9 @@ def phase_resume(root: str, inputs: dict, smi: str) -> None:
                            f"run, {d_other} from another run")
 
 
-# the folds of the fold-parallel resume: 3 of the 5 (the depth the whole
+# the folds of the fold-parallel resume: 2 of the 5 (the depth the whole
 # smoke's time allows; the CLI and the turns stack all 5)
-RESUME_FOLDS = 3
+RESUME_FOLDS = 2
 
 
 def fold_parallel_argv(argv: list, n_folds: int = N_FOLDS) -> list:
@@ -2970,12 +3019,15 @@ def fold_parallel_truth() -> None:
         raise RuntimeError("fold-parallel truth: the gradients disagree")
 
 
-def fold_parallel_resume(root: str, inputs: dict, smi: str) -> None:
+def fold_parallel_resume(root: str, inputs: dict, smi: str,
+                         meanwhile=None) -> None:
     """``resume_argv`` over ``RESUME_FOLDS`` folds with ``--fold_parallel``:
     (i) straight through; (ii) a child SIGKILLed once its epoch-0 stacked
     bundle (a partial mean in it) is on disk, then run again with
     ``--resume``: epoch 1 only, K1-K3 launched, (i)'s ``global_step``,
-    every fold's final weights within ``RESUME_WEIGHT_TOL`` of (i)'s."""
+    every fold's final weights within ``RESUME_WEIGHT_TOL`` of (i)'s.
+    ``meanwhile()``, where given, and then (i) run while the child of (ii)
+    does."""
     from freesound_classification_tpu_torch.cli import train_2d_cnn
     from freesound_classification_tpu_torch.ops import kernels
     from freesound_classification_tpu_torch.training import (
@@ -2984,43 +3036,53 @@ def fold_parallel_resume(root: str, inputs: dict, smi: str) -> None:
     )
 
     base = os.path.join(root, "fp_resume")
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    straight = train_2d_cnn.main(fold_parallel_argv(
-        resume_argv(inputs, os.path.join(base, "straight")), RESUME_FOLDS))
-    torch.cuda.synchronize()
-    straight_s = time.time() - t0
-    want = checkpoints.load_bundle(os.path.join(
-        straight.experiment_dir, "checkpoints", multifold.BUNDLE))
-
     killed = os.path.join(base, "killed")
     here = os.path.dirname(os.path.abspath(__file__))
     torch.cuda.empty_cache()
-    t0 = time.time()
-    with open(os.path.join(root, "fp_resume_child.log"), "w") as out:
-        proc = subprocess.Popen(
-            [sys.executable, "-m",
-             "freesound_classification_tpu_torch.cli.train_2d_cnn",
-             *fold_parallel_argv(resume_argv(inputs, killed),
-                                 RESUME_FOLDS)],
-            cwd=here, stdout=out, stderr=subprocess.STDOUT,
-            start_new_session=True)
-        try:
-            bundle_path = None
-            while time.time() - t0 < RESUME_TIMEOUT:
-                _, exp = fold0_files(killed)
-                path = exp and os.path.join(exp, "checkpoints",
-                                            multifold.BUNDLE)
-                if path and os.path.isfile(path):
-                    bundle_path = path
-                    break
-                if proc.poll() is not None:
-                    break
-                time.sleep(0.02)
-        finally:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    kill_s = time.time() - t0
+
+    def kill_at_bundle() -> tuple:
+        """The child of (ii), SIGKILLed once its bundle is on disk: the
+        bundle's path (None where the child ended without one) and the
+        child's seconds."""
+        t0 = time.time()
+        with open(os.path.join(root, "fp_resume_child.log"), "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "freesound_classification_tpu_torch.cli.train_2d_cnn",
+                 *fold_parallel_argv(resume_argv(inputs, killed),
+                                     RESUME_FOLDS)],
+                cwd=here, stdout=out, stderr=subprocess.STDOUT,
+                start_new_session=True)
+            path = None
+            try:
+                while time.time() - t0 < RESUME_TIMEOUT:
+                    _, exp = fold0_files(killed)
+                    found = exp and os.path.join(exp, "checkpoints",
+                                                 multifold.BUNDLE)
+                    if found and os.path.isfile(found):
+                        path = found
+                        break
+                    if proc.poll() is not None:
+                        break
+                    time.sleep(0.02)
+            finally:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        return path, time.time() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        child = pool.submit(kill_at_bundle)
+        if meanwhile is not None:
+            meanwhile()
+        t0 = time.time()
+        straight = train_2d_cnn.main(fold_parallel_argv(
+            resume_argv(inputs, os.path.join(base, "straight")),
+            RESUME_FOLDS))
+        torch.cuda.synchronize()
+        straight_s = time.time() - t0
+        bundle_path, kill_s = child.result()
+    want = checkpoints.load_bundle(os.path.join(
+        straight.experiment_dir, "checkpoints", multifold.BUNDLE))
     if bundle_path is None:
         with open(os.path.join(root, "fp_resume_child.log")) as f:
             raise RuntimeError("the killed stacked run wrote no bundle:\n"
@@ -3046,8 +3108,9 @@ def fold_parallel_resume(root: str, inputs: dict, smi: str) -> None:
     d_same = [float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in
               zip(fold_finals(resumed.experiment_dir, RESUME_FOLDS),
                   fold_finals(straight.experiment_dir, RESUME_FOLDS))]
-    log(f"fold-parallel resume: (i) {straight_s:.1f} s; (ii) killed at "
-        f"{kill_s:.1f} s with its epoch-0 bundle (micro-step "
+    log(f"fold-parallel resume: (i) {straight_s:.1f} s and (ii) killed at "
+        f"{kill_s:.1f} s, (i) and the truth check beside (ii)'s child, with "
+        f"its epoch-0 bundle (micro-step "
         f"{at_kill['micro_step']} of 2, global_step "
         f"{at_kill['global_step']}, loader epochs "
         f"{at_kill['loader_epochs']}), resumed in {resumed_s:.1f} s "
@@ -3076,8 +3139,8 @@ def phase_fold_parallel(root: str, inputs: dict, smi: str) -> dict:
     t0 = time.time()
     launches = fold_parallel_cli(root, inputs, smi)
     fold_parallel_turns(smi)
-    fold_parallel_truth()
-    fold_parallel_resume(root, inputs, smi)
+    # the truth check times nothing: it runs beside the resume's child
+    fold_parallel_resume(root, inputs, smi, meanwhile=fold_parallel_truth)
     log(f"fold-parallel phase: {time.time() - t0:.1f} s")
     return launches
 
@@ -3991,11 +4054,15 @@ def phase_fold_mesh(root: str, inputs: dict, smi: str) -> None:
     """M5.2a and M5.2b on the one card: 4 folds on two gloo ranks sharing
     it, 2 a rank, and 3 folds on the same ranks in the 1 x 2 layout, each
     against one process, the ranks' bundle resumed by one process (elastic
-    resume), and the fold-parallel train CLI on one NCCL rank under
-    ``torchrun`` against a plain child."""
+    resume), and, beside them, the fold-parallel train CLI on one NCCL
+    rank under ``torchrun`` against a plain child."""
     t0 = time.time()
-    fold_mesh_ranks(smi)
-    fold_mesh_cli(root, inputs, smi)
+    # the CLI's two children beside the ranks: both compare results, not
+    # times (the ranks' stacked steps/s are taken beside the children)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(fold_mesh_cli, root, inputs, smi)
+        fold_mesh_ranks(smi)
+        cli.result()
     log(f"fold mesh phase: {time.time() - t0:.1f} s")
 
 
@@ -4513,14 +4580,14 @@ def phase_tta(root: str, inputs: dict, experiment: str, smi: str) -> None:
 
 
 def rnn_argv(inputs: dict, experiments_dir: str, label: str,
-             *extra: str) -> list:
+             *extra: str, n_folds: int = 5) -> list:
     """The train CLI at the recipe's width with ``--aggregation_type rnn``
     over ``TRAIN_EPOCHS`` epochs."""
     recipe = [a if a != "max" else "rnn" for a in RECIPE]
     return ["--train_df", inputs["train_csv"],
             "--train_data_dir", inputs["train_dir"],
             "--classmap", inputs["classmap"], "--device", DEVICE, *recipe,
-            "--n_folds", "5", "--epochs", str(TRAIN_EPOCHS),
+            "--n_folds", str(n_folds), "--epochs", str(TRAIN_EPOCHS),
             "--num_workers", "4", "--log_interval", "10", "--label", label,
             "--experiments_dir", experiments_dir, *extra]
 
@@ -4555,54 +4622,68 @@ def last_epoch_rate(experiment_dir: str, fold: int) -> tuple:
     return result["train_steps"][-1], result["train_seconds"][-1]
 
 
+# the rnn phase's stacked child: every fold of --n_folds 2 (75 train clips
+# a fold, 3 steps of 20 an epoch), enough to drive the GRUs' vmap route
+RNN_STACKED_FOLDS = 2
+
+
 def phase_rnn(root: str, inputs: dict, smi: str) -> dict:
     """The ``rnn`` aggregation at the recipe's width: the GRU's cuDNN route
     against its step-by-step twin at the 2d model's four GRU shapes
     (float32, TF32 off; ``probes/rnn_step.route_check``), the train CLI
-    with ``--aggregation_type rnn`` over 2 epochs of fold 0 and with
-    ``--fold_parallel`` over folds 0-4 (the stacked step runs the GRUs'
-    vmap route), each a child counting K1-K3 through ``$FSC_LAUNCH_LOG``,
-    the 5-fold bf16 predict CLI on the stacked run's folds, and the rnn
+    with ``--aggregation_type rnn`` over 2 epochs of fold 0 of 5 and with
+    ``--fold_parallel`` over both folds of ``RNN_STACKED_FOLDS`` (the
+    stacked step runs the GRUs' vmap route), each a child counting K1-K3
+    through ``$FSC_LAUNCH_LOG``, the two at once beside the route checks,
+    then the bf16 predict CLI on the stacked run's folds, and the rnn
     train step against the max one in turns (``rnn_step.compare``).
     Returns the launches of the two train runs."""
     from freesound_classification_tpu_torch.cli import predict_2d_cnn
     from freesound_classification_tpu_torch.ops import kernels
     from freesound_classification_tpu_torch.probes import rnn_step
 
-    for row in rnn_step.route_check(DEVICE):
-        log(f"rnn: GRU block {row['block']} {row['shape']} float32, cuDNN "
-            f"route against the step-by-step one: outputs max |d| "
-            f"{row['out']:.3e}, gradients {row['grad']:.3e} of each "
-            f"parameter's largest (tolerance {rnn_step.ROUTE_TOL:g}); cuDNN "
-            f"in bf16 against float32 {row['bf16']:.3e} of the largest")
-        if not max(row["out"], row["grad"]) <= rnn_step.ROUTE_TOL:
-            raise RuntimeError("rnn: the GRU's two routes disagree")
-    log(f"rnn: torch.func.vmap of the cuDNN route: "
-        f"{rnn_step.vmap_of_fused(DEVICE)}")
-
     experiments = os.path.join(root, "experiments")
     module = "freesound_classification_tpu_torch.cli.train_2d_cnn"
     launches = {}
-    for name, extra in (("sequential", ("--folds", "0")),
-                        ("fold-parallel", ("--folds", "0", "1", "2", "3",
-                                           "4", "--fold_parallel"))):
+    stacked = [str(k) for k in range(RNN_STACKED_FOLDS)]
+    runs = {"sequential": (("--folds", "0"), 5),
+            "fold-parallel": (("--folds", *stacked, "--fold_parallel"),
+                              RNN_STACKED_FOLDS)}
+    # the two children at once, beside the route checks (no timing there)
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        children = {
+            name: pool.submit(logged_cli, module, rnn_argv(
+                inputs, experiments, f"rnn_{name}", *extra,
+                n_folds=n_folds), RESUME_TIMEOUT)
+            for name, (extra, n_folds) in runs.items()}
+        for row in rnn_step.route_check(DEVICE):
+            log(f"rnn: GRU block {row['block']} {row['shape']} float32, "
+                f"cuDNN route against the step-by-step one: outputs max "
+                f"|d| {row['out']:.3e}, gradients {row['grad']:.3e} of each "
+                f"parameter's largest (tolerance {rnn_step.ROUTE_TOL:g}); "
+                f"cuDNN in bf16 against float32 {row['bf16']:.3e} of the "
+                f"largest")
+            if not max(row["out"], row["grad"]) <= rnn_step.ROUTE_TOL:
+                raise RuntimeError("rnn: the GRU's two routes disagree")
+        log(f"rnn: torch.func.vmap of the cuDNN route: "
+            f"{rnn_step.vmap_of_fused(DEVICE)}")
+        done = {name: child.result() for name, child in children.items()}
+    for name, (_, launches[name], wall) in done.items():
         label = f"rnn_{name}"
-        _, launches[name], wall = logged_cli(
-            module, rnn_argv(inputs, experiments, label, *extra),
-            RESUME_TIMEOUT)
         found = [d for d in os.listdir(experiments) if label in d]
         if len(found) != 1:
             raise RuntimeError(f"rnn: experiments {found}")
         experiment = os.path.join(experiments, found[0])
         steps, seconds = last_epoch_rate(experiment, 0)
         log(f"rnn: train CLI {name}, {wall:.2f} s as a child for "
-            f"{TRAIN_EPOCHS} epochs; launches {launches[name]}; last epoch "
+            f"{TRAIN_EPOCHS} epochs (the two children at once, beside the "
+            f"route checks); launches {launches[name]}; last epoch "
             f"{steps:g} {'stacked ' if 'parallel' in name else ''}steps in "
             f"{seconds:.3f} s = {steps / seconds:.3f} steps/s on {smi}")
         if any(launches[name].get(k, 0) <= 0 for k in ("K1", "K2", "K3")):
             raise RuntimeError(f"rnn: the train run missed a kernel: "
                                f"{launches[name]}")
-    for fold in range(5):
+    for fold in range(RNN_STACKED_FOLDS):
         fold_dir = os.path.join(experiment, "checkpoints", f"fold_{fold}")
         for name in ("best_model.npz", "final_model.npz"):
             if not os.path.isfile(os.path.join(fold_dir, name)):
@@ -4626,9 +4707,10 @@ def phase_rnn(root: str, inputs: dict, smi: str) -> dict:
             or probs.shape != (len(fnames), TRAIN_CLASSES)
             or not np.isfinite(probs).all()
             or probs.min() < 0 or probs.max() > 1 or k1 <= 0):
-        raise RuntimeError(f"rnn: bad 5-fold predictions {probs.shape}, "
-                           f"K1 {k1}")
-    log(f"rnn: predict CLI, 5 folds bf16: {probs.shape} probabilities in "
+        raise RuntimeError(f"rnn: bad {RNN_STACKED_FOLDS}-fold predictions "
+                           f"{probs.shape}, K1 {k1}")
+    log(f"rnn: predict CLI, {RNN_STACKED_FOLDS} folds bf16: {probs.shape} "
+        f"probabilities in "
         f"[{probs.min():.4g}, {probs.max():.4g}], K1 {k1} launches")
 
     steps = rnn_step.compare(DEVICE)
@@ -5104,27 +5186,36 @@ def main() -> None:
 
     t_start = time.time()
     smi = phase_device()
-    timed("build", phase_build)
-    k1 = timed("K1", phase_k1)
-    k2 = timed("K2", phase_k2)
-    k3 = timed("K3", phase_k3)
-    k6 = timed("K6", phase_k6)
-    k45 = timed("K4/K5", phase_k45)
-    k7 = timed("K7", phase_k7)
-    k8 = timed("K8", phase_k8)
-    k9 = timed("K9", phase_k9)
-    timed("no sync", phase_no_sync)
-    timed("domain", phase_domain)
-    timed("step split", phase_step_split, smi)
-    timed("ablation", phase_ablation, smi)
+    bytecode_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        t0 = time.time()
-        inputs = write_inputs(root)
-        train_inputs = write_train_inputs(root)
+        # the host renders the WAVs on a thread while the build waits on
+        # its slowest nvcc; the card's work all stays on this thread
+        def write_all() -> tuple:
+            t0 = time.time()
+            return (write_inputs(root), write_train_inputs(root),
+                    time.time() - t0)
+
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            written = pool.submit(write_all)
+            timed("build", phase_build)
+            inputs, train_inputs, write_s = written.result()
         secs = float(synthetic_clip_lengths(N_CLIPS).sum()) / SR
         log(f"inputs: {N_CLIPS} test clips, {secs:.1f} s of audio, "
             f"{N_FOLDS} folds of each family; {N_TRAIN_CLIPS} labelled "
-            f"clips of 8.5-15 s ({time.time() - t0:.1f} s to write)")
+            f"clips of 8.5-15 s ({write_s:.1f} s to write, beside the "
+            f"build)")
+        k1 = timed("K1", phase_k1)
+        k2 = timed("K2", phase_k2)
+        k3 = timed("K3", phase_k3)
+        k6 = timed("K6", phase_k6)
+        k45 = timed("K4/K5", phase_k45)
+        k7 = timed("K7", phase_k7)
+        k8 = timed("K8", phase_k8)
+        k9 = timed("K9", phase_k9)
+        timed("no sync", phase_no_sync)
+        timed("domain", phase_domain)
+        timed("step split", phase_step_split, smi)
+        timed("ablation", phase_ablation, smi)
         k1["launches"], probs_2d = timed("main path", phase_main_path, root,
                                          inputs, smi)
         timed("mesh predict", phase_mesh_predict, root, inputs,

@@ -40,6 +40,8 @@ with ``load_fold_npz``.
 from __future__ import annotations
 
 import os
+import re
+import socket
 from typing import BinaryIO, Callable, Mapping, Tuple
 
 import numpy as np
@@ -352,18 +354,82 @@ def _fsync_dir(directory: str) -> None:
         os.close(fd)
 
 
+_TEMPORARY_TAG = ".tmp-"
+# what follows the tag: ``<host>-<pid>``, or the bare ``<pid>`` of older
+# names, then an optional suffix (``.<stem>.o``); the host is matched
+# greedily, so a host name may hold ``-`` and ``.``
+_TEMPORARY_OWNER = re.compile(r"(?:(?P<host>.+)-)?(?P<pid>\d+)(?:\..*)?")
+
+
+def temporary_name(name: str) -> str:
+    """``<name>.tmp-<host>-<pid>``: the temporary this process writes for
+    ``name``."""
+    return f"{name}{_TEMPORARY_TAG}{socket.gethostname()}-{os.getpid()}"
+
+
+def _process_is_gone(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    except (PermissionError, OverflowError):  # another user's, or no pid
+        return False
+    return False
+
+
+def clear_dead_temporaries(directory: str, prefix: str) -> list:
+    """Remove the files in ``directory`` whose names start with ``prefix``
+    and hold a ``temporary_name`` tag of a writer that died before its
+    rename: a tag of this host (or a bare ``.tmp-<pid>``, counted as this
+    host's) whose pid is not this process's and names no live process.
+    A live writer's temporary, this process's own and another host's stay.
+    Returns the names removed."""
+    host, me = socket.gethostname(), os.getpid()
+    removed = []
+    try:
+        names = os.listdir(directory)
+    except FileNotFoundError:
+        return removed
+    for name in names:
+        if not name.startswith(prefix) or _TEMPORARY_TAG not in name:
+            continue
+        owner = _TEMPORARY_OWNER.fullmatch(name.rsplit(_TEMPORARY_TAG, 1)[1])
+        if owner is None or owner["host"] not in (None, host):
+            continue
+        pid = int(owner["pid"])
+        if pid <= 0 or pid == me or not _process_is_gone(pid):
+            continue
+        try:
+            os.unlink(os.path.join(directory, name))
+        except FileNotFoundError:  # another process cleared it first
+            continue
+        removed.append(name)
+    return removed
+
+
 def write_durably(path: str, write: Callable[[BinaryIO], None]) -> None:
-    """``write(f)`` into a temporary file beside ``path``, fsynced, then
-    renamed over ``path`` (one atomic step) and the directory fsynced, so
-    that a kill at any point leaves the previous file or the new one, whole,
-    at ``path``."""
-    tmp = f"{path}.tmp-{os.getpid()}"
+    """``write(f)`` into a temporary file beside ``path``
+    (``temporary_name``), fsynced, then renamed over ``path`` (one atomic
+    step) and the directory fsynced, so that a kill at any point leaves the
+    previous file or the new one, whole, at ``path``.
+
+    First the temporaries of ``path`` that dead writers of this host left
+    are removed (``clear_dead_temporaries``), as JAX's next save of a path
+    clears its stale swaps. A ``write`` or ``fsync`` that raises removes
+    this call's temporary and leaves ``path`` as it was."""
+    directory, name = os.path.split(os.path.abspath(path))
+    clear_dead_temporaries(directory, name + _TEMPORARY_TAG)
+    tmp = os.path.join(directory, temporary_name(name))
     with open(tmp, "wb") as f:
-        write(f)
-        f.flush()
-        os.fsync(f.fileno())
+        try:
+            write(f)
+            f.flush()
+            os.fsync(f.fileno())
+        except BaseException:
+            os.unlink(tmp)
+            raise
     os.replace(tmp, path)
-    _fsync_dir(os.path.dirname(os.path.abspath(path)))
+    _fsync_dir(directory)
 
 
 def save_fold_npz(path: str, params: Mapping, batch_stats: Mapping) -> None:

@@ -6,7 +6,10 @@ interface, loaded with ``ctypes``. The library lands in
 ``build/torch_kernels/`` at the repository root (git-ignored), named by a hash
 of the sources, the flags and the compiler, so an edited source or flag builds
 anew and an unchanged one is reused. Nothing is built when a module is
-imported: ``load_library()`` builds on its first call.
+imported: ``load_library()`` builds on its first call. A build writes its
+objects and library under ``interop.temporary_name`` (host and pid) and
+renames the library into place last; the next build on the same host
+removes what a killed build left (``interop.clear_dead_temporaries``).
 """
 
 from __future__ import annotations
@@ -69,8 +72,12 @@ def build() -> Path:
     lib = library_path(nvcc)
     if lib.exists():
         return lib
+    from freesound_classification_tpu_torch import interop
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    # a killed build's library and objects: its pid is dead
+    interop.clear_dead_temporaries(str(BUILD_DIR), "libfsc_kernels_")
+    tmp = BUILD_DIR / interop.temporary_name(lib.name)
     objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(_sources(), objects)]
@@ -87,6 +94,7 @@ def build() -> Path:
                                    f"{' '.join(cmd)}\n{report}")
         proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                                f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
     finally:
