@@ -12,6 +12,13 @@ contiguous slice of each batch (``_local_rows``: a tail that does not divide
 is padded by repeating its last index). Each batch says how many of its rows
 are real (``n_real``) and how many the global batch has (``n_global``), so
 the engine can mask the padded ones.
+
+Spans (``utils/profiling.span``): ``loader.decode`` around each batch's
+decode, on the thread that decodes it, and ``loader.wait`` around the
+consumer's wait for a decoded batch, each with the batch's position in the
+pass (``batch``); the pass's last wait, for its end, has ``batch`` equal to
+the number of batches. A consumer that stops mid-pass stops the producer:
+its pending put gives up and the decodes not yet started are cancelled.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from freesound_classification_tpu_torch.data.bucketing import (
 )
 from freesound_classification_tpu_torch.data.dataset import ClipDataset
 from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
+from freesound_classification_tpu_torch.utils.profiling import span
 
 _PREFETCH = 2  # decoded batches waiting ahead of the device
+_STOP_POLL_S = 0.05  # how soon a blocked put sees the consumer stop
 
 
 class DataLoader:
@@ -69,20 +78,23 @@ class DataLoader:
         return indices[self.process_index * per:
                        (self.process_index + 1) * per]
 
-    def _make_batch(self, indices: List[int], epoch: int) -> dict:
-        b = bucket_of(self.sampler.lengths[indices], self.sampler.ladder)
-        length = int(self.sampler.ladder[int(b.max())])
-        n_global = len(indices)
-        indices = self._local_rows(indices)
-        signal = np.zeros((len(indices), length), dtype=np.float32)
-        lengths = np.zeros(len(indices), dtype=np.int32)
-        labels = np.zeros((len(indices), self.dataset.n_classes),
-                          dtype=np.float32)
-        for row, idx in enumerate(indices):
-            audio = self.dataset.decode(idx, train=self.train, epoch=epoch)
-            signal[row] = pad_to_length(audio, length)
-            lengths[row] = min(audio.size, length)
-            labels[row] = self.dataset.label(idx)
+    def _make_batch(self, indices: List[int], epoch: int,
+                    position: int = 0) -> dict:
+        with span("loader.decode", batch=position):
+            b = bucket_of(self.sampler.lengths[indices], self.sampler.ladder)
+            length = int(self.sampler.ladder[int(b.max())])
+            n_global = len(indices)
+            indices = self._local_rows(indices)
+            signal = np.zeros((len(indices), length), dtype=np.float32)
+            lengths = np.zeros(len(indices), dtype=np.int32)
+            labels = np.zeros((len(indices), self.dataset.n_classes),
+                              dtype=np.float32)
+            for row, idx in enumerate(indices):
+                audio = self.dataset.decode(idx, train=self.train,
+                                            epoch=epoch)
+                signal[row] = pad_to_length(audio, length)
+                lengths[row] = min(audio.size, length)
+                labels[row] = self.dataset.label(idx)
         batch = {"signal": signal, "lengths": lengths, "labels": labels,
                  "index": np.asarray(indices, dtype=np.int64)}
         if self.process_count > 1:
@@ -101,33 +113,49 @@ class DataLoader:
         epoch = self._epoch
         batches = list(self.sampler)
         if self.num_workers <= 0:
-            for indices in batches:
-                yield self._make_batch(indices, epoch)
+            for position, indices in enumerate(batches):
+                yield self._make_batch(indices, epoch, position)
             return
 
         out_q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
 
+        def put(item) -> bool:
+            """Hand ``item`` over; False once the consumer has stopped."""
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=_STOP_POLL_S)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
         def producer():
-            with ThreadPoolExecutor(self.num_workers) as pool:
-                futures = [pool.submit(self._make_batch, idxs, epoch)
-                           for idxs in batches]
+            pool = ThreadPoolExecutor(self.num_workers)
+            try:
+                futures = [pool.submit(self._make_batch, idxs, epoch, i)
+                           for i, idxs in enumerate(batches)]
                 for fut in futures:
                     if stop.is_set():
-                        fut.cancel()
-                        continue
-                    try:
-                        out_q.put(fut.result())
-                    except Exception as e:  # surfaced to the consumer
-                        out_q.put(e)
                         return
-            out_q.put(None)
+                    try:
+                        item = fut.result()
+                    except Exception as e:  # surfaced to the consumer
+                        put(e)
+                        return
+                    if not put(item):
+                        return
+                put(None)
+            finally:
+                pool.shutdown(wait=True, cancel_futures=True)
 
-        thread = threading.Thread(target=producer, daemon=True)
+        thread = threading.Thread(target=producer, daemon=True,
+                                  name="DataLoader producer")
         thread.start()
         try:
-            while True:
-                item = out_q.get()
+            for position in range(len(batches) + 1):
+                with span("loader.wait", batch=position):
+                    item = out_q.get()
                 if item is None:
                     break
                 if isinstance(item, Exception):

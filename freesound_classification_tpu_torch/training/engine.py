@@ -23,9 +23,11 @@ validation lwlrap, ``fit_validate`` saving ``best_model.npz`` per fold and
 (``warm_start_path``: every fold's fit starts from that ``best_model.npz``'s
 weights and BatchNorm statistics, with a fresh optimizer and step count),
 and with ``profile_dir`` a ``torch.profiler`` trace of epoch 1 (the first
-after the warm-up epoch 0) into that directory. While it traces, each
-step's stages are named ranges in the trace (``augment``, ``frontend``,
-``forward``, ``backward``, ``optimizer``); untraced steps open none.
+after the warm-up epoch 0) into that directory. While spans are on
+(``utils/profiling.span``: in any profiler window, that trace's too), each
+step's stages are spans (``augment``, ``frontend``, ``forward``,
+``backward``, ``optimizer``) and its host-to-device copy one (``h2d``);
+with spans off they open nothing.
 
 Saves go through ``checkpoints``' writer thread: each epoch's periodic
 model, best model and bundle are enqueued in that order, snapshots taken
@@ -122,12 +124,13 @@ from freesound_classification_tpu_torch.training.optimizers import (
 from freesound_classification_tpu_torch.utils.device import resolve_device
 from freesound_classification_tpu_torch.utils.profiling import (
     StepTimer,
-    annotate,
     maybe_trace,
+    span,
 )
 
 
 def _no_range(name: str) -> contextlib.nullcontext:
+    """A stage that opens nothing whatever the switch."""
     del name
     return contextlib.nullcontext()
 
@@ -204,7 +207,7 @@ class Engine:
         self._writer_factory = summary_writer_factory
         self.train_writer = None
         self.valid_writer = None
-        self._stage = _no_range  # ``annotate`` while an epoch is traced
+        self._stage = span  # the step's five stages
         self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.mesh.rank_seed(seed) if self.mesh else seed)
@@ -244,8 +247,9 @@ class Engine:
         self._accumulated = None
 
     def to_device(self, batch: dict) -> tuple:
-        return tuple(torch.as_tensor(batch[k], device=self.device)
-                     for k in ("signal", "lengths", "labels"))
+        with span("h2d"):
+            return tuple(torch.as_tensor(batch[k], device=self.device)
+                         for k in ("signal", "lengths", "labels"))
 
     @staticmethod
     def batch_rows(batch: dict) -> tuple:
@@ -601,14 +605,10 @@ class Engine:
         self.epoch_stats = []
         for epoch in range(start_epoch, epochs):
             traced = self.profile_dir if epoch == 1 else None
-            self._stage = annotate if traced else _no_range
-            try:
-                with maybe_trace(traced):
-                    stats = self.train_epoch(
-                        train_loader, 0.0 if epoch >= switch_off else 1.0,
-                        log_interval)
-            finally:
-                self._stage = _no_range
+            with maybe_trace(traced):
+                stats = self.train_epoch(
+                    train_loader, 0.0 if epoch >= switch_off else 1.0,
+                    log_interval)
             self.epoch_stats.append(stats)
             print(f"Epoch {epoch}: loss {stats['loss']:.4f} metric "
                   f"{stats['metric']:.4f} ({stats['clips_per_sec']:.1f} "

@@ -6,6 +6,11 @@ each batch is featurized once, the K fold models run in a loop over the shared
 features, and their sigmoids are averaged; test-time augmentation averages
 such passes. On a data-parallel mesh (``parallel/mesh.py``) each rank predicts
 its slice of every batch's rows and the ranks gather them.
+
+Spans (``utils/profiling.span``): a batch's host-to-device copy (``h2d``),
+its featurization (``predict.frontend``), each fold's forward and sigmoid
+(``predict.fold``, ``fold=k``) and the wait for its probabilities on the
+host (``predict.readback``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from torch import nn
 
 from freesound_classification_tpu_torch.models.frontend import Frontend
 from freesound_classification_tpu_torch.parallel import mesh as mesh_lib
+from freesound_classification_tpu_torch.utils.profiling import span
 
 
 class EnsemblePredictor:
@@ -37,8 +43,12 @@ class EnsemblePredictor:
         probabilities, float32 on ``device``."""
         wave = torch.as_tensor(wave, device=self.device)
         lengths = torch.as_tensor(lengths, device=self.device)
-        inputs, frame_lengths = self.frontend(wave, lengths)
-        probs = [torch.sigmoid(m(inputs, frame_lengths)) for m in self.models]
+        with span("predict.frontend"):
+            inputs, frame_lengths = self.frontend(wave, lengths)
+        probs = []
+        for k, m in enumerate(self.models):
+            with span("predict.fold", fold=k):
+                probs.append(torch.sigmoid(m(inputs, frame_lengths)))
         return torch.stack(probs).mean(dim=0)
 
     def _predict_rows(self, wave: torch.Tensor, lengths: torch.Tensor,
@@ -93,15 +103,18 @@ class EnsemblePredictor:
                     raise ValueError(
                         "predict_loader on a mesh takes the global batches: "
                         "build the loader without the mesh")
-                wave = torch.as_tensor(batch["signal"], device=self.device)
-                lengths = torch.as_tensor(batch["lengths"],
-                                          device=self.device)
+                with span("h2d"):
+                    wave = torch.as_tensor(batch["signal"],
+                                           device=self.device)
+                    lengths = torch.as_tensor(batch["lengths"],
+                                              device=self.device)
                 if tta_fn is not None and t > 0:
                     with torch.inference_mode():
                         wave, lengths = tta_fn(wave, lengths, generator)
                 probs = (self.predict_batch(wave, lengths) if mesh is None
                          else self._predict_rows(wave, lengths, mesh))
-                probs_chunks.append(probs.cpu().numpy())
+                with span("predict.readback"):
+                    probs_chunks.append(probs.cpu().numpy())
                 idx_chunks.append(batch["index"])
             probs = np.concatenate(probs_chunks)
             out = np.zeros_like(probs)

@@ -144,12 +144,10 @@ from freesound_classification_tpu_torch.training import checkpoints
 from freesound_classification_tpu_torch.training.engine import (
     Engine,
     _default_rng_state,
-    _no_range,
     _set_default_rng_state,
 )
 from freesound_classification_tpu_torch.utils.profiling import (
     StepTimer,
-    annotate,
     maybe_trace,
 )
 
@@ -697,14 +695,10 @@ class MultiFoldEngine(Engine):
         self.epoch_stats = []
         for epoch in range(start_epoch, epochs):
             traced = self.profile_dir if epoch == 1 else None
-            self._stage = annotate if traced else _no_range
-            try:
-                with maybe_trace(traced):
-                    stats = self.train_epoch(
-                        train_loaders, 0.0 if epoch >= switch_off else 1.0,
-                        log_interval, n_steps=steps_per_epoch)
-            finally:
-                self._stage = _no_range
+            with maybe_trace(traced):
+                stats = self.train_epoch(
+                    train_loaders, 0.0 if epoch >= switch_off else 1.0,
+                    log_interval, n_steps=steps_per_epoch)
             self.epoch_stats.append(stats)
             scores = []
             for k, fold in enumerate(self.fold_ids):

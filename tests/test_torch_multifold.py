@@ -10,6 +10,7 @@ sides, float32 at a tiny width (mel_512_256_32, 2 blocks, base depth 8,
 """
 
 import csv
+import json
 import os
 import shutil
 import signal
@@ -749,19 +750,18 @@ def test_train_cli_fold_parallel_with_packing_accumulation_profile_resume(
     a step differ in rows and length), ``--accumulation_steps 2`` and
     ``--profile``, 2 epochs, stopped after epoch 0; the same command with
     ``--resume`` trains epoch 1 only, from the stacked bundle, traces it
-    (its steps open the five stage ranges, once each) and ends with the
+    (its steps record the five stage spans, once each) and ends with the
     straight count of steps and updates."""
     from freesound_classification_tpu_torch.utils import profiling
 
     root = str(tmp_path)
     _write_dataset(root)
-    opened = []
+    stages = {"augment", "frontend", "forward", "backward", "optimizer"}
 
-    def counted(name):
-        opened.append(name)
-        return profiling.annotate(name)
+    def opened():
+        return [r.name for r in profiling.spans() if r.name in stages]
 
-    monkeypatch.setattr(multifold, "annotate", counted)
+    profiling.reset()
     shapes = set()
     stack_fn = multifold.stack_batches
 
@@ -777,6 +777,7 @@ def test_train_cli_fold_parallel_with_packing_accumulation_profile_resume(
         if epochs:
             raise KeyboardInterrupt("killed after epoch 0")
         epochs.append(train_epoch(self, *args, **kwargs))
+        assert opened() == []  # epoch 0 is not traced
         return epochs[-1]
 
     monkeypatch.setattr(multifold.MultiFoldEngine, "train_epoch",
@@ -789,7 +790,7 @@ def test_train_cli_fold_parallel_with_packing_accumulation_profile_resume(
         train_2d_cnn.main(argv)
     assert any(len({s[0] for s in step}) > 1 for step in shapes)
     assert any(len({s[1] for s in step}) > 1 for step in shapes)
-    assert opened == []
+    assert opened() == []
     steps = epochs[0]["steps"]
 
     # the stop came inside epoch 1's trace, which it closed: clear it
@@ -801,11 +802,13 @@ def test_train_cli_fold_parallel_with_packing_accumulation_profile_resume(
     resumed = train_2d_cnn.main(argv + ["--resume"])
     assert resumed.results["fold0"]["train_steps"] == [steps]
     assert resumed.results["fold1"]["train_steps"] == [steps]
-    assert len(opened) == 5 * steps
-    assert set(opened) == {"augment", "frontend", "forward", "backward",
-                           "optimizer"}
+    assert len(opened()) == 5 * steps
+    assert set(opened()) == stages
     traces = [t for t in os.listdir(profile) if t.endswith(".pt.trace.json")]
     assert len(traces) == 1
+    spans = json.load(open(os.path.join(profile, "spans.json")))
+    assert sorted(e["name"] for e in spans["traceEvents"]
+                  if e["name"] in stages) == sorted(opened())
     bundle = checkpoints.load_bundle(os.path.join(
         resumed.experiment_dir, "checkpoints", multifold.BUNDLE))
     assert bundle["meta"]["epoch"] == 1

@@ -25,6 +25,7 @@ from freesound_classification_tpu_torch.training import (
 )
 from freesound_classification_tpu_torch.utils import profiling
 
+STAGES = ("augment", "frontend", "forward", "backward", "optimizer")
 TINY = {"num_conv_blocks": 2, "start_deep_supervision_on": 0,
         "conv_base_depth": 8, "growth_rate": 1.5, "aggregation_type": "max"}
 
@@ -39,19 +40,19 @@ class _Clock:
 
 @pytest.mark.parametrize("ema", [0.9, 0.5])
 def test_step_timer_equals_jax(monkeypatch, ema):
-    """The same EMA step time and clips/s from the same clock readings."""
+    """The same step seconds, clips/s and totals from the same clock
+    readings as JAX's timer, whatever its EMA (the port keeps none)."""
     rng = np.random.RandomState(0)
     ticks = np.cumsum(rng.uniform(0.01, 0.3, size=20)).tolist()
     clips = rng.randint(1, 64, size=10).tolist()
     timers = []
-    for module in (jprofiling, profiling):
+    for module, timer_args in ((jprofiling, (ema,)), (profiling, ())):
         monkeypatch.setattr(module.time, "perf_counter", _Clock(ticks))
-        timer = module.StepTimer(ema)
+        timer = module.StepTimer(*timer_args)
         steps = []
         for n in clips:
             timer.start()
             steps.append(timer.stop(n))
-            steps.append(timer.step_time)
         timers.append((steps, timer.clips_per_sec, timer.total_clips,
                        timer.total_time))
     assert timers[0] == timers[1]
@@ -104,17 +105,22 @@ def test_train_cli_profile_traces_epoch_one_only(tmp_path, monkeypatch,
                                                  epochs):
     """--profile traces epoch 1 (the first after warm-up) into
     <experiment>/summaries/profile, as the JAX engine does: a 2-epoch run
-    leaves one trace naming the step's stages, a 1-epoch run none. Only
-    the traced epoch's steps open the named ranges."""
+    leaves one trace naming the step's stages and their spans in
+    spans.json, a 1-epoch run neither. Only the traced epoch's steps record
+    the stage spans, once each a step."""
     root = str(tmp_path)
     _write_dataset(root)
-    opened = []
+    recorded = []  # the stage spans kept after each epoch
+    train_epoch = engine_module.Engine.train_epoch
 
-    def counted(name):
-        opened.append(name)
-        return profiling.annotate(name)
+    def counted(self, *args, **kwargs):
+        out = train_epoch(self, *args, **kwargs)
+        recorded.append([r.name for r in profiling.spans()
+                         if r.name in STAGES])
+        return out
 
-    monkeypatch.setattr(engine_module, "annotate", counted)
+    monkeypatch.setattr(engine_module.Engine, "train_epoch", counted)
+    profiling.reset()
     experiment = train_2d_cnn.main([
         "--train_df", f"{root}/train.csv", "--train_data_dir",
         f"{root}/train", "--classmap", f"{root}/classmap.json",
@@ -132,11 +138,17 @@ def test_train_cli_profile_traces_epoch_one_only(tmp_path, monkeypatch,
     assert len(traces) == epochs - 1
     with open(os.path.join(experiment.experiment_dir, "results.json")) as f:
         steps = json.load(f)["fold1"]["train_steps"]
-    assert len(opened) == (5 * steps[1] if epochs == 2 else 0)
+    assert [len(r) for r in recorded] == [0] + [5 * n for n in steps[1:]]
+    if epochs == 2:
+        assert sorted(set(recorded[1])) == sorted(STAGES)
+        spans = json.load(open(os.path.join(profile, "spans.json")))
+        assert sorted(e["name"] for e in spans["traceEvents"]
+                      if e["name"] in STAGES) == sorted(recorded[1])
+    else:
+        assert not os.path.exists(os.path.join(profile, "spans.json"))
     for path in traces:
         names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
-        assert {"augment", "frontend", "forward", "backward",
-                "optimizer"} <= names
+        assert set(STAGES) <= names
 
 
 def test_train_step_split_stages_run_small_on_the_cpu():
